@@ -8,24 +8,35 @@ without CUDA (there is no CPU path here). It
 
   1. names the card (``nvidia-smi`` name and power limit) and the
      toolchain;
-  2. builds the four hand-written ``sm_90a`` kernels from
-     ``src/repro_torch/kernels/csrc/``;
+  2. builds the seven hand-written ``sm_90a`` kernels (five sources)
+     from ``src/repro_torch/kernels/csrc/``;
   3. holds every kernel against its plain PyTorch version on the card —
      f32 and bf16, ragged sizes and every leaf shape the driven paths
      hand it (the paper's MLP with 10 and with 1024 users, the full-width
      CNN with 10), including the masked non-finite row and the
-     all-zero-weight merge — and times kernel, plain version and, where
-     one exists, the single PyTorch library call;
+     all-zero-weight merge; the three contention passes bit for bit at
+     every (B, M) pool shape the contention loop runs on, with forced
+     expiry ties, dead lanes and rows with no live lane — and times
+     kernel, plain version and, where one exists, the single PyTorch
+     library call;
   4. drives the port's main path through its normal entry points:
      ``launch.train.build_paper_engine`` with the paper's defaults (MLP
      784x200x10, 10 users, 2 winners a round, ``priority-distributed``)
      for 20 rounds, the full-width CNN for 3 rounds, and after each the
      ``core.server`` merges and the backend's own merge on a freshly
-     trained stack, held against the plain version — with the launch
-     counts set to zero just before each and read just after;
+     trained stack, held against the plain version; then device CSMA
+     contention (``--contention-backend device``): the contention loop
+     with the kernels against the loop with the plain event op, the
+     dense 1e4-1e6-contender regime of ``benchmarks/contention_bench.py``
+     through ``CSMASimulator(backend="device")`` (against numpy at 1e4),
+     the paper's MLP cell for 20 rounds and the MLP with 1000 users and
+     64 winners a round — with the launch counts set to zero just before
+     each path and read just after;
   5. checks the result by the repository's own means: the pinned
      winners of ``tests/winner_pins.json``, the card against the CPU run
-     of the same rounds, and run-to-run bit-equality on the card.
+     of the same rounds, run-to-run bit-equality on the card, and the
+     contention invariants and numpy parity of
+     ``tests/test_contention_device.py``.
 
 ``--profile`` adds a ``torch.profiler`` pass over a few warm rounds
 (device time by kernel, the device's idle share); the default run does
@@ -55,10 +66,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import server as fl_server          # noqa: E402
+from repro_torch.core.csma import CSMAConfig, CSMASimulator  # noqa: E402
 from repro_torch.engine import (ExperimentSpec, FLHistory,  # noqa: E402
                                 build_host_engine)
 from repro_torch.engine.backends import compact_weights   # noqa: E402
 from repro_torch.kernels import build as kbuild           # noqa: E402
+from repro_torch.kernels import contention as kcont       # noqa: E402
 from repro_torch.kernels import ops, ref                  # noqa: E402
 from repro_torch.launch import train as launch_train      # noqa: E402
 from repro_torch.models.paper_models import get_paper_model  # noqa: E402
@@ -83,7 +96,19 @@ KERNELS = {
                            replaces="src/repro/kernels/gather.py:83"),
     "fedavg_combine": dict(source="src/repro_torch/kernels/csrc/combine.cu",
                            replaces="src/repro/kernels/fedavg.py:50"),
+    "contention_min": dict(
+        source="src/repro_torch/kernels/csrc/contention.cu",
+        replaces="src/repro/kernels/contention.py:133"),
+    "contention_expiry": dict(
+        source="src/repro_torch/kernels/csrc/contention.cu",
+        replaces="src/repro/kernels/contention.py:139"),
+    "contention_transition": dict(
+        source="src/repro_torch/kernels/csrc/contention.cu",
+        replaces="src/repro/kernels/contention.py:147"),
 }
+CONTENTION = ("contention_min", "contention_expiry", "contention_transition")
+BIG = ref.CONTENTION_BIG
+SLOT_S = 20e-6
 
 
 def emit(phase, **fields):
@@ -203,6 +228,199 @@ def check_merge_contracts(dtype):
         raise AssertionError("delta_norm: two runs differ bitwise")
 
 
+# ------------------------------------------------------------ contention
+def event_inputs(B, N, seed, kind):
+    """One (counters, live, doublings, windows, rand) pool on the card.
+
+    ``"tie"``: small counters, a forced expiry tie in row 0, dead lanes
+    and (B > 1) a last row with no live lane; ``"dead"``: no live lane
+    at all; ``"loop"``: absolute expiries as the loop holds them (up to
+    BIG, BIG where a lane has left), windows up to 1e6 slots so redraws
+    reach the clamp."""
+    rng = np.random.default_rng(seed)
+    dbl = rng.integers(0, 6, (B, N)).astype(np.int32)
+    rand = rng.random((B, N)).astype(np.float32)
+    if kind == "loop":
+        cnt = rng.integers(0, 1 << 20, (B, N)).astype(np.int32)
+        cnt[rng.random((B, N)) < 0.2] = BIG
+        cnt[:, :min(3, N)] = cnt[:, :1]            # a tie at the row min
+        live = cnt < BIG
+        win = rng.uniform(1.0, 1e6, (B, N)).astype(np.float32)
+    else:
+        cnt = rng.integers(0, 50, (B, N)).astype(np.int32)
+        live = rng.random((B, N)) > 0.3
+        cnt[0, :min(4, N)] = 5
+        live[0, :min(4, N)] = True
+        if B > 1:
+            live[-1] = False
+        if kind == "dead":
+            live[:] = False
+        win = rng.uniform(1.0, 1e4, (B, N)).astype(np.float32)
+    return [torch.from_numpy(a).to(DEV) for a in (cnt, live, dbl, win, rand)]
+
+
+def check_contention_at(B, N, seed):
+    """The event op (three kernels) against its plain version at one
+    pool shape: every output bit-equal, dtypes equal; raises if not."""
+    for kind, mds in (("tie", (5, 7)), ("dead", (5,)), ("loop", (5,))):
+        args = event_inputs(B, N, seed, kind)
+        for md in mds:
+            got = ops.contention_event(*args, md)
+            want = ref.contention_event_ref(*args, md)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("step", "nexp", "winner", "counters",
+                                   "doublings", "active"), got, want):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(
+                        f"contention {name} at {(B, N)}: {g.dtype} "
+                        f"{tuple(g.shape)} vs {w.dtype} {tuple(w.shape)}")
+                if not torch.equal(g, w):
+                    err = float((g.double() - w.double()).abs().max())
+                    raise AssertionError(
+                        f"contention {name} at {(B, N)} ({kind}, max "
+                        f"doublings {md}): not bit-equal to the plain "
+                        f"version (max abs err {err})")
+
+
+def dense_inputs(n, lanes, seed):
+    """``benchmarks/contention_bench.py::_dense_inputs``: CW = n/2 slots
+    (about two expiries a slot), in seconds."""
+    rng = np.random.default_rng(seed)
+    cw = (n // 2) * SLOT_S
+    return rng.uniform(0.0, 1.0, (lanes, n)) * cw, np.full(n, cw)
+
+
+def check_contention_invariants(name, res, k, part=None):
+    """``tests/test_contention_device.py::test_pool_mode_invariants_large_n``
+    per row: unique, participating winners, exactly k, increasing
+    finish slots."""
+    for b in range(res.winners.shape[0]):
+        w = res.winners[b][res.winners[b] >= 0]
+        if not len(w) == len(set(w.tolist())) == k:
+            raise AssertionError(f"{name}: row {b} delivered {w.tolist()}")
+        if part is not None and not part[b, w].all():
+            raise AssertionError(f"{name}: row {b}: a refrained winner")
+        if not (np.diff(res.finish_slots[b][:k]) > 0).all():
+            raise AssertionError(f"{name}: row {b}: finish slots not "
+                                 "increasing")
+
+
+def contention_run(sim, backoffs, windows, k):
+    """One ``contend_batch`` through the simulator with the launch counts
+    and loop stats set to 0 just before and read just after; returns
+    (result, seconds, launches, loop stats)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    kcont.reset_loop_stats()
+    t0 = time.perf_counter()
+    res = sim.contend_batch(backoffs, windows, k_target=k)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k_: ops.LAUNCHES[k_] for k_ in CONTENTION}
+    loop = dict(kcont.LOOP, shapes=sorted(kcont.LOOP["shapes"]))
+    if any(v != loop["events"] for v in launches.values()) \
+            or loop["events"] < 1:
+        raise AssertionError(f"contention: launches {launches} are not "
+                             f"one per pass per event ({loop})")
+    return res, dt, launches, loop
+
+
+def phase_contention_loop_agree():
+    """The loop with the kernels against the loop with the plain event op,
+    fed the same counter-based draws: every field bit-equal. Dense 1e4 x
+    64, and the retry ladder (identical backoffs drain the pool)."""
+    out, shapes = {}, set()
+    cases = {"dense_1e4x64": (*(a / SLOT_S for a in dense_inputs(
+                 10_000, 64, seed=10_000)), 8),
+             "retry_ladder_2x2000": (np.full((2, 2000), 50.0),
+                                     np.full(2000, 2.5e6), 3)}
+    for label, (bo, win, k) in cases.items():
+        kw = dict(entropy=1234, call_index=5, tx_slots=50,
+                  max_backoff_doublings=5, max_sim_slots=2_000_000,
+                  device=DEV)
+        kcont.reset_loop_stats()
+        t0 = time.perf_counter()
+        got = kcont.device_contend_batch(bo, win, k, None, **kw)
+        t1 = time.perf_counter()
+        loop = dict(kcont.LOOP, shapes=sorted(kcont.LOOP["shapes"]))
+        shapes |= kcont.LOOP["shapes"]
+        want = kcont.device_contend_batch(
+            bo, win, k, None, event_op=ref.contention_event_ref, **kw)
+        t2 = time.perf_counter()
+        for f in ("winners", "finish_slots", "collisions", "elapsed_slots",
+                  "n_delivered"):
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"contention_loop_agree {label}: {f} "
+                                     "differs from the plain loop")
+        out[label] = dict(kernel_loop_s=t1 - t0, plain_loop_s=t2 - t1,
+                          events=loop["events"], attempts=loop["attempts"],
+                          pool_shapes=loop["shapes"],
+                          delivered=int(got.n_delivered.sum()),
+                          collisions=int(got.collisions.sum()))
+    if out["retry_ladder_2x2000"]["attempts"] < 2:
+        raise AssertionError("contention_loop_agree: the retry ladder was "
+                             "not climbed")
+    emit("contention_loop_agree", bit_equal=True, cases=out)
+    return shapes
+
+
+def phase_contention_dense():
+    """``benchmarks/contention_bench.py``'s dense grid through
+    ``CSMASimulator(backend="device")``: against numpy at 1e4 x 64 (the
+    bars of ``tests/test_contention_device.py``'s 1e5 test), invariants
+    at 1e5 x 64 and 1e6 x 8."""
+    k, out, shapes = 8, {}, set()
+    for n, lanes in ((10_000, 64), (100_000, 64), (1_000_000, 8)):
+        backoffs, windows = dense_inputs(n, lanes, seed=n)
+        sim = CSMASimulator(CSMAConfig(), seed=0, backend="device",
+                            device=DEV)
+        res, first_s, _, loop = contention_run(sim, backoffs, windows, k)
+        shapes.update(map(tuple, loop["shapes"]))
+        steady = []
+        for _ in range(2):
+            res, dt, launches, loop = contention_run(sim, backoffs, windows,
+                                                     k)
+            steady.append(dt)
+            shapes.update(map(tuple, loop["shapes"]))
+        check_contention_invariants(f"contention_dense {n}", res, k)
+        row = dict(contenders=n, lanes=lanes, first_call_s=first_s,
+                   steady_s=min(steady), events=loop["events"],
+                   attempts=loop["attempts"],
+                   launches=launches,
+                   launches_per_event=sum(launches.values())
+                   / loop["events"],
+                   pool_width=max(m for _, m in loop["shapes"]),
+                   rounds_per_s=lanes / min(steady),
+                   delivered=int(res.n_delivered.sum()),
+                   collisions=int(res.collisions.sum()),
+                   mean_elapsed_slots=float(res.elapsed_slots.mean()),
+                   numpy_s=None)
+        if n == 10_000:
+            t0 = time.perf_counter()
+            host = CSMASimulator(CSMAConfig(), seed=0).contend_batch(
+                backoffs, windows, k_target=k, seeds=list(range(lanes)))
+            row["numpy_s"] = time.perf_counter() - t0
+            if not np.array_equal(res.n_delivered, host.n_delivered):
+                raise AssertionError("contention_dense: deliveries differ "
+                                     "from numpy")
+            dc, hc = int(res.collisions.sum()), int(host.collisions.sum())
+            if abs(dc - hc) > max(20, int(0.5 * hc)):
+                raise AssertionError(f"contention_dense: collisions {dc} "
+                                     f"vs numpy {hc}")
+            a, b = res.elapsed_slots.mean(), host.elapsed_slots.mean()
+            if abs(a - b) > 0.5 * max(a, b):
+                raise AssertionError(f"contention_dense: mean airtime {a} "
+                                     f"vs numpy {b}")
+            row.update(numpy_collisions=hc,
+                       numpy_mean_elapsed_slots=float(b))
+        out[f"{n}x{lanes}"] = row
+        del backoffs, windows
+    emit("contention_dense", k=k, regime="CW = n/2 slots",
+         invariants="unique participating winners, exactly k, increasing "
+                    "finish slots", sizes=out)
+    return shapes
+
+
 # ----------------------------------------------------------------- timing
 def time_ms(fn, reps, samples=5, warmup=3):
     """Median over ``samples`` of (CUDA-event time of ``reps`` calls) /
@@ -251,6 +469,52 @@ def rotating(make, n_sets):
     return nxt
 
 
+def measure(kernel, plain, library, nbytes, ops_count, reps, plain_reps):
+    """Kernel (eager and from a CUDA graph), plain version and library
+    call times, and the bound: the larger of bytes over the HBM rate and
+    operations over the f32 rate outside the tensor cores (the integer
+    passes are counted at that rate too; bytes bound every kernel here)."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_count / F32_FLOPS_PER_S * 1e3
+    return dict(
+        ms=time_ms(kernel, reps),
+        graph_ms=graph_ms(kernel),
+        plain_ms=time_ms(plain, plain_reps, samples=3, warmup=1),
+        library_ms=(time_ms(library, reps) if library else None),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes=nbytes)
+
+
+def bench_contention(B, N, reps):
+    """The three passes at one (B, N) pool shape, on a pool as the loop
+    holds it (operands stay in L2, as they do in the loop)."""
+    cnt, live, dbl, win, rand = event_inputs(B, N, seed=B * N, kind="loop")
+    step = kcont.contention_min_cuda(cnt, live)
+    nexp, _ = kcont.contention_expiry_cuda(cnt, live, step)
+    big = torch.tensor(BIG, dtype=torch.int32, device=DEV)
+    lanes, plain_reps = B * N, max(1, min(reps, 50))
+    return {
+        # reads counter + live flag a lane, writes (B,) int32
+        "contention_min": measure(
+            lambda: kcont.contention_min_cuda(cnt, live),
+            lambda: ref.contention_min_ref(cnt, live),
+            lambda: torch.where(live, cnt, big).amin(1),
+            5 * lanes + 4 * B, 2 * lanes, reps, plain_reps),
+        # reads counter + live flag a lane and step, writes two (B,) int32
+        "contention_expiry": measure(
+            lambda: kcont.contention_expiry_cuda(cnt, live, step),
+            lambda: ref.contention_expiry_ref(cnt, live, step),
+            None, 5 * lanes + 12 * B, 4 * lanes, reps, plain_reps),
+        # reads 17 bytes a lane and step / nexp, writes 9 bytes a lane
+        "contention_transition": measure(
+            lambda: kcont.contention_transition_cuda(
+                cnt, live, dbl, win, rand, step, nexp, 5),
+            lambda: ref.contention_transition_ref(
+                cnt, live, dbl, win, rand, step, nexp, 5),
+            None, 26 * lanes + 8 * B, 10 * lanes, reps, plain_reps)}
+
+
 def bench_kernels(U, shape, dtype, reps):
     """Times at one leaf shape: kernel (eager, cold operands), kernel
     from a CUDA graph, plain version, library call; plus the bound."""
@@ -268,16 +532,8 @@ def bench_kernels(U, shape, dtype, reps):
     res = {}
 
     def record(name, kernel, plain, library, nbytes, flops, plain_reps):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        res[name] = dict(
-            ms=time_ms(kernel, reps),
-            graph_ms=graph_ms(kernel),
-            plain_ms=time_ms(plain, plain_reps, samples=3, warmup=1),
-            library_ms=(time_ms(library, reps) if library else None),
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes=nbytes)
+        res[name] = measure(kernel, plain, library, nbytes, flops, reps,
+                            plain_reps)
 
     def sgd_k():
         p, g, _ = nxt()
@@ -346,14 +602,21 @@ def paper_args(*extra):
     return launch_train.make_parser().parse_args(["--device", "cuda", *extra])
 
 
-def run_main_path(model, rounds):
-    """The paper's cell through ``launch.train.build_paper_engine`` and
-    ``FLEngine.run``; returns (history, engine, seconds, launches,
-    per-round seconds). The engine evaluates after every round, so the
-    clock is read inside its eval callback, after a synchronize."""
+def run_main_path(model, rounds, *extra, split=None):
+    """The paper's cell (``extra`` appends command-line flags) through
+    ``launch.train.build_paper_engine`` and ``FLEngine.run``; returns
+    (history, engine, seconds, launches, per-round seconds, contention
+    events). The engine evaluates after every round, so the clock is read
+    inside its eval callback, after a synchronize. A ``split`` dict
+    collects the seconds spent in training and in selection."""
     engine = launch_train.build_paper_engine(
-        paper_args("--model", model, "--rounds", str(rounds)))
+        paper_args("--model", model, "--rounds", str(rounds), *extra))
     inner, stamps = engine.eval_fn, []
+    if split is not None:
+        for obj, attr in ((engine.backend, "train_round"),
+                          (engine.strategy, "select")):
+            split[attr] = 0.0
+            setattr(obj, attr, _timed(getattr(obj, attr), split, attr))
 
     def timed_eval(params):
         acc = inner(params)
@@ -364,23 +627,43 @@ def run_main_path(model, rounds):
     engine.eval_fn = timed_eval
     torch.cuda.synchronize()
     ops.reset_launches()                      # just before the main path
+    kcont.reset_loop_stats()
     t0 = time.perf_counter()
     hist = engine.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)             # just after it
+    loop = dict(kcont.LOOP, shapes=sorted(kcont.LOOP["shapes"]))
     round_s = np.diff([t0, *stamps]).tolist()
-    return hist, engine, dt, launches, round_s
+    return hist, engine, dt, launches, round_s, loop
 
 
-def check_main_path(name, hist, engine, launches, rounds, check_accuracy):
+def _timed(fn, split, key):
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        split[key] += time.perf_counter() - t0
+        return out
+    return wrapped
+
+
+def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
+                    events=0):
+    """``events``: the contention loop's events in the run (0 on the
+    numpy backend); each runs the three contention passes once."""
     leaves = len(tree_leaves(engine.global_params))
     steps = engine.backend._nb * engine.spec.local_epochs
     merged = sum(1 for w in hist.winners if w)
     want = {"fused_sgd": leaves * steps * rounds,
             "delta_norm": leaves * rounds,
             "gather_combine": leaves * merged,
-            "fedavg_combine": 0}
+            "fedavg_combine": 0,
+            **{k: events for k in CONTENTION}}
+    if engine.spec.contention_backend == "device" and events < rounds:
+        raise AssertionError(f"{name}: {events} contention events in "
+                             f"{rounds} rounds")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, the code "
                              f"predicts {want}")
@@ -414,7 +697,7 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy):
 
 
 def phase_main_path(model, rounds, check_accuracy):
-    hist, engine, dt, launches, round_s = run_main_path(model, rounds)
+    hist, engine, dt, launches, round_s, _ = run_main_path(model, rounds)
     leaves, steps, merged = check_main_path(
         f"main_path_{model}", hist, engine, launches, rounds, check_accuracy)
     steady = statistics.median(round_s[1:])
@@ -552,7 +835,7 @@ def phase_reference_small():
 def phase_determinism(rounds=5):
     runs = []
     for _ in range(2):
-        hist, engine, _, _, _ = run_main_path("mlp", rounds)
+        hist, engine, _, _, _, _ = run_main_path("mlp", rounds)
         runs.append((hist.winners,
                      [l.clone() for l in tree_leaves(engine.global_params)]))
     if runs[0][0] != runs[1][0]:
@@ -565,13 +848,79 @@ def phase_determinism(rounds=5):
          final_global_bit_equal=True)
 
 
-def phase_profile(model, rounds=4):
+def phase_main_path_device(rounds=20):
+    """The paper's MLP cell with ``--contention-backend device``, run
+    twice: the checks of ``check_main_path`` (learning included), each
+    contention pass launched once per loop event, and the two runs
+    bit-equal in winners and final global."""
+    runs = []
+    for _ in range(2):
+        hist, engine, dt, launches, round_s, loop = run_main_path(
+            "mlp", rounds, "--contention-backend", "device")
+        leaves, steps, merged = check_main_path(
+            "main_path_mlp_device", hist, engine, launches, rounds, True,
+            events=loop["events"])
+        runs.append((hist, [l.clone() for l in
+                            tree_leaves(engine.global_params)]))
+        del engine
+    if runs[0][0].winners != runs[1][0].winners or not all(
+            torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])):
+        raise AssertionError("main_path_mlp_device: two runs differ in "
+                             "winners or final global")
+    steady = statistics.median(round_s[1:])
+    emit("main_path_mlp_device", rounds=rounds, seconds=dt,
+         first_round_s=round_s[0], median_later_round_s=steady,
+         rounds_per_s=1.0 / steady, launches=launches,
+         events=loop["events"], attempts=loop["attempts"],
+         pool_shapes=loop["shapes"],
+         launches_per_round={"fused_sgd": leaves * steps,
+                             "delta_norm": leaves, "gather_combine": leaves,
+                             **{k: loop["events"] / rounds
+                                for k in CONTENTION}},
+         merged_rounds=merged, collisions=hist.collisions,
+         contention_slots=hist.contention_slots,
+         accuracy_first=hist.accuracy[0], accuracy_last=hist.accuracy[-1],
+         loss_first=hist.train_loss[0], loss_last=hist.train_loss[-1],
+         winners_and_global_bit_equal_run_to_run=True)
+    return launches, set(map(tuple, loop["shapes"]))
+
+
+def phase_main_path_u1000(rounds=3):
+    """The MLP at full width with 1000 users and 64 winners a round —
+    the large-cohort regime device contention exists for (the fc1 stack
+    alone is 627 MB f32) — with the seconds spent in training and in
+    selection."""
+    torch.cuda.reset_peak_memory_stats()
+    split = {}
+    hist, engine, dt, launches, round_s, loop = run_main_path(
+        "mlp", rounds, "--users", "1000", "--k", "64", "--n-train",
+        "60000", "--round-mode", "fused", "--contention-backend", "device",
+        split=split)
+    check_main_path("main_path_mlp_U1000_device", hist, engine, launches,
+                    rounds, False, events=loop["events"])
+    steady = statistics.median(round_s[1:])
+    emit("main_path_mlp_U1000_device", rounds=rounds, seconds=dt,
+         first_round_s=round_s[0], median_later_round_s=steady,
+         rounds_per_s=1.0 / steady, round_s=round_s, launches=launches,
+         events=loop["events"], attempts=loop["attempts"],
+         pool_shapes=loop["shapes"],
+         train_s=split["train_round"], select_s=split["select"],
+         train_share=split["train_round"] / dt,
+         select_share=split["select"] / dt,
+         deliveries=[len(w) for w in hist.winners],
+         collisions=hist.collisions, contention_slots=hist.contention_slots,
+         accuracy=hist.accuracy, loss=hist.train_loss,
+         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+    return launches, set(map(tuple, loop["shapes"]))
+
+
+def phase_profile(model, rounds=4, *extra):
     """``--profile``: where a steady round's time goes — device time by
     kernel name and the device's busy share, from ``torch.profiler``
     over the rounds after the first."""
     from torch.profiler import ProfilerActivity, profile
     engine = launch_train.build_paper_engine(
-        paper_args("--model", model, "--rounds", str(rounds)))
+        paper_args("--model", model, "--rounds", str(rounds), *extra))
     engine.run()                               # warm-up
     hist = FLHistory(selections=np.zeros(engine.num_users, np.int64))
     torch.cuda.synchronize()
@@ -590,8 +939,10 @@ def phase_profile(model, rounds=4):
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     ours = sum(r[1] for r in rows if "repro" in r[0] or "fused_sgd" in r[0]
-               or "delta_norm" in r[0] or "combine_kernel" in r[0])
-    emit(f"profile_{model}", rounds=rounds, wall_ms=wall_ms,
+               or "delta_norm" in r[0] or "combine_kernel" in r[0]
+               or "contention_cu" in r[0])
+    label = model + ("_device" if extra else "")
+    emit(f"profile_{label}", rounds=rounds, wall_ms=wall_ms,
          device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
          port_kernels_ms=ours, port_kernels_share_of_busy=ours / busy_ms,
          device_kernels=len(rows),
@@ -642,15 +993,28 @@ def main():
                 bit_equal[k] = bit_equal[k] and v[1]
             dn_rel = max(dn_rel, got["delta_norm"][2])
         check_merge_contracts(dtype)
+    # the contention passes at the JAX test's shapes, the paper cell's
+    # pool, the dense pool and its first retry, the exact M = N fallback;
+    # every pool shape the loop runs on later is checked after it ran
+    c_shapes = [(3, 7), (2, 300), (4, 2049), (1, 10), (1, 128), (64, 128),
+                (64, 1024), (8, 100000)]
+    for i, (B, N) in enumerate(c_shapes):
+        check_contention_at(B, N, seed=1000 + i)
     torch.cuda.empty_cache()
     emit("kernels_agree", cases=[[list(s), U] for s, U in cases],
          max_abs_err=worst, bit_equal_to_plain=bit_equal,
          delta_norm_max_rel_err=dn_rel,
          tolerance="f32 rtol 1e-5 atol 1e-6; bf16 atol 0.02 (one ulp of "
-                   "the output type); delta_norm sums rtol 1e-5",
+                   "the output type); delta_norm sums rtol 1e-5; "
+                   "contention: bit-equal, all six outputs and dtypes",
          merge_contracts="bitwise: zero weight masks inf/NaN rows, "
                          "all-zero weights return glob, pad width, "
-                         "S=U ids vs S=K positions")
+                         "S=U ids vs S=K positions",
+         contention_cases=[list(c) for c in c_shapes],
+         contention_inputs="forced expiry tie, dead lanes, a row with no "
+                           "live lane (B > 1), no live lane at all, "
+                           "absolute expiries up to BIG; max doublings 5 "
+                           "and 7")
 
     # ---- times at the main path's largest leaf, and its small ones ---
     timed = {}
@@ -659,7 +1023,12 @@ def main():
                                   ("mlp_fc1w_U1024", 1024, (784, 200), 10)):
         timed[label] = bench_kernels(U, shape, torch.float32, reps)
         torch.cuda.empty_cache()
-    emit("kernel_times", dtype="float32", timed=timed)
+    # the contention passes at the paper cell's pool (1, 10), the 1000-
+    # user pool (1, 512), (1, 128), the dense pool (64, 128) and a pool
+    # of the exact fallback's size (8, 100000)
+    for B, N in ((1, 10), (1, 128), (1, 512), (64, 128), (8, 100000)):
+        timed[f"contention_{B}x{N}"] = bench_contention(B, N, reps=200)
+    emit("kernel_times", dtype="float32 / int32", timed=timed)
 
     # ---- the main path, through the entry points ---------------------
     torch.cuda.reset_peak_memory_stats()
@@ -674,18 +1043,35 @@ def main():
     torch.cuda.empty_cache()
     phase_reference_small()
     phase_determinism()
+
+    # ---- device contention --------------------------------------------
+    ran = phase_contention_loop_agree() | phase_contention_dense()
+    l_dev, s_dev = phase_main_path_device()
+    torch.cuda.empty_cache()
+    l_u1000, s_u1000 = phase_main_path_u1000()
+    torch.cuda.empty_cache()
+    ran |= s_dev | s_u1000
+    late = sorted(ran - set(c_shapes))
+    for i, (B, N) in enumerate(late):
+        check_contention_at(B, N, seed=2000 + i)
+    emit("contention_shapes_agree", loop_pool_shapes=sorted(ran),
+         checked_before=[list(c) for c in c_shapes],
+         checked_now=[list(c) for c in late], bit_equal=True)
+
     if "--profile" in sys.argv[1:]:
         phase_profile("mlp")
+        phase_profile("mlp", 4, "--contention-backend", "device")
         phase_profile("cnn", rounds=2)
 
     # ---- the record ---------------------------------------------------
-    primary = timed["mlp_fc1w_U10"]
     record = []
     for name, meta in KERNELS.items():
-        launches = (l_srv if name == "fedavg_combine" else l_mlp)[name]
+        contention = name in CONTENTION
+        launches = (l_dev if contention else l_srv
+                    if name == "fedavg_combine" else l_mlp)[name]
         if launches < 1:
             raise AssertionError(f"{name}: never launched on its path")
-        t = primary[name]
+        t = timed["contention_1x10" if contention else "mlp_fc1w_U10"][name]
         record.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches,
@@ -693,13 +1079,16 @@ def main():
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             graph_ms=t["graph_ms"],
-            max_abs_err_bf16=worst[name]["bfloat16"],
+            max_abs_err_bf16=None if contention else worst[name]["bfloat16"],
             # delta_norm's outputs are sums of ~1e5: its tolerance is
             # relative, and so is the error worth reading
             max_rel_err=(dn_rel if name == "delta_norm" else None),
             bit_equal_to_plain=bit_equal[name],
             launches_cnn=l_cnn[name],
-            timed_at="f32 (10, 784, 200): the MLP's fc1.w leaf, 10 users"))
+            launches_U1000_device=l_u1000[name],
+            timed_at=("int32 (1, 10): the paper cell's contention pool, "
+                      "10 users" if contention else
+                      "f32 (10, 784, 200): the MLP's fc1.w leaf, 10 users")))
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": record}), flush=True)
     print(smi, flush=True)

@@ -101,12 +101,13 @@ class CSMASimulator:
     BACKENDS = ("numpy", "device")
 
     def __init__(self, config: Optional[CSMAConfig] = None,
-                 seed: int = 0, backend: str = "numpy"):
+                 seed: int = 0, backend: str = "numpy", device=None):
         if backend not in self.BACKENDS:
             raise ValueError(f"unknown contention backend {backend!r}; "
                              f"known: {self.BACKENDS}")
         self.config = config or CSMAConfig()
         self.backend = backend
+        self.device = device    # device backend: where the loop runs
         self._rng = np.random.default_rng(seed)  # reprolint: disable=RL101 # copy of a whitelisted site
         if backend == "device":
             from repro_torch.core.rngs import entropy_u64
@@ -251,10 +252,15 @@ class CSMASimulator:
                     "seeds=/rngs= replay numpy Generator streams; the "
                     "device backend draws counter-based threefry redraws "
                     "instead (distributional parity only — DESIGN.md §6)")
-            raise NotImplementedError(
-                "contention_backend='device' is not ported yet: it needs "
-                "the device contention kernels (kernels/contention.py); "
-                "use the numpy backend")
+            from repro_torch.kernels.contention import device_contend_batch
+            self._device_calls += 1
+            return device_contend_batch(
+                backoffs / slot_s, windows / slot_s, k_arr, active,
+                entropy=self._device_entropy,
+                call_index=self._device_calls - 1,
+                tx_slots=cfg.tx_slots,
+                max_backoff_doublings=cfg.max_backoff_doublings,
+                max_sim_slots=cfg.max_sim_slots, device=self.device)
         if rngs is not None:
             if seeds is not None:
                 raise ValueError("pass seeds or rngs, not both")

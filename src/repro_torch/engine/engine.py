@@ -49,10 +49,6 @@ def _reject_unported(spec: ExperimentSpec) -> None:
         raise NotImplementedError(
             f"merge_backend={spec.merge_backend!r}: the AirComp merge is "
             "not ported yet")
-    if spec.contention_backend != "numpy":
-        raise NotImplementedError(
-            f"contention_backend={spec.contention_backend!r}: device "
-            "contention is not ported yet")
     if spec.objective is not None and not spec.objective.is_plain:
         raise NotImplementedError(
             "spec.objective: non-plain objectives are not ported yet")
@@ -89,6 +85,10 @@ class FLEngine:
             seed=strategy_seed(spec.seed),
             contention_backend=spec.contention_backend,
             **spec.strategy_options)
+        sim = getattr(self.strategy, "_sim", None)
+        if sim is not None:
+            # device contention runs where the cohort lives
+            sim.device = backend.device
         if self.strategy.trains_before_selection:
             raise NotImplementedError(
                 f"strategy {spec.strategy!r} selects before training "

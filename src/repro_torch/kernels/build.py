@@ -47,6 +47,12 @@ SIGNATURES = {
         "repro_gather_combine": (_P, _P, _P, _P, _P, _I, _I, _LL, _I, _P),
         "repro_fedavg_combine": (_P, _P, _P, _I, _LL, _I, _P),
     },
+    "contention": {
+        "repro_contention_min": (_P, _P, _P, _I, _I, _P),
+        "repro_contention_expiry": (_P, _P, _P, _P, _P, _I, _I, _P),
+        "repro_contention_transition": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _I, _I, _I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

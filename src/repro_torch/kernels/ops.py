@@ -13,8 +13,8 @@ Dispatch policy:
 exactly where a wrapper launches its kernel, nowhere else, so a run can
 show that a path really went through the kernels.
 
-All four ops run under ``torch.no_grad()`` semantics: none is
-differentiated in the reference, so none has a backward kernel.
+No op is differentiated in the reference, so none has a backward
+kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +24,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.contention import (contention_expiry_cuda,
+                                            contention_min_cuda,
+                                            contention_transition_cuda)
 from repro_torch.kernels.delta_norm import delta_norm_cuda
 from repro_torch.kernels.fedavg import fedavg_cuda
 from repro_torch.kernels.fused_sgd import fused_sgd_cuda_
@@ -31,7 +34,9 @@ from repro_torch.kernels.gather import gather_combine_cuda
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"fused_sgd": 0, "delta_norm": 0,
-                            "gather_combine": 0, "fedavg_combine": 0}
+                            "gather_combine": 0, "fedavg_combine": 0,
+                            "contention_min": 0, "contention_expiry": 0,
+                            "contention_transition": 0}
 
 
 def reset_launches() -> None:
@@ -122,3 +127,29 @@ def fused_sgd(param, grad, lr):
     with torch.no_grad():
         param.copy_(ref.fused_sgd_ref(param, grad, lr))
     return param
+
+
+def contention_event(counters, live, doublings, windows, rand,
+                     max_doublings: int):
+    """One batched CSMA medium event (see ``ref.contention_event_ref``):
+    ``(step, nexp, winner, new_counters, new_doublings, new_active)``.
+    On a CUDA device it is three launches, one per pass. Operands are
+    taken as int32 / bool / f32, contiguous; ``max_doublings`` in
+    [0, 30] (a window doubled further is past the 2^29 clamp)."""
+    if not 0 <= max_doublings <= 30:
+        raise ValueError(f"max_doublings={max_doublings} outside [0, 30]")
+    cnt = counters.to(torch.int32).contiguous()
+    liv = live.to(torch.bool).contiguous()
+    dbl = doublings.to(torch.int32).contiguous()
+    win = windows.to(torch.float32).contiguous()
+    rnd = rand.to(torch.float32).contiguous()
+    if cnt.is_cuda:
+        step = contention_min_cuda(cnt, liv)
+        LAUNCHES["contention_min"] += 1
+        nexp, winner = contention_expiry_cuda(cnt, liv, step)
+        LAUNCHES["contention_expiry"] += 1
+        out = contention_transition_cuda(cnt, liv, dbl, win, rnd, step, nexp,
+                                         max_doublings)
+        LAUNCHES["contention_transition"] += 1
+        return (step, nexp, winner) + out
+    return ref.contention_event_ref(cnt, liv, dbl, win, rnd, max_doublings)

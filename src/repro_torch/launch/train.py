@@ -9,9 +9,13 @@ Examples:
   # the same on the CPU (slow; the kernels' plain versions)
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 5
 
-``--arch`` (the LLM finetune), ``--sweep-seeds`` above 1, ``--ckpt`` and
-``--contention-backend device`` belong to parts of the reference that
-are not ported yet and raise ``NotImplementedError``.
+  # CSMA contention on the GPU (the event loop and its three kernels)
+  PYTHONPATH=src python -m repro_torch.launch.train --users 1000 --k 64 \
+      --n-train 60000 --round-mode fused --contention-backend device
+
+``--arch`` (the LLM finetune), ``--sweep-seeds`` above 1 and ``--ckpt``
+belong to parts of the reference that are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -94,8 +98,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cw-base", type=float, default=2048.0)
     ap.add_argument("--contention-backend", default="numpy",
                     choices=["numpy", "device"],
-                    help="CSMA engine: numpy reference ('device' is not "
-                         "ported)")
+                    help="CSMA engine: numpy reference, or the event "
+                         "loop on --device")
     ap.add_argument("--round-mode", default=None,
                     choices=["fused", "stacked", "ragged", "sparse"],
                     help="backend round path; only 'fused' is ported "
@@ -120,9 +124,7 @@ def main(argv=None):
     for flag, bad, what in (
             ("--arch", args.arch is not None, "the LLM stack"),
             ("--sweep-seeds", args.sweep_seeds > 1, "the sweep path"),
-            ("--ckpt", args.ckpt is not None, "checkpointing"),
-            ("--contention-backend device",
-             args.contention_backend == "device", "device contention")):
+            ("--ckpt", args.ckpt is not None, "checkpointing")):
         if bad:
             raise NotImplementedError(
                 f"{flag}: {what} is not ported yet")

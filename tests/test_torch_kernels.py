@@ -263,8 +263,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tops.gather_combine(x, np.array([1, 2], np.int32),
                         np.array([0.5, 0.5], np.float32), x[0])
     tops.fused_sgd(x.clone(), x, 0.1)
+    cnt = torch.zeros((4, 33), dtype=torch.int32)
+    tops.contention_event(cnt, cnt == 0, cnt, x, x.abs() % 1.0, 5)
     assert tops.LAUNCHES == {"fused_sgd": 0, "delta_norm": 0,
-                             "gather_combine": 0, "fedavg_combine": 0}
+                             "gather_combine": 0, "fedavg_combine": 0,
+                             "contention_min": 0, "contention_expiry": 0,
+                             "contention_transition": 0}
 
 
 def test_plain_versions_agree_with_wrappers_on_cpu():

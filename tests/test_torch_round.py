@@ -265,7 +265,6 @@ def test_sparse_auto_selection_raises_and_names_the_way_out():
 @pytest.mark.parametrize("kw,what", [
     (dict(channel=teng.ChannelSpec(per_model="off")), "channel"),
     (dict(merge_backend="aircomp"), "aircomp"),
-    (dict(contention_backend="device"), "contention"),
     (dict(objective=teng.ObjectiveSpec(local="fedprox", mu=0.1)),
      "objective"),
     (dict(strategy="random-centralized"), "random-centralized"),
@@ -313,17 +312,10 @@ def test_unported_run_options_and_merge_contexts_raise():
     assert empty.losses == {} and empty.local_handle == {}
 
 
-def test_device_contention_raises_in_the_simulator():
-    from repro_torch.core.csma import CSMASimulator
-    sim = CSMASimulator(backend="device")
-    with pytest.raises(NotImplementedError, match="device"):
-        sim.contend([1e-5, 2e-5], [1e-4, 1e-4], 1)
-
-
 def test_launch_train_rejects_unported_flags():
     from repro_torch.launch import train
     for argv in (["--arch", "hymba-1.5b"], ["--sweep-seeds", "2"],
-                 ["--ckpt", "x.npz"], ["--contention-backend", "device"]):
+                 ["--ckpt", "x.npz"]):
         with pytest.raises(NotImplementedError):
             train.main(["--device", "cpu", *argv])
 

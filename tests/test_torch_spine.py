@@ -44,25 +44,17 @@ UNTAGGED_LINES = {"core/rngs.py": 5, "data/synthetic.py": 1,
 
 #: file -> list of (lines removed from the original, lines added)
 ALLOWED_HUNKS = {
-    # the device contention engine is not ported: the branch raises
-    # instead of importing the contention kernels
-    "core/csma.py": [(
-        ["            from repro_torch.kernels.contention import "
-         "device_contend_batch",
-         "            self._device_calls += 1",
-         "            return device_contend_batch(",
-         "                backoffs / slot_s, windows / slot_s, k_arr, active,",
-         "                entropy=self._device_entropy,",
-         "                call_index=self._device_calls - 1,",
-         "                tx_slots=cfg.tx_slots,",
-         "                max_backoff_doublings=cfg.max_backoff_doublings,",
-         "                max_sim_slots=cfg.max_sim_slots)"],
-        ["            raise NotImplementedError(",
-         "                \"contention_backend='device' is not ported yet: "
-         "it needs \"",
-         "                \"the device contention kernels "
-         "(kernels/contention.py); \"",
-         "                \"use the numpy backend\")"])],
+    # the device contention loop runs on a torch device, which the
+    # simulator is given (the engine hands it the backend's)
+    "core/csma.py": [
+        (["                 seed: int = 0, backend: str = \"numpy\"):"],
+         ["                 seed: int = 0, backend: str = \"numpy\", "
+          "device=None):"]),
+        ([], ["        self.device = device    # device backend: where the "
+              "loop runs"]),
+        (["                max_sim_slots=cfg.max_sim_slots)"],
+         ["                max_sim_slots=cfg.max_sim_slots, "
+          "device=self.device)"])],
     # lane_params slices tensors of a nested dict, not a jax pytree
     "engine/types.py": [(
         ["        import jax",
