@@ -8,17 +8,19 @@ without CUDA (there is no CPU path here). It
 
   1. names the card (``nvidia-smi`` name and power limit) and the
      toolchain;
-  2. builds the seven hand-written ``sm_90a`` kernels (five sources)
+  2. builds the nine hand-written ``sm_90a`` kernels (four sources)
      from ``src/repro_torch/kernels/csrc/``;
   3. holds every kernel against its plain PyTorch version on the card —
      f32 and bf16, ragged sizes and every leaf shape the driven paths
      hand it (the paper's MLP with 10 and with 1024 users, the full-width
-     CNN with 10), including the masked non-finite row and the
-     all-zero-weight merge; the three contention passes bit for bit at
-     every (B, M) pool shape the contention loop runs on, with forced
-     expiry ties, dead lanes and rows with no live lane — and times
-     kernel, plain version and, where one exists, the single PyTorch
-     library call;
+     CNN with 10; the AirComp and robust merges with 2 and with 64 rows),
+     including the masked non-finite row and the all-zero-weight merge,
+     and the AirComp and robust merges' bit-level contracts with the
+     plain merge; the three contention passes bit for bit at every
+     (B, M) pool shape the contention loop runs on, with forced expiry
+     ties, dead lanes and rows with no live lane — and times kernel,
+     plain version and, where one exists, the single PyTorch library
+     call;
   4. drives the port's main path through its normal entry points:
      ``launch.train.build_paper_engine`` with the paper's defaults (MLP
      784x200x10, 10 users, 2 winners a round, ``priority-distributed``)
@@ -30,11 +32,20 @@ without CUDA (there is no CPU path here). It
      dense 1e4-1e6-contender regime of ``benchmarks/contention_bench.py``
      through ``CSMASimulator(backend="device")`` (against numpy at 1e4),
      the paper's MLP cell for 20 rounds and the MLP with 1000 users and
-     64 winners a round — with the launch counts set to zero just before
-     each path and read just after;
+     64 winners a round; then the channel and fault layers on the MLP
+     cell, 20 rounds each: the AirComp merge under Rayleigh fading and
+     receiver noise, ``channel-distributed`` selection under a lossy
+     waterfall PER, the robust merge under the active fault spec of
+     ``benchmarks/faults_bench.py``, and that fault spec at 1000 users
+     and 64 winners with device contention for 3 rounds — with the
+     launch counts set to zero just before each path and read just
+     after;
   5. checks the result by the repository's own means: the pinned
      winners of ``tests/winner_pins.json``, the card against the CPU run
-     of the same rounds, run-to-run bit-equality on the card, and the
+     of the same rounds (channel, AirComp with and without receiver
+     noise, and fault lanes included),
+     run-to-run bit-equality on the card (a noisy AirComp run included),
+     a finite global in every round of the fault paths, and the
      contention invariants and numpy parity of
      ``tests/test_contention_device.py``.
 
@@ -51,6 +62,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -65,11 +77,14 @@ if not torch.cuda.is_available():
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.channel import ChannelSpec               # noqa: E402
 from repro_torch.core import server as fl_server          # noqa: E402
 from repro_torch.core.csma import CSMAConfig, CSMASimulator  # noqa: E402
 from repro_torch.engine import (ExperimentSpec, FLHistory,  # noqa: E402
                                 build_host_engine)
-from repro_torch.engine.backends import compact_weights   # noqa: E402
+from repro_torch.engine.backends import (aircomp_noise,  # noqa: E402
+                                         compact_weights)
+from repro_torch.faults import FaultSpec                  # noqa: E402
 from repro_torch.kernels import build as kbuild           # noqa: E402
 from repro_torch.kernels import contention as kcont       # noqa: E402
 from repro_torch.kernels import ops, ref                  # noqa: E402
@@ -105,8 +120,24 @@ KERNELS = {
     "contention_transition": dict(
         source="src/repro_torch/kernels/csrc/contention.cu",
         replaces="src/repro/kernels/contention.py:147"),
+    "aircomp_combine": dict(source="src/repro_torch/kernels/csrc/combine.cu",
+                            replaces="src/repro/kernels/aircomp.py:65"),
+    "robust_combine": dict(source="src/repro_torch/kernels/csrc/combine.cu",
+                           replaces="src/repro/kernels/robust.py:57"),
 }
 CONTENTION = ("contention_min", "contention_expiry", "contention_transition")
+#: the channel and fault layers' specs on the main path. LOSSY: waterfall
+#: PER under Rayleigh fading with the threshold raised to 15 dB, so the
+#: MLP cell's 10 users lose a good share of their uploads (the default
+#: 5 dB loses few); AIRCOMP: the over-the-air merge with receiver noise and
+#: a truncation floor; ACTIVE: benchmarks/faults_bench.py:153-155
+LOSSY = ChannelSpec(fading="rayleigh", per_snr_threshold_db=15.0)
+AIRCOMP = dict(merge_backend="aircomp",
+               channel=ChannelSpec(fading="rayleigh", aircomp_sigma=0.01,
+                                   aircomp_gain_floor=0.1))
+ACTIVE = FaultSpec(crash_prob=0.1, straggle_prob=0.2, corrupt_prob=0.1,
+                   outage_prob=0.1, max_retries=2, clip_norm=2.0)
+MERGE_K = (2, 64)                # rows a merge reads: k = 2 and k = 64
 BIG = ref.CONTENTION_BIG
 SLOT_S = 20e-6
 
@@ -184,7 +215,47 @@ def check_kernels_at(shape, U, dtype, seed):
     want = ref.fedavg_combine_ref(stack, alphas)
     got = ops.fedavg_combine(stack, alphas)
     out["fedavg_combine"] = compare("fedavg_combine", got, want, dtype)
+
+    for K in MERGE_K:
+        idx, a, c, sc = channel_merge_inputs(U, K, seed + K, zero=K > 2)
+        noise = randn(seed + 3, shape, torch.float32) * 0.01
+        rows = torch.index_select(stack, 0, idx.long())
+        w_air, scale = ops.aircomp_weights(a, c, DEV)
+        want = ref.aircomp_combine_ref(rows, w_air, noise, scale[0])
+        got = ops.aircomp_combine(stack, a, c, noise, idx=idx)
+        fold(out, "aircomp_combine",
+             compare(f"aircomp_combine K={K}", got, want, dtype))
+        want = ref.robust_combine_ref(rows, a, sc, glob)
+        got = ops.robust_combine(rows, a, sc, glob)
+        fold(out, "robust_combine",
+             compare(f"robust_combine K={K}", got, want, dtype))
     return out
+
+
+def fold(out, name, result):
+    """Keep the worst error and the AND of bit-equality over cases."""
+    if name in out:
+        result = (max(out[name][0], result[0]), out[name][1] and result[1])
+    out[name] = result
+
+
+def channel_merge_inputs(U, K, seed, zero):
+    """The AirComp / robust merge inputs for K rows of a (U, ...) stack:
+    row indices in a delivery order (repeating when K > U), alphas on the
+    simplex, power-control coefficients below 1 and shrink scales with a
+    1.0 (the passthrough); with ``zero`` the middle slot has weight 0 and
+    a NaN scale, which must not leak."""
+    rng = np.random.default_rng(seed)
+    idx = ((U - 1 - 7 * np.arange(K)) % U).astype(np.int32)
+    a = rng.uniform(0.1, 1.0, K)
+    a = (a / a.sum()).astype(np.float32)
+    c = rng.uniform(0.3, 1.0, K).astype(np.float32)
+    c[0] = 1.0
+    sc = rng.uniform(0.1, 1.0, K).astype(np.float32)
+    sc[0] = 1.0
+    if zero:
+        a[K // 2], sc[K // 2] = 0.0, np.nan
+    return [torch.from_numpy(v).to(DEV) for v in (idx, a, c, sc)]
 
 
 def check_merge_contracts(dtype):
@@ -226,6 +297,35 @@ def check_merge_contracts(dtype):
     b = ops.delta_norm_stacked(stack, glob)
     if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
         raise AssertionError("delta_norm: two runs differ bitwise")
+    # the channel and fault merges: unit coefficients without noise, and
+    # all-ones scales, are the plain merge bit for bit; a zero weight
+    # masks an inf / NaN row (and a NaN scale) to exact zero
+    ones = torch.ones(4, dtype=torch.float32, device=DEV)
+    rows = stack[idx.long()].contiguous()
+    for coeffs in (None, ones):
+        air = ops.aircomp_combine(stack, w, coeffs, None, idx=idx)
+        if not torch.equal(air, clean):
+            raise AssertionError("aircomp_combine: unit coefficients and "
+                                 "no noise are not the plain merge's bits")
+    if not torch.equal(ops.robust_combine(rows, w, ones, glob), clean):
+        raise AssertionError("robust_combine: all-ones scales are not the "
+                             "plain merge's bits")
+    scales = torch.tensor([0.5, 1.0, 0.25, float("nan")], device=DEV)
+    coeffs = torch.tensor([0.5, 1.0, 0.25, 0.8], device=DEV)
+    noise = randn(42, shape, torch.float32)
+    air_clean = ops.aircomp_combine(stack, w, coeffs, noise, idx=idx)
+    rob_clean = ops.robust_combine(rows, w, scales, glob)
+    for bad in (float("inf"), float("nan")):
+        poisoned = stack.clone()
+        poisoned[0] = bad               # the pad slot's row, weight zero
+        prows = poisoned[idx.long()].contiguous()
+        if not (torch.equal(ops.aircomp_combine(poisoned, w, coeffs, noise,
+                                                idx=idx), air_clean)
+                and torch.equal(ops.robust_combine(prows, w, scales, glob),
+                                rob_clean)
+                and torch.isfinite(rob_clean.float()).all()):
+            raise AssertionError("aircomp / robust: a zero-weight "
+                                 f"{bad} row leaked into the merge")
 
 
 # ------------------------------------------------------------ contention
@@ -515,20 +615,27 @@ def bench_contention(B, N, reps):
             None, 26 * lanes + 8 * B, 10 * lanes, reps, plain_reps)}
 
 
-def bench_kernels(U, shape, dtype, reps):
+def bench_kernels(U, shape, dtype, reps, K=2):
     """Times at one leaf shape: kernel (eager, cold operands), kernel
-    from a CUDA graph, plain version, library call; plus the bound."""
+    from a CUDA graph, plain version, library call; plus the bound. The
+    AirComp and robust merges read ``K`` rows (the round's winners)."""
     n = int(np.prod(shape))
     item = torch.empty((), dtype=dtype).element_size()
-    set_bytes = 2 * U * n * item
+    set_bytes = (2 * U + K) * n * item
     n_sets = max(2, min(16, int(128e6 // set_bytes) + 1))
     winners = [U - 1, 0]                       # k_per_round = 2
     idx, w = merge_inputs(U, winners, k_pad=2)
     alphas = torch.zeros(U, dtype=torch.float32, device=DEV)
     alphas[idx.long()] = w
+    # every row live and shrunk but the first (the passthrough)
+    idx_k, a_k, c_k, s_k = channel_merge_inputs(U, K, seed=7, zero=False)
+    w_air, scale = ops.aircomp_weights(a_k, c_k, DEV)
+    sc = float(scale)
     nxt = rotating(lambda i: (randn(100 + i, (U,) + shape, dtype),
                               randn(200 + i, (U,) + shape, dtype),
-                              randn(300 + i, shape, dtype)), n_sets)
+                              randn(300 + i, shape, dtype),
+                              randn(400 + i, (K,) + shape, dtype),
+                              randn(500 + i, shape, torch.float32)), n_sets)
     res = {}
 
     def record(name, kernel, plain, library, nbytes, flops, plain_reps):
@@ -536,41 +643,41 @@ def bench_kernels(U, shape, dtype, reps):
                             plain_reps)
 
     def sgd_k():
-        p, g, _ = nxt()
+        p, g, *_ = nxt()
         ops.fused_sgd(p, g, LR)
 
     def sgd_p():
-        p, g, _ = nxt()
+        p, g, *_ = nxt()
         ref.fused_sgd_ref(p, g, LR)
 
     def sgd_l():
-        p, g, _ = nxt()
+        p, g, *_ = nxt()
         torch.add(p, g, alpha=-LR)
 
     record("fused_sgd", sgd_k, sgd_p, sgd_l, 3 * U * n * item, 2 * U * n,
            reps)
 
     def dn_k():
-        s, _, g = nxt()
+        s, _, g, *_ = nxt()
         ops.delta_norm_stacked(s, g)
 
     def dn_p():
-        s, _, g = nxt()
+        s, _, g, *_ = nxt()
         ref.delta_norm_stacked_ref(s, g)
 
     record("delta_norm", dn_k, dn_p, None,
            (U + 1) * n * item + (U + 1) * 4, 5 * U * n + 2 * n, reps)
 
     def gc_k():
-        s, _, g = nxt()
+        s, _, g, *_ = nxt()
         ops.gather_combine(s, idx, w, g)
 
     def gc_p():
-        s, _, g = nxt()
+        s, _, g, *_ = nxt()
         ref.gather_combine_ref(s, idx, w, g)
 
     def gc_l():
-        s, _, _ = nxt()
+        s, *_ = nxt()
         torch.einsum("k,kn->n", w,
                      torch.index_select(s, 0, idx.long()).reshape(2, n)
                      .float())
@@ -580,20 +687,82 @@ def bench_kernels(U, shape, dtype, reps):
            2 * 2 * n, reps)
 
     def fa_k():
-        s, _, _ = nxt()
+        s, *_ = nxt()
         ops.fedavg_combine(s, alphas)
 
     def fa_p():
-        s, _, _ = nxt()
+        s, *_ = nxt()
         ref.fedavg_combine_ref(s, alphas)
 
     def fa_l():
-        s, _, _ = nxt()
+        s, *_ = nxt()
         torch.matmul(alphas, s.reshape(U, n).float())
 
     # masked rows are not read: this run's alphas have two nonzero rows
     record("fedavg_combine", fa_k, fa_p, fa_l, (2 + 1) * n * item,
            2 * 2 * n, max(1, min(reps, 2000 // U)))
+
+    def air_k():
+        # the kernel alone: the merge forms (w, scale) once, not per leaf
+        s, _, _, _, nz = nxt()
+        ops.aircomp_combine_weighted(s, w_air, scale, nz, idx=idx_k)
+
+    def air_p():
+        s, _, _, _, nz = nxt()
+        ref.aircomp_combine_ref(torch.index_select(s, 0, idx_k.long()),
+                                w_air, nz, scale[0])
+
+    def air_l():
+        # on the K rows already gathered: one call, (noise + rows^T w) sc
+        _, _, _, rows, nz = nxt()
+        return torch.addmv(nz.reshape(n), rows.reshape(K, n).T.float(),
+                           w_air, beta=sc, alpha=sc)
+
+    # K rows read, the noise plane (f32) read, one plane written
+    record("aircomp_combine", air_k, air_p, air_l,
+           K * n * item + 4 * n + n * item, 2 * K * n + 2 * n,
+           max(1, min(reps, 2000 // K)))
+
+    def rob_k():
+        _, _, g, rows, _ = nxt()
+        ops.robust_combine(rows, a_k, s_k, g)
+
+    def rob_p():
+        _, _, g, rows, _ = nxt()
+        ref.robust_combine_ref(rows, a_k, s_k, g)
+
+    # sum_k w_k (g + s_k (x_k - g)) = rows^T (w s) + g sum_k w_k (1 - s_k):
+    # one call on the gathered rows, its coefficients formed beforehand
+    ws_k = a_k * s_k
+    beta = float((a_k * (1.0 - s_k)).sum())
+
+    def rob_l():
+        _, _, g, rows, _ = nxt()
+        return torch.addmv(g.reshape(n), rows.reshape(K, n).T.float(), ws_k,
+                           beta=beta)
+
+    # each library call computes its kernel's function, to the rounding of
+    # a reordered sum: checked once on one input set, outside the timing
+    _, _, g, rows, nz = nxt()
+    for name, lib, plain in (
+            ("aircomp_combine",
+             torch.addmv(nz.reshape(n), rows.reshape(K, n).T.float(), w_air,
+                         beta=sc, alpha=sc),
+             ref.aircomp_combine_ref(rows, w_air, nz, scale[0])),
+            ("robust_combine",
+             torch.addmv(g.reshape(n), rows.reshape(K, n).T.float(), ws_k,
+                         beta=beta),
+             ref.robust_combine_ref(rows, a_k, s_k, g))):
+        if not torch.allclose(lib, plain.reshape(n), rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"{name}: the library call does not "
+                                 "compute the kernel's function")
+
+    # the K gathered rows and the old global read, one plane written; a
+    # shrunk row costs 5 operations an element, the passthrough row 2
+    passthrough = int((s_k == 1.0).sum())
+    record("robust_combine", rob_k, rob_p, rob_l, (K + 2) * n * item,
+           (5 * (K - passthrough) + 2 * passthrough) * n,
+           max(1, min(reps, 2000 // K)))
     return res
 
 
@@ -602,24 +771,46 @@ def paper_args(*extra):
     return launch_train.make_parser().parse_args(["--device", "cuda", *extra])
 
 
-def run_main_path(model, rounds, *extra, split=None):
-    """The paper's cell (``extra`` appends command-line flags) through
+def run_main_path(model, rounds, *extra, split=None, merges=None,
+                  finite=None, **spec):
+    """The paper's cell (``extra`` appends command-line flags, ``spec``
+    replaces spec fields the command line has no flag for: ``channel``,
+    ``faults``, ``merge_backend``) through
     ``launch.train.build_paper_engine`` and ``FLEngine.run``; returns
     (history, engine, seconds, launches, per-round seconds, contention
     events). The engine evaluates after every round, so the clock is read
     inside its eval callback, after a synchronize. A ``split`` dict
-    collects the seconds spent in training and in selection."""
+    collects the seconds spent in training and in selection; a ``merges``
+    list the kind of each merge the engine asks for ("digital",
+    "aircomp", "robust", "robust+stale"); a ``finite`` list whether every
+    leaf of the global was finite after each round."""
     engine = launch_train.build_paper_engine(
-        paper_args("--model", model, "--rounds", str(rounds), *extra))
+        paper_args("--model", model, "--rounds", str(rounds), *extra),
+        **spec)
     inner, stamps = engine.eval_fn, []
     if split is not None:
         for obj, attr in ((engine.backend, "train_round"),
                           (engine.strategy, "select")):
             split[attr] = 0.0
             setattr(obj, attr, _timed(getattr(obj, attr), split, attr))
+    if merges is not None:
+        inner_merge = engine.backend.merge
+
+        def spy(state, tr, winners, merge_ctx=None, fault_ctx=None,
+                attempts=None):
+            merges.append(
+                "digital" if merge_ctx is None and fault_ctx is None
+                else "aircomp" if fault_ctx is None
+                else "robust+stale" if fault_ctx.stale else "robust")
+            return inner_merge(state, tr, winners, merge_ctx=merge_ctx,
+                               fault_ctx=fault_ctx, attempts=attempts)
+        engine.backend.merge = spy
 
     def timed_eval(params):
         acc = inner(params)
+        if finite is not None:
+            finite.append(all(bool(torch.isfinite(l).all())
+                              for l in tree_leaves(params)))
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         return acc
@@ -650,25 +841,38 @@ def _timed(fn, split, key):
 
 
 def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
-                    events=0):
+                    events=0, merges=None):
     """``events``: the contention loop's events in the run (0 on the
-    numpy backend); each runs the three contention passes once."""
+    numpy backend); each runs the three contention passes once.
+    ``merges``: the kinds of the run's merges (``run_main_path``); None
+    for a run without channel and faults, where every round with winners
+    merges digitally. A merge launches its kernel once per leaf; the
+    robust merge runs ``delta_norm`` and ``robust_combine`` once per leaf
+    for each group (fresh, and stale when there is one)."""
     leaves = len(tree_leaves(engine.global_params))
     steps = engine.backend._nb * engine.spec.local_epochs
-    merged = sum(1 for w in hist.winners if w)
+    if merges is None:
+        merges = ["digital"] * sum(1 for w in hist.winners if w)
+    elif engine.spec.faults is None \
+            and len(merges) != sum(1 for d in hist.delivered if d):
+        raise AssertionError(f"{name}: {len(merges)} merges for "
+                             f"{hist.delivered}")
+    kinds = Counter(merges)
+    groups = kinds["robust"] + 2 * kinds["robust+stale"]
     want = {"fused_sgd": leaves * steps * rounds,
-            "delta_norm": leaves * rounds,
-            "gather_combine": leaves * merged,
+            "delta_norm": leaves * (rounds + groups),
+            "gather_combine": leaves * kinds["digital"],
             "fedavg_combine": 0,
-            **{k: events for k in CONTENTION}}
+            **{k: events for k in CONTENTION},
+            "aircomp_combine": leaves * kinds["aircomp"],
+            "robust_combine": leaves * groups}
     if engine.spec.contention_backend == "device" and events < rounds:
         raise AssertionError(f"{name}: {events} contention events in "
                              f"{rounds} rounds")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, the code "
                              f"predicts {want}")
-    if min(want["fused_sgd"], want["delta_norm"],
-           want["gather_combine"]) < 1:
+    if min(want["fused_sgd"], want["delta_norm"], len(merges)) < 1:
         raise AssertionError(f"{name}: a kernel of the path never ran")
     if len(hist.winners) != rounds or len(hist.train_loss) != rounds:
         raise AssertionError(f"{name}: history is short")
@@ -693,7 +897,7 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
             raise AssertionError(
                 f"{name}: no learning: accuracy {hist.accuracy}, "
                 f"loss {hist.train_loss}")
-    return leaves, steps, merged
+    return leaves, steps, len(merges)
 
 
 def phase_main_path(model, rounds, check_accuracy):
@@ -777,9 +981,11 @@ def phase_server_path(engine, model):
 
 
 # ------------------------------------------------- correctness of results
-def pin_scenario(strategy, seed, device, rounds=4):
+def pin_scenario(strategy, seed, device, rounds=4, noise_draw=None,
+                 **spec):
     """The scenario of ``tools/check_winner_pins.py``: 8 users, a 16 -> 4
-    linear model, 4 rounds."""
+    linear model, 4 rounds; ``spec`` adds spec fields, ``noise_draw``
+    replaces the backend's AirComp noise draw."""
     rng = np.random.default_rng(7)
     user_data = []
     for u in range(8):
@@ -796,10 +1002,46 @@ def pin_scenario(strategy, seed, device, rounds=4):
 
     params = {"w": torch.zeros(16, 4, device=device),
               "b": torch.zeros(4, device=device)}
-    spec = ExperimentSpec(rounds=rounds, strategy=strategy, seed=seed)
+    spec = ExperimentSpec(rounds=rounds, strategy=strategy, seed=seed,
+                          **spec)
     engine = build_host_engine(spec, params, loss_fn, user_data,
                                device=device)
+    if noise_draw is not None:
+        engine.backend._noise_draw = noise_draw
     return engine.run(), engine.global_params
+
+
+def cpu_noise(key, leaf_index, shape, device):
+    """The AirComp noise plane drawn on the CPU and moved to ``device``:
+    the card and the CPU run then merge the same planes."""
+    return aircomp_noise(key, leaf_index, shape, "cpu").to(device)
+
+
+#: the channel, AirComp and fault lanes of tests/test_torch_{channel,faults}
+#: .py on the pin scenario: waterfall PER with Rayleigh fading at a 20 dB
+#: threshold (these 8 users then lose uploads), the AirComp merge with a
+#: truncation floor, noiseless and with receiver noise (the card and the
+#: CPU handed the same planes), and the active fault spec over it
+PIN_LOSSY = ChannelSpec(fading="rayleigh", per_snr_threshold_db=20.0)
+LAYER_LANES = {
+    "channel/priority-distributed": ("priority-distributed",
+                                     dict(channel=PIN_LOSSY)),
+    "channel/channel-distributed": ("channel-distributed",
+                                    dict(channel=PIN_LOSSY)),
+    "aircomp-sigma0": ("priority-distributed", dict(
+        merge_backend="aircomp",
+        channel=ChannelSpec(fading="rayleigh", aircomp_gain_floor=0.3))),
+    "aircomp-sigma0.05": ("priority-distributed", dict(
+        merge_backend="aircomp", noise_draw=cpu_noise,
+        channel=ChannelSpec(fading="rayleigh", aircomp_gain_floor=0.3,
+                            aircomp_sigma=0.05))),
+    "faults-nan": ("priority-distributed", dict(channel=PIN_LOSSY,
+                                                faults=ACTIVE)),
+}
+HISTORY_COUNTS = ("winners", "delivered", "upload_failures", "collisions",
+                  "contention_slots", "round_seconds", "round_energy_j",
+                  "retries", "dropped_clients", "stale_merges",
+                  "quarantined_updates")
 
 
 def phase_reference_small():
@@ -827,24 +1069,46 @@ def phase_reference_small():
     for a, b in zip(tree_leaves(gp), tree_leaves(cp)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
                                    rtol=1e-4, atol=1e-6)
+    lanes = {}
+    for label, (strategy, spec) in LAYER_LANES.items():
+        gh, gp = pin_scenario(strategy, 0, "cuda", **spec)
+        ch, cp = pin_scenario(strategy, 0, "cpu", **spec)
+        for f in HISTORY_COUNTS:
+            if getattr(gh, f) != getattr(ch, f):
+                raise AssertionError(f"reference_small {label}: {f} differs "
+                                     f"between the card and the CPU")
+        for a, b in zip(tree_leaves(gp), tree_leaves(cp)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-4, atol=1e-6)
+        lanes[label] = dict(upload_failures=gh.upload_failures,
+                            retries=gh.retries, stale_merges=gh.stale_merges,
+                            quarantined=gh.quarantined_updates)
     emit("reference_small", agree_with_pins=["random-distributed/seed0",
                                              "priority-distributed/seed0"],
-         card_equals_cpu=["priority-distributed/seed0"])
+         card_equals_cpu=["priority-distributed/seed0", *lanes],
+         layer_lanes=lanes,
+         tolerance="history counts exact; globals rtol 1e-4 atol 1e-6")
 
 
 def phase_determinism(rounds=5):
-    runs = []
-    for _ in range(2):
-        hist, engine, _, _, _, _ = run_main_path("mlp", rounds)
-        runs.append((hist.winners,
-                     [l.clone() for l in tree_leaves(engine.global_params)]))
-    if runs[0][0] != runs[1][0]:
-        raise AssertionError("determinism: winners differ between two runs")
-    for a, b in zip(runs[0][1], runs[1][1]):
-        if not torch.equal(a, b):
-            raise AssertionError("determinism: final globals differ "
-                                 "bitwise between two runs")
-    emit("determinism", rounds=rounds, winners=runs[0][0],
+    """Two runs of the MLP cell, and two of its noisy AirComp variant
+    (receiver noise drawn on the card), are bit-equal."""
+    winners = {}
+    for label, spec in (("mlp", {}), ("mlp_aircomp", AIRCOMP)):
+        runs = []
+        for _ in range(2):
+            hist, engine, _, _, _, _ = run_main_path("mlp", rounds, **spec)
+            runs.append((hist.winners, [l.clone() for l in
+                                        tree_leaves(engine.global_params)]))
+        if runs[0][0] != runs[1][0]:
+            raise AssertionError(f"determinism {label}: winners differ "
+                                 "between two runs")
+        for a, b in zip(runs[0][1], runs[1][1]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"determinism {label}: final globals "
+                                     "differ bitwise between two runs")
+        winners[label] = runs[0][0]
+    emit("determinism", rounds=rounds, winners=winners,
          final_global_bit_equal=True)
 
 
@@ -914,13 +1178,70 @@ def phase_main_path_u1000(rounds=3):
     return launches, set(map(tuple, loop["shapes"]))
 
 
-def phase_profile(model, rounds=4, *extra):
+def phase_layer_path(name, rounds, check_accuracy, *extra, **spec):
+    """A channel / fault path of the MLP cell (``spec``: the layers'
+    spec fields; ``extra``: command-line flags): the checks of
+    ``check_main_path`` with the launches predicted from the kinds of the
+    run's merges, and a finite global after every round."""
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    merges, finite = [], []
+    hist, engine, dt, launches, round_s, loop = run_main_path(
+        "mlp", rounds, *extra, merges=merges, finite=finite, **spec)
+    check_main_path(name, hist, engine, launches, rounds, check_accuracy,
+                    events=loop["events"], merges=merges)
+    if len(finite) != rounds or not all(finite):
+        raise AssertionError(f"{name}: the global was not finite after "
+                             f"every round: {finite}")
+    steady = statistics.median(round_s[1:])
+    emit(name, rounds=rounds, seconds=dt, first_round_s=round_s[0],
+         median_later_round_s=steady, rounds_per_s=1.0 / steady,
+         round_s=round_s, launches=launches, merges=dict(Counter(merges)),
+         events=loop["events"], uploads_total=hist.uploads_total,
+         delivered=sum(len(d) for d in hist.delivered),
+         upload_failures=hist.upload_failures, retries=hist.retries,
+         dropped_clients=hist.dropped_clients,
+         stale_merges=hist.stale_merges,
+         quarantined_updates=hist.quarantined_updates,
+         collisions=hist.collisions, contention_slots=hist.contention_slots,
+         simulated_s=hist.elapsed_seconds(),
+         energy_j=float(sum(hist.round_energy_j)),
+         accuracy_first=hist.accuracy[0], accuracy_last=hist.accuracy[-1],
+         loss_first=hist.train_loss[0], loss_last=hist.train_loss[-1],
+         finite_every_round=True,
+         # what the path allocated on top of what was live before it
+         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20 - base_mb)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_layer_overhead(rounds=10):
+    """The MLP cell plain, with the AirComp merge and with the fault
+    layer, in turns (plain, AirComp, faults, faults, AirComp, plain), so
+    that the host's drift over the call falls on all three alike: the
+    median later-round seconds of each run."""
+    variants = {"plain": {}, "aircomp": AIRCOMP,
+                "faults": dict(channel=LOSSY, faults=ACTIVE)}
+    order = ["plain", "aircomp", "faults", "faults", "aircomp", "plain"]
+    out = {v: [] for v in variants}
+    for v in order:
+        _, _, _, _, round_s, _ = run_main_path("mlp", rounds, **variants[v])
+        out[v].append(statistics.median(round_s[1:]))
+    emit("layer_overhead", rounds=rounds, order=order,
+         median_later_round_s=out,
+         vs_plain={v: statistics.mean(out[v]) / statistics.mean(out["plain"])
+                   for v in variants})
+
+
+def phase_profile(model, rounds=4, *extra, label=None, **spec):
     """``--profile``: where a steady round's time goes — device time by
     kernel name and the device's busy share, from ``torch.profiler``
     over the rounds after the first."""
     from torch.profiler import ProfilerActivity, profile
     engine = launch_train.build_paper_engine(
-        paper_args("--model", model, "--rounds", str(rounds), *extra))
+        paper_args("--model", model, "--rounds", str(rounds), *extra),
+        **spec)
     engine.run()                               # warm-up
     hist = FLHistory(selections=np.zeros(engine.num_users, np.int64))
     torch.cuda.synchronize()
@@ -940,8 +1261,9 @@ def phase_profile(model, rounds=4, *extra):
     busy_ms = sum(r[1] for r in rows)
     ours = sum(r[1] for r in rows if "repro" in r[0] or "fused_sgd" in r[0]
                or "delta_norm" in r[0] or "combine_kernel" in r[0]
+               or "robust_kernel" in r[0]
                or "contention_cu" in r[0])
-    label = model + ("_device" if extra else "")
+    label = label or model + ("_device" if extra else "")
     emit(f"profile_{label}", rounds=rounds, wall_ms=wall_ms,
          device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
          port_kernels_ms=ours, port_kernels_share_of_busy=ours / busy_ms,
@@ -1018,10 +1340,11 @@ def main():
 
     # ---- times at the main path's largest leaf, and its small ones ---
     timed = {}
-    for label, U, shape, reps in (("mlp_fc1w_U10", 10, (784, 200), 200),
-                                  ("mlp_fc2b_U10", 10, (10,), 200),
-                                  ("mlp_fc1w_U1024", 1024, (784, 200), 10)):
-        timed[label] = bench_kernels(U, shape, torch.float32, reps)
+    for label, U, shape, reps, K in (
+            ("mlp_fc1w_U10", 10, (784, 200), 200, 2),
+            ("mlp_fc2b_U10", 10, (10,), 200, 2),
+            ("mlp_fc1w_U1024", 1024, (784, 200), 10, 64)):
+        timed[label] = bench_kernels(U, shape, torch.float32, reps, K)
         torch.cuda.empty_cache()
     # the contention passes at the paper cell's pool (1, 10), the 1000-
     # user pool (1, 512), (1, 128), the dense pool (64, 128) and a pool
@@ -1058,17 +1381,34 @@ def main():
          checked_before=[list(c) for c in c_shapes],
          checked_now=[list(c) for c in late], bit_equal=True)
 
+    # ---- the channel and fault layers -----------------------------------
+    l_air = phase_layer_path("main_path_mlp_aircomp", 20, False, **AIRCOMP)
+    l_chan = phase_layer_path("main_path_mlp_channel", 20, True,
+                              "--strategy", "channel-distributed",
+                              channel=LOSSY)
+    l_flt = phase_layer_path("main_path_mlp_faults", 20, False,
+                             channel=LOSSY, faults=ACTIVE)
+    l_u1000f = phase_layer_path(
+        "main_path_mlp_U1000_faults", 3, False, "--users", "1000", "--k",
+        "64", "--n-train", "60000", "--round-mode", "fused",
+        "--contention-backend", "device", channel=LOSSY, faults=ACTIVE)
+    phase_layer_overhead()
+
     if "--profile" in sys.argv[1:]:
         phase_profile("mlp")
         phase_profile("mlp", 4, "--contention-backend", "device")
+        phase_profile("mlp", 4, label="mlp_aircomp", **AIRCOMP)
+        phase_profile("mlp", 4, label="mlp_faults", channel=LOSSY,
+                      faults=ACTIVE)
         phase_profile("cnn", rounds=2)
 
     # ---- the record ---------------------------------------------------
     record = []
+    path_of = {"fedavg_combine": l_srv, "aircomp_combine": l_air,
+               "robust_combine": l_flt, **{k: l_dev for k in CONTENTION}}
     for name, meta in KERNELS.items():
         contention = name in CONTENTION
-        launches = (l_dev if contention else l_srv
-                    if name == "fedavg_combine" else l_mlp)[name]
+        launches = path_of.get(name, l_mlp)[name]
         if launches < 1:
             raise AssertionError(f"{name}: never launched on its path")
         t = timed["contention_1x10" if contention else "mlp_fc1w_U10"][name]
@@ -1086,6 +1426,8 @@ def main():
             bit_equal_to_plain=bit_equal[name],
             launches_cnn=l_cnn[name],
             launches_U1000_device=l_u1000[name],
+            launches_channel=l_chan[name],
+            launches_U1000_faults=l_u1000f[name],
             timed_at=("int32 (1, 10): the paper cell's contention pool, "
                       "10 users" if contention else
                       "f32 (10, 784, 200): the MLP's fc1.w leaf, 10 users")))

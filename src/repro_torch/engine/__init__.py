@@ -12,9 +12,9 @@ Strategies plug in through the decorator registry (see
 literature-derived extensions); backends implement the three-method
 contract in ``repro_torch.engine.backends``. What the reference
 exports and the port does not have yet (``SiloBackend``, the sweep
-types' producers, ``ChannelModel``, ``MergeContext``) is absent here.
+types' producers) is absent here.
 """
-from repro_torch.channel import ChannelSpec
+from repro_torch.channel import ChannelModel, ChannelSpec, MergeContext
 from repro_torch.engine.registry import (available_strategies,
                                          create_strategy,
                                          get_strategy_class,
@@ -33,7 +33,7 @@ from repro_torch.engine.evals import make_accuracy_eval
 from repro_torch.objectives import ObjectiveSpec
 
 __all__ = [
-    "ChannelSpec",
+    "ChannelModel", "ChannelSpec", "MergeContext",
     "available_strategies", "create_strategy", "get_strategy_class",
     "register_strategy", "select_grouped", "supports_batched_select",
     "ExperimentSpec", "SweepSpec", "ObjectiveSpec", "FLHistory",

@@ -16,18 +16,33 @@ One implementation so far:
                stacked ``(U, ...)`` cohort (``fused_sgd`` kernel, one
                launch per leaf per step), Eq. 2 priorities from the
                trained stack (``delta_norm`` kernel, one launch per
-               leaf), and the Eq. 1 merge a gather-K reduction in
-               delivery order (``gather_combine`` kernel, one launch per
-               leaf). The trained stack is overwritten IN PLACE with the
+               leaf), and ONE Eq. 1 merge a round in delivery order,
+               one launch per leaf, in one of three forms:
+
+                 * digital (no context): a gather-K reduction
+                   (``gather_combine``);
+                 * AirComp (``merge_ctx``, the channel layer's
+                   over-the-air merge): the same reduction under the
+                   power-control coefficients, plus a receiver-noise
+                   plane drawn on the device, times the rescale
+                   (``aircomp_combine``);
+                 * robust (``fault_ctx``, the fault layer's guard): the
+                   candidates' rows gathered once, their delta norms
+                   (``delta_norm``), then the quarantine / clip / shrink
+                   merge of ``faults.robust.robust_merge``
+                   (``robust_combine``, once per leaf for the fresh group
+                   and once more for a stale group).
+
+               The trained stack is overwritten IN PLACE with the
                merged global and stays on the device for the next round
                (the reference donates the buffer; this is the same
                saving said directly). Requires a rectangular cohort
                (equal per-user example counts) and a full-cohort round.
 
                The reference's other round paths (``stacked``,
-               ``ragged``, ``sparse``), its sweep path, the AirComp and
-               robust merges, non-plain objectives and cohort sharding
-               are not ported yet; asking for one raises
+               ``ragged``, ``sparse``) with their gather-path AirComp and
+               robust merges, its sweep path, non-plain objectives and
+               cohort sharding are not ported yet; asking for one raises
                ``NotImplementedError`` naming it. Nothing downgrades
                silently.
 
@@ -52,8 +67,10 @@ from repro_torch.core.client import Client, sgd_epoch_scan
 from repro_torch.core.priority import stacked_model_priorities
 from repro_torch.device import resolve_device
 from repro_torch.engine.types import TrainResult
+from repro_torch.faults.robust import robust_merge
 from repro_torch.kernels import ops as kops
-from repro_torch.tree import tree_map
+from repro_torch.kernels.contention import counter_seed
+from repro_torch.tree import tree_leaves, tree_map
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -112,6 +129,21 @@ def compact_weights(k_pad: int, positions: Sequence[int],
     return idx, w
 
 
+def aircomp_noise(key, leaf_index: int, shape, device) -> torch.Tensor:
+    """Standard-normal f32 receiver-noise plane of one leaf of one AirComp
+    merge, drawn on ``device``. ``key`` is the merge context's
+    ``(noise entropy, round)`` pair; the generator is seeded by a fixed
+    mix of ``(entropy, round, leaf_index)`` (``counter_seed``), so a run
+    is reproducible bit for bit and no two leaves or rounds share draws.
+    The reference draws threefry ``normal(fold_in(fold_in(key, t), i))``
+    instead: the two agree in distribution only."""
+    entropy, t = key
+    gen = torch.Generator(device=device)
+    gen.manual_seed(counter_seed(entropy, t, leaf_index))
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                       device=device)
+
+
 class Backend:
     """Contract only — see module docstring. Subclasses must set
     ``num_users`` and ``heterogeneity`` ((num_users,) in [0,1])."""
@@ -127,8 +159,11 @@ class Backend:
 
     def merge(self, state, train_result: TrainResult, winners: List[int],
               merge_ctx=None, fault_ctx=None, attempts=None):
-        """Eq. 1 over ``winners``. ``merge_ctx`` / ``fault_ctx`` are the
-        reference's AirComp and robust-merge contexts — backends that
+        """Eq. 1 over ``winners``. ``merge_ctx`` (a
+        ``channel.MergeContext``) switches the digital reduction to the
+        AirComp analog superposition; ``fault_ctx`` (a
+        ``faults.robust.FaultMergeContext``) to the robust merge guard,
+        which writes ``n_quarantined`` back into it. Backends that
         don't implement one must reject it non-None. ``attempts`` is the
         round's attempt winner list (consumed only by h-carrying
         objectives; backends without objective support ignore it)."""
@@ -226,6 +261,9 @@ class HostBackend(Backend):
                 "below batch_size): it needs round_mode='ragged', which "
                 "is not ported yet")
         self._xstack = None        # (U, n, ...) user data, on the device
+        # AirComp noise: ``(key, leaf_index, shape, device) -> N(0, 1)``
+        # plane; tests swap in the reference's threefry planes here
+        self._noise_draw = aircomp_noise
         self._resident = None      # device-resident merged cohort stack
         self._resident_key = None  # the global-state object it mirrors
 
@@ -277,9 +315,70 @@ class HostBackend(Backend):
             new_glob = tree_map(
                 lambda l, g: kops.gather_combine(l, idx, w, g),
                 trained, old_glob)
-            new_stack = tree_map(
-                lambda g, l: l.copy_(g.unsqueeze(0).expand_as(l)),
-                new_glob, trained)
+            new_stack = self._restack(new_glob, trained)
+        return new_glob, new_stack
+
+    @staticmethod
+    def _restack(new_glob, trained):
+        """Overwrite the trained stack's buffer with the broadcast of the
+        new global; it becomes next round's resident stack."""
+        return tree_map(lambda g, l: l.copy_(g.unsqueeze(0).expand_as(l)),
+                        new_glob, trained)
+
+    def _fused_merge_air(self, trained, idx, alphas, coeffs, sigma, key):
+        """AirComp twin of ``_fused_merge``: per leaf, the noisy
+        superposition of the ``idx`` rows read straight out of the
+        trained stack (no gathered copy), under the compact alphas and
+        power-control coefficients, with a receiver-noise plane
+        ``sigma * N(0, 1)`` drawn on the device (none at ``sigma == 0``,
+        which gives the bits of a zero plane). The weights and the
+        rescale are formed once a merge, on the device. Same residency
+        contract as the digital merge."""
+        leaves = tree_leaves(trained)
+        sig = torch.tensor(sigma, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            w, scale = kops.aircomp_weights(alphas, coeffs, self.device)
+            noise = iter([
+                sig * self._noise_draw(key, i, l.shape[1:], self.device)
+                if sigma != 0.0 else None for i, l in enumerate(leaves)])
+            new_glob = tree_map(
+                lambda l: kops.aircomp_combine_weighted(
+                    l, w, scale, next(noise), idx=idx), trained)
+            new_stack = self._restack(new_glob, trained)
+        return new_glob, new_stack
+
+    def _merge_fused_faults(self, state, trained, idx, winners, ctx):
+        """Robust-guard twin of ``_fused_merge``: compact the dense (U,)
+        fault-context weight / corruption vectors down to the (k_pad,)
+        merge candidates ``idx`` (pads: exact-zero weight, corruption 1.0
+        = the passthrough branch), gather their rows ONCE (both the
+        delta norms and the combine read them), stack the stale group,
+        and run ``robust_merge``. ``state`` (the old global, the guard's
+        delta reference) is only read. Writes ``ctx.n_quarantined`` —
+        one host sync a merge."""
+        m = len(winners)
+        k_pad = idx.shape[0]
+        w = np.zeros(k_pad, np.float32)
+        c = np.ones(k_pad, np.float32)
+        if m:
+            sel = [int(u) for u in winners]
+            w[:m] = np.asarray(ctx.weights, np.float32)[sel]
+            c[:m] = np.asarray(ctx.corrupt, np.float32)[sel]
+        with torch.no_grad():
+            rows_idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+            rows = tree_map(lambda l: torch.index_select(l, 0, rows_idx),
+                            trained)
+            stale = stale_w = None
+            if ctx.stale:
+                stale = tree_map(lambda *ls: torch.stack(ls),
+                                 *[p for p, _ in ctx.stale])
+                stale_w = np.asarray([w_ for _, w_ in ctx.stale], np.float32)
+            new_glob, nq = robust_merge(
+                rows, w, c, state, stale, stale_w,
+                quarantine=bool(ctx.quarantine),
+                clip_norm=float(ctx.clip_norm))
+            new_stack = self._restack(new_glob, trained)
+        ctx.n_quarantined = int(nq)
         return new_glob, new_stack
 
     def _draw_big(self):
@@ -372,12 +471,11 @@ class HostBackend(Backend):
 
     def merge(self, state, train_result, winners, merge_ctx=None,
               fault_ctx=None, attempts=None):
-        if merge_ctx is not None:
-            raise NotImplementedError(
-                "merge_ctx: the AirComp merge is not ported yet")
-        if fault_ctx is not None:
-            raise NotImplementedError(
-                "fault_ctx: the robust merge is not ported yet")
+        """Eq. 1 over ``winners`` (delivery order) on the fused train
+        handle: the robust merge when ``fault_ctx`` is given, else the
+        AirComp merge when ``merge_ctx`` is, else the digital one. The
+        old global ``state`` is only read; the trained stack becomes the
+        new resident stack."""
         handle = train_result.local_handle
         trained = handle.get("fused_stack") \
             if isinstance(handle, dict) else None
@@ -386,15 +484,29 @@ class HostBackend(Backend):
                 "merge needs the fused train handle of this round (each "
                 "handle merges once: its stack is overwritten)")
         winners = [int(u) for u in winners]
+        k_pad = self._k_pad(len(winners))
+        if winners and max(winners) >= self.num_users:
+            raise IndexError(f"winner id {max(winners)} out of range")
         idx, w = compact_weights(
-            self._k_pad(len(winners)), winners,
-            [self.clients[u].num_examples for u in winners])
-        if idx.size and idx.max() >= self.num_users:
-            raise IndexError(f"winner id {int(idx.max())} out of range")
-        # one upload of the host-assembled (k_pad,) vectors per merge
-        new_glob, new_stack = self._fused_merge(
-            trained, torch.from_numpy(idx).to(self.device),
-            torch.from_numpy(w).to(self.device), state)
+            k_pad, winners, [self.clients[u].num_examples for u in winners])
+        if fault_ctx is not None:
+            new_glob, new_stack = self._merge_fused_faults(
+                state, trained, idx, winners, fault_ctx)
+        else:
+            # one upload of the host-assembled (k_pad,) vectors per merge
+            idx_d = torch.from_numpy(idx).to(self.device)
+            w_d = torch.from_numpy(w).to(self.device)
+            if merge_ctx is None:
+                new_glob, new_stack = self._fused_merge(trained, idx_d, w_d,
+                                                        state)
+            else:
+                # row index = user id here; the pad slots take user 0's
+                # coefficient, which their zero alpha masks
+                coeffs = np.asarray(merge_ctx.coeffs, np.float32)[idx]
+                new_glob, new_stack = self._fused_merge_air(
+                    trained, idx_d, w_d,
+                    torch.from_numpy(coeffs).to(self.device),
+                    float(merge_ctx.noise_sigma), merge_ctx.key)
         handle["fused_stack"] = None     # buffer reused as the new stack
         self._resident = new_stack       # stays on device for round t+1
         self._resident_key = new_glob

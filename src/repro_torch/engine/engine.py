@@ -4,20 +4,28 @@ One round, regardless of strategy or backend:
 
   1. counter refrain mask (Step 4) — upload shares are computed ONCE
      per round and passed through (mask + SelectionContext.counter_values);
+     with a channel, block fading is redrawn first;
   2. train everyone (Step 2) and compute Eq. 2 priorities (Step 3);
   3. strategy.select over the SelectionContext (Step 4/5 contention);
-  4. backend.merge of the winners (Eq. 1);
-  5. counter + history update — including the contention's collision
-     and airtime stats.
+  4. the channel's PER gate and the fault pipeline (crashes, outages,
+     HARQ retries, stragglers, corruption) turn the contention winners
+     (upload attempts) into the merge candidates;
+  5. backend.merge of the candidates (Eq. 1: digital, AirComp or the
+     robust guard);
+  6. counter + history update — including the contention's collision
+     and airtime stats, the channel's airtime / energy and the fault
+     counters.
 
 There is deliberately no strategy-name branching here: behaviour
 differences ride entirely on the Strategy capability flags and the
 Backend contract.
 
-This is the per-round loop of the reference engine. Its sweep path
+This is the per-round loop of the reference engine, channel and fault
+layers included; its stream draws come in the reference's order, so
+every count of the history equals the reference's. Its sweep path
 (``run_sweep``, the E = 1 delegation of ``run``), checkpoint/resume,
-the channel and fault layers and strategies that select before training
-are not ported yet: each raises ``NotImplementedError`` naming what is
+non-plain objectives and strategies that select before training are
+not ported yet: each raises ``NotImplementedError`` naming what is
 missing. The reference pins the sweep lane and the per-round loop to
 the same winners and globals, so this loop is the sequential reference
 of both.
@@ -28,42 +36,55 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from repro_torch.channel.model import ChannelModel, MergeContext
 from repro_torch.core.counter import FairnessCounter
-from repro_torch.core.rngs import engine_rng, strategy_seed
+from repro_torch.core.rngs import (channel_noise_entropy, engine_rng,
+                                   strategy_seed)
 from repro_torch.engine.backends import Backend
 from repro_torch.engine.registry import create_strategy
 from repro_torch.engine.spec import ExperimentSpec
 from repro_torch.engine.types import FLHistory, SelectionContext
+from repro_torch.faults.injectors import FaultInjector
+from repro_torch.faults.robust import FaultMergeContext, fault_alphas
 from repro_torch.tree import tree_leaves
 
 
 def _reject_unported(spec: ExperimentSpec) -> None:
     """Raise for every spec option whose subsystem is not ported."""
-    if spec.channel is not None:
-        raise NotImplementedError(
-            "spec.channel: the wireless channel layer is not ported yet")
-    if spec.faults is not None:
-        raise NotImplementedError(
-            "spec.faults: the fault-tolerance layer is not ported yet")
-    if spec.merge_backend != "fedavg":
-        raise NotImplementedError(
-            f"merge_backend={spec.merge_backend!r}: the AirComp merge is "
-            "not ported yet")
     if spec.objective is not None and not spec.objective.is_plain:
         raise NotImplementedError(
             "spec.objective: non-plain objectives are not ported yet")
 
 
-def _record_time(history, spec, elapsed_slots):
-    """Append the round's wall-clock accounting: contention slots at
-    ``slot_duration_s`` (no channel layer: no payload airtime, no
-    transmit energy)."""
-    secs = elapsed_slots * spec.slot_seconds()
+def _gate_round(channel, attempted):
+    """PER-gate the round's attempted uploads: (delivered, failures)."""
+    if channel is None or not attempted:
+        return list(attempted), 0
+    delivered = channel.gate(attempted)
+    return delivered, len(attempted) - len(delivered)
+
+
+def _record_time(history, spec, channel, elapsed_slots, attempted,
+                 retry_slots: int = 0, retry_uploads=()):
+    """Append the round's wall-clock / energy accounting: contention
+    slots at ``slot_duration_s`` plus, with a channel, the attempted
+    uploads' payload airtime and transmit energy. HARQ retransmissions
+    charge their backoff + tx slots (``retry_slots``) and, per retry
+    attempt, another payload airtime / energy unit (``retry_uploads``,
+    one uid per attempt) — a lost retry still spent the air."""
+    secs = (elapsed_slots + retry_slots) * spec.slot_seconds()
+    energy = 0.0
+    if channel is not None:
+        secs += channel.round_airtime_s(attempted)
+        energy = channel.round_energy_j(attempted)
+        if len(retry_uploads):
+            secs += channel.round_airtime_s(retry_uploads)
+            energy += channel.round_energy_j(retry_uploads)
     history.round_seconds.append(secs)
     history.cumulative_seconds.append(
         (history.cumulative_seconds[-1] if history.cumulative_seconds
          else 0.0) + secs)
-    history.round_energy_j.append(0.0)
+    history.round_energy_j.append(energy)
 
 
 class FLEngine:
@@ -95,6 +116,15 @@ class FLEngine:
                 "(partial-cohort rounds): it needs the stacked round "
                 "path, which is not ported yet")
         self._rng = engine_rng(spec.seed)
+        # channel and fault streams are further spawn children of the
+        # spec seed: building them never perturbs the streams above
+        self.channel = (ChannelModel(spec.channel, self.num_users,
+                                     spec.seed)
+                        if spec.channel is not None else None)
+        self.faults = (FaultInjector(spec.faults, spec.seed,
+                                     cw_base=spec.cw_base,
+                                     tx_slots=spec.csma.tx_slots)
+                       if spec.faults is not None else None)
         self.state = backend.init_state(init_params)
 
     # ------------------------------------------------------------------
@@ -110,14 +140,56 @@ class FLEngine:
             cw_base=self.spec.cw_base,
             counter_values=shares,
             heterogeneity=self.backend.heterogeneity,
-            snr_db=None,
+            snr_db=(self.channel.snr_db if self.channel is not None
+                    else None),
             round_index=t)
+
+    @staticmethod
+    def _lane_merge_ctx(spec, channel, t: int, num_users: int):
+        """AirComp merge inputs for the round-t merge, or None for the
+        digital ("fedavg") Eq. 1. The noise key is the pair (noise
+        entropy, t): the backend seeds each leaf's noise plane from it
+        and the leaf index."""
+        if spec.merge_backend != "aircomp":
+            return None
+        if channel is not None:
+            coeffs, sigma = channel.aircomp_coeffs()
+            entropy = channel.noise_entropy
+        else:
+            # channel-less aircomp: perfect superposition
+            coeffs = np.ones(num_users, np.float32)
+            sigma = 0.0
+            entropy = channel_noise_entropy(spec.seed)
+        return MergeContext(coeffs=coeffs, noise_sigma=sigma,
+                            key=(entropy, t))
+
+    def _lane_fault_ctx(self, spec, rf, stale_in, merged_now):
+        """Robust-merge inputs for the round, or None when the merge
+        stays the plain Eq. 1 (faults off, or failure-only fault modes
+        that never alter the merge math)."""
+        fs = spec.faults
+        if fs is None or not fs.merge_guarded:
+            return None
+        weights, stale_w = fault_alphas(
+            self.num_users, merged_now,
+            [self.backend.num_examples(u) for u in merged_now],
+            [n for _, _, n in stale_in], fs.staleness_discount)
+        corrupt = np.ones(self.num_users, np.float32)
+        for u, fac in rf.corrupt.items():
+            corrupt[int(u)] = fac
+        stale = [(p, float(w))
+                 for (_, p, _), w in zip(stale_in, stale_w)]
+        return FaultMergeContext(weights=weights, corrupt=corrupt,
+                                 quarantine=fs.quarantine,
+                                 clip_norm=fs.clip_norm, stale=stale)
 
     # ------------------------------------------------------------------
     def run_round(self, t: int, history: FLHistory) -> List[int]:
         """One round through the backend contract
         (train_round / merge)."""
         spec, strat = self.spec, self.strategy
+        if self.channel is not None:
+            self.channel.begin_round()     # block fading, pre-selection
         # upload shares: computed once, reused for the refrain mask AND
         # the SelectionContext
         shares = self.counter.values()
@@ -133,13 +205,41 @@ class FLEngine:
         sel = strat.select(self._context(
             tr.priorities, participating, t, shares))
 
-        # contention winners are upload attempts; with no channel layer
-        # every attempt is delivered
+        # contention winners are upload ATTEMPTS; the channel (when
+        # enabled) gates which of them reach the Eq. 1 merge. Counters /
+        # selections / uploads_total see the attempt (the airtime was
+        # spent either way); merge weights see deliveries. With faults
+        # on, the injector post-processes the gate's output: ``delivered``
+        # then records the post-fault / post-retry arrivals and
+        # ``upload_failures`` the losses that survived every retry.
         winners = [int(u) for u in sel.winners]
-        delivered = list(winners)
-        if delivered:
-            self.state = self.backend.merge(self.state, tr, delivered,
-                                            attempts=winners)
+        faults = self.faults
+        if faults is not None:
+            faults.begin_round()            # burst-outage process
+        delivered, failures = _gate_round(self.channel, winners)
+        rf, stale_in, merged_now = None, [], delivered
+        if faults is not None:
+            rf = faults.process_uploads(
+                winners, delivered,
+                self.channel.per if self.channel is not None else None)
+            delivered, failures = rf.arrived, len(rf.failed)
+            merged_now = rf.merged_now
+            stale_in = faults.pop_stale()
+            # capture this round's stragglers BEFORE the merge overwrites
+            # the trained stack
+            for u in rf.stragglers:
+                faults.push_stale(u, self.backend.extract_local(tr, u),
+                                  self.backend.num_examples(u))
+        if merged_now or stale_in:
+            fault_ctx = self._lane_fault_ctx(spec, rf, stale_in,
+                                             merged_now)
+            self.state = self.backend.merge(
+                self.state, tr, merged_now,
+                merge_ctx=self._lane_merge_ctx(spec, self.channel, t,
+                                               self.num_users),
+                fault_ctx=fault_ctx, attempts=winners)
+            if fault_ctx is not None:
+                history.quarantined_updates += int(fault_ctx.n_quarantined)
         if winners:
             self.counter.update(winners, len(winners))
             history.uploads_total += len(winners)
@@ -147,9 +247,18 @@ class FLEngine:
                 history.selections[u] += 1
         history.winners.append(winners)
         history.delivered.append(delivered)
+        history.upload_failures += failures
         history.collisions += sel.collisions
-        history.contention_slots += sel.elapsed_slots
-        _record_time(history, spec, sel.elapsed_slots)
+        retry_slots = rf.retry_slots if rf is not None else 0
+        history.contention_slots += sel.elapsed_slots + retry_slots
+        if rf is not None:
+            history.retries += rf.retries
+            history.dropped_clients += len(rf.crashed)
+            history.stale_merges += len(stale_in)
+        _record_time(history, spec, self.channel, sel.elapsed_slots,
+                     winners, retry_slots=retry_slots,
+                     retry_uploads=(rf.retry_uploads if rf is not None
+                                    else ()))
         if strat.uses_priority:
             # one vectorized conversion — per-element float() is O(U)
             history.priorities.append(

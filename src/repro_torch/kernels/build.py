@@ -46,6 +46,9 @@ SIGNATURES = {
     "combine": {
         "repro_gather_combine": (_P, _P, _P, _P, _P, _I, _I, _LL, _I, _P),
         "repro_fedavg_combine": (_P, _P, _P, _I, _LL, _I, _P),
+        "repro_aircomp_combine": (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I,
+                                  _P),
+        "repro_robust_combine": (_P, _P, _P, _P, _P, _I, _LL, _I, _P),
     },
     "contention": {
         "repro_contention_min": (_P, _P, _P, _I, _I, _P),

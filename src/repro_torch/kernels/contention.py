@@ -131,17 +131,22 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def counter_draw(entropy: int, call_index: int, device) -> Callable:
-    """The loop's default redraw material: ``draw(ev, B, M)`` is a (B, M)
-    f32 U(0, 1) tensor on ``device`` from a generator seeded with a fixed
-    mix of ``(entropy, call_index, ev)`` — a function of those three
-    alone, so a retry attempt and a re-run see the same draws."""
+def counter_seed(entropy: int, call_index: int, ev: int) -> int:
+    """A 63-bit generator seed from a fixed splitmix64 mix of
+    ``(entropy, call_index, ev)`` — a function of those three alone."""
     base = _splitmix64(_splitmix64(int(entropy) & _MASK64)
                        ^ (int(call_index) & _MASK64))
+    return _splitmix64(base ^ (int(ev) & _MASK64)) >> 1
 
+
+def counter_draw(entropy: int, call_index: int, device) -> Callable:
+    """The loop's default redraw material: ``draw(ev, B, M)`` is a (B, M)
+    f32 U(0, 1) tensor on ``device`` from a generator seeded with
+    ``counter_seed(entropy, call_index, ev)``, so a retry attempt and a
+    re-run see the same draws."""
     def draw(ev: int, B: int, M: int) -> torch.Tensor:
         gen = torch.Generator(device=device)
-        gen.manual_seed(_splitmix64(base ^ int(ev)) >> 1)
+        gen.manual_seed(counter_seed(entropy, call_index, ev))
         return torch.rand((B, M), generator=gen, dtype=torch.float32,
                           device=device)
     return draw

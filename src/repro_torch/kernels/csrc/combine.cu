@@ -1,15 +1,23 @@
-// Eq. 1 merges: the gather-K combine and the plain FedAvg combine.
+// Eq. 1 merges: the gather-K combine, the plain FedAvg combine, and the
+// two merges of the channel and fault layers built on the same loop.
 //
 //   gather_combine:  out = any(w != 0) ? sum_j w_j * stack[idx_j] : glob
 //   fedavg_combine:  out = sum_k a_k * stack[k]
+//   aircomp_combine: out = (sum_j w_j * stack[idx_j] + noise) * scale
+//   robust_combine:  out = sum_k w_k * (s_k == 1 ? x_k : g + s_k (x_k - g))
 //
-// Replace the TPU kernels src/repro/kernels/gather.py::gather_combine_pallas
-// and src/repro/kernels/fedavg.py::fedavg_pallas. Both share one device
-// function; fedavg is the case "idx is the identity, no glob guard".
+// Replace the TPU kernels src/repro/kernels/gather.py::gather_combine_pallas,
+// src/repro/kernels/fedavg.py::fedavg_pallas,
+// src/repro/kernels/aircomp.py::aircomp_pallas and
+// src/repro/kernels/robust.py::robust_pallas. gather, fedavg and AirComp
+// share one device function: fedavg is the case "idx is the identity, no
+// glob guard", AirComp "no glob guard, a noise plane and a scale". Robust
+// is its own kernel with the same shape.
 //
 // Bound on this card: bytes — one row of n elements read per NONZERO
-// weight, n written, plus glob when every weight is zero; two flops per
-// element per row.
+// weight, n written, plus glob when every weight is zero (gather), the
+// noise plane (AirComp) or the old global (robust); two flops per element
+// per row, five for a robust row that is shrunk.
 //
 // The TPU version walks a (column block, winner) grid with the winner
 // axis innermost and accumulates into the resident output tile, steering
@@ -44,17 +52,30 @@ __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// idx == nullptr: row j of the stack is term j. glob == nullptr: no guard.
+// One body for gather, FedAvg and AirComp, so the three round alike by
+// construction. idx == nullptr: row j of the stack is term j. glob ==
+// nullptr: no guard. noise == nullptr adds nothing, which gives the bits
+// of adding +0.0 (acc is never -0.0: it starts at +0.0 and a
+// round-to-nearest sum is -0.0 only when both addends are). scale ==
+// nullptr multiplies by nothing; AirComp's scale is read from device
+// memory, so the wrapper forms sum(a) / sum(a * c) on the device without
+// a host sync, and with noise absent and scale == 1.0 AirComp gives the
+// gather sum bit for bit (x * 1.0 == x). The reference AirComp kernel has
+// no glob guard, and neither has this one when called for it.
 // An index outside [0, S) traps: it is a caller's bug, never data.
 template <typename T>
 __global__ void combine_kernel(const T* __restrict__ stack,
                                const int* __restrict__ idx,
                                const float* __restrict__ w,
                                const T* __restrict__ glob,
+                               const float* __restrict__ noise,
+                               const float* __restrict__ scale,
                                T* __restrict__ out, int S, int K,
                                long long n) {
   bool any = false;
-  for (int j = 0; j < K; ++j) any |= (w[j] != 0.0f);
+  if (glob != nullptr)
+    for (int j = 0; j < K; ++j) any |= (w[j] != 0.0f);
+  const float sc = (scale != nullptr) ? *scale : 1.0f;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < n;
        c += stride) {
@@ -70,6 +91,38 @@ __global__ void combine_kernel(const T* __restrict__ stack,
       if (r < 0 || r >= S) __trap();
       acc = __fadd_rn(acc, __fmul_rn(to_f32(stack[(long long)r * n + c]), wj));
     }
+    if (noise != nullptr) acc = __fadd_rn(acc, noise[c]);
+    if (scale != nullptr) acc = __fmul_rn(acc, sc);
+    from_f32(out + c, acc);
+  }
+}
+
+// Robust: each row is shrunk towards the old global g in delta space
+// before the same ordered masked sum. s == 1 takes the row as it is (no
+// arithmetic touches it), so all-ones scales give gather_combine's sum
+// over the same rows bit for bit; a zero weight skips the row before its
+// scale is read, so a NaN scale or a NaN row there cannot leak. A NaN row
+// with a nonzero weight propagates (the caller's quarantine masks it).
+template <typename T>
+__global__ void robust_kernel(const T* __restrict__ stack,
+                              const float* __restrict__ w,
+                              const float* __restrict__ s,
+                              const T* __restrict__ glob,
+                              T* __restrict__ out, int K, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < n;
+       c += stride) {
+    const float g = to_f32(glob[c]);
+    float acc = 0.0f;
+    for (int j = 0; j < K; ++j) {
+      const float wj = w[j];
+      if (wj == 0.0f) continue;
+      const float sj = s[j];
+      const float x = to_f32(stack[(long long)j * n + c]);
+      const float v =
+          (sj == 1.0f) ? x : __fadd_rn(g, __fmul_rn(sj, __fsub_rn(x, g)));
+      acc = __fadd_rn(acc, __fmul_rn(v, wj));
+    }
     from_f32(out + c, acc);
   }
 }
@@ -77,27 +130,43 @@ __global__ void combine_kernel(const T* __restrict__ stack,
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132LL * 16;
 
+unsigned grid_for(long long n) {
+  long long blocks = (n + kThreads - 1) / kThreads;
+  return (unsigned)(blocks > kMaxBlocks ? kMaxBlocks : blocks);
+}
+
 template <typename T>
 int launch(const void* stack, const int* idx, const float* w,
-           const void* glob, void* out, int S, int K, long long n,
-           cudaStream_t s) {
+           const void* glob, const float* noise, const float* scale,
+           void* out, int S, int K, long long n, cudaStream_t s) {
   if (n <= 0) return 0;
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  combine_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
+  combine_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
       static_cast<const T*>(stack), idx, w, static_cast<const T*>(glob),
-      static_cast<T*>(out), S, K, n);
+      noise, scale, static_cast<T*>(out), S, K, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_robust(const void* stack, const float* w, const float* sc,
+                  const void* glob, void* out, int K, long long n,
+                  cudaStream_t s) {
+  if (n <= 0) return 0;
+  robust_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
+      static_cast<const T*>(stack), w, sc, static_cast<const T*>(glob),
+      static_cast<T*>(out), K, n);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* stack, const int* idx, const float* w,
-             const void* glob, void* out, int S, int K, long long n,
-             int dtype, void* stream) {
+             const void* glob, const float* noise, const float* scale,
+             void* out, int S, int K, long long n, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S < 1 || K < 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float>(stack, idx, w, glob, out, S, K, n, s);
+  if (dtype == 0)
+    return launch<float>(stack, idx, w, glob, noise, scale, out, S, K, n, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(stack, idx, w, glob, out, S, K, n, s);
+    return launch<__nv_bfloat16>(stack, idx, w, glob, noise, scale, out, S,
+                                 K, n, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -111,8 +180,8 @@ extern "C" int repro_gather_combine(const void* stack, const void* idx,
                                     int dtype, void* stream) {
   if (idx == nullptr || glob == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch(stack, static_cast<const int*>(idx),
-                  static_cast<const float*>(w), glob, out, S, K, n, dtype,
-                  stream);
+                  static_cast<const float*>(w), glob, nullptr, nullptr, out,
+                  S, K, n, dtype, stream);
 }
 
 // stack: (K, n); alphas: (K,) f32 device; out: (n,).
@@ -120,5 +189,37 @@ extern "C" int repro_fedavg_combine(const void* stack, const void* alphas,
                                     void* out, int K, long long n, int dtype,
                                     void* stream) {
   return dispatch(stack, nullptr, static_cast<const float*>(alphas), nullptr,
-                  out, K, K, n, dtype, stream);
+                  nullptr, nullptr, out, K, K, n, dtype, stream);
+}
+
+// stack: (S, n); idx: (K,) int32 device or nullptr (row j is term j, and
+// then S == K); w: (K,) f32 device; noise: (n,) f32 device or nullptr;
+// scale: one f32 on the device; out: (n,).
+extern "C" int repro_aircomp_combine(const void* stack, const void* idx,
+                                     const void* w, const void* noise,
+                                     const void* scale, void* out, int S,
+                                     int K, long long n, int dtype,
+                                     void* stream) {
+  if (scale == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(stack, static_cast<const int*>(idx),
+                  static_cast<const float*>(w), nullptr,
+                  static_cast<const float*>(noise),
+                  static_cast<const float*>(scale), out, S, K, n, dtype,
+                  stream);
+}
+
+// stack: (K, n); w, scales: (K,) f32 device; glob, out: (n,).
+extern "C" int repro_robust_combine(const void* stack, const void* w,
+                                    const void* scales, const void* glob,
+                                    void* out, int K, long long n, int dtype,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K < 0 || glob == nullptr) return (int)cudaErrorInvalidValue;
+  const float* wf = static_cast<const float*>(w);
+  const float* sf = static_cast<const float*>(scales);
+  if (dtype == 0)
+    return launch_robust<float>(stack, wf, sf, glob, out, K, n, s);
+  if (dtype == 1)
+    return launch_robust<__nv_bfloat16>(stack, wf, sf, glob, out, K, n, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,14 @@ Dispatch policy:
 exactly where a wrapper launches its kernel, nowhere else, so a run can
 show that a path really went through the kernels.
 
+Kernels, one wrapper each: ``fused_sgd`` (the local step),
+``delta_norm`` / ``delta_norm_stacked`` (Eq. 2 and the fault guard's
+clip), ``gather_combine`` and ``fedavg_combine`` (Eq. 1),
+``aircomp_combine`` / ``aircomp_combine_weighted`` (the channel layer's
+over-the-air merge, from alphas or from weights formed once a merge),
+``robust_combine`` (the fault layer's guarded merge) and
+``contention_event`` (the three CSMA passes).
+
 No op is differentiated in the reference, so none has a backward
 kernel.
 """
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.aircomp import aircomp_cuda
 from repro_torch.kernels.contention import (contention_expiry_cuda,
                                             contention_min_cuda,
                                             contention_transition_cuda)
@@ -31,12 +40,14 @@ from repro_torch.kernels.delta_norm import delta_norm_cuda
 from repro_torch.kernels.fedavg import fedavg_cuda
 from repro_torch.kernels.fused_sgd import fused_sgd_cuda_
 from repro_torch.kernels.gather import gather_combine_cuda
+from repro_torch.kernels.robust import robust_cuda
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"fused_sgd": 0, "delta_norm": 0,
                             "gather_combine": 0, "fedavg_combine": 0,
                             "contention_min": 0, "contention_expiry": 0,
-                            "contention_transition": 0}
+                            "contention_transition": 0,
+                            "aircomp_combine": 0, "robust_combine": 0}
 
 
 def reset_launches() -> None:
@@ -50,6 +61,15 @@ def _on(device, x, dtype):
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
     return x.to(device=device, dtype=dtype).contiguous()
+
+
+def _check_idx(idx, S, name):
+    """Host-side range check of a gather index (a device index is
+    checked by the kernel, which traps)."""
+    if not isinstance(idx, torch.Tensor) or not idx.is_cuda:
+        i_host = np.asarray(idx)
+        if i_host.size and (i_host.min() < 0 or i_host.max() >= S):
+            raise IndexError(f"{name}: idx outside [0, {S})")
 
 
 def delta_norm(w_local, w_global):
@@ -100,12 +120,7 @@ def gather_combine(stacked, idx, weights, glob):
     (validated here, then copied to the stack's device) or tensors
     already on it (the kernel traps on an index outside [0, S)).
     """
-    if not isinstance(idx, torch.Tensor) or not idx.is_cuda:
-        i_host = np.asarray(idx)
-        if i_host.size and (i_host.min() < 0
-                            or i_host.max() >= stacked.shape[0]):
-            raise IndexError(
-                f"gather_combine: idx outside [0, {stacked.shape[0]})")
+    _check_idx(idx, stacked.shape[0], "gather_combine")
     i = _on(stacked.device, idx, torch.int32)
     w = _on(stacked.device, weights, torch.float32)
     if stacked.is_cuda:
@@ -113,6 +128,78 @@ def gather_combine(stacked, idx, weights, glob):
         LAUNCHES["gather_combine"] += 1
         return out
     return ref.gather_combine_ref(stacked, i, w, glob)
+
+
+def aircomp_weights(alphas, coeffs, device):
+    """The AirComp wrapper's weight and scale algebra, on ``device``:
+    ``w = a * c`` and ``scale = sum(a) / sum(w)`` (1.0 when
+    ``sum(w) == 0``, and when ``coeffs`` is None, which means perfect
+    power control: ``w = a``). Both sums are the same reduction over
+    equal-length vectors, so unit coefficients give ``scale == 1.0``
+    exactly. Returns ``(w (K,) f32, scale (1,) f32)``; no host sync."""
+    a = _on(device, alphas, torch.float32)
+    if coeffs is None:
+        return a, torch.ones(1, dtype=torch.float32, device=device)
+    w = a * _on(device, coeffs, torch.float32)
+    sa, sw = a.sum(), w.sum()
+    nz = sw != 0.0
+    scale = torch.where(nz, sa / torch.where(nz, sw, torch.ones_like(sw)),
+                        torch.ones_like(sw))
+    return w, scale.reshape(1)
+
+
+def aircomp_combine(stacked, alphas, coeffs=None, noise=None, *, idx=None):
+    """AirComp analog over-the-air Eq. 1: ``(sum_j w_j * row_j + noise)
+    * scale`` with ``w``, ``scale`` from ``aircomp_weights``.
+
+    stacked: (S, ...); idx: (K,) row indices into it in delivery order,
+    or None for rows 0..K-1 of a (K, ...) stack; alphas: (K,) Eq. 1
+    weights; coeffs: (K,) misalignment coefficients in (0, 1] or None;
+    noise: the receiver-noise plane of the output shape, already scaled
+    to its post-processing std, or None / 0.0 for none. A zero alpha
+    masks its row (never read). With unit coefficients and no noise the
+    result is ``gather_combine``'s over the same rows, bit for bit.
+    """
+    w, scale = aircomp_weights(alphas, coeffs, stacked.device)
+    return aircomp_combine_weighted(stacked, w, scale, noise, idx=idx)
+
+
+def aircomp_combine_weighted(stacked, w, scale, noise=None, *, idx=None):
+    """``aircomp_combine`` with its weights already formed: ``(w,
+    scale)`` as ``aircomp_weights`` returns them, so a merge that runs
+    the kernel once per leaf forms them once."""
+    dev = stacked.device
+    i = None
+    if idx is not None:
+        _check_idx(idx, stacked.shape[0], "aircomp_combine")
+        i = _on(dev, idx, torch.int32)
+    nz = None
+    if noise is not None and (isinstance(noise, torch.Tensor)
+                              or np.any(np.asarray(noise) != 0.0)):
+        nz = _on(dev, noise, torch.float32).expand(stacked.shape[1:]) \
+            .contiguous()
+    if stacked.is_cuda:
+        out = aircomp_cuda(stacked, i, w, nz, scale)
+        LAUNCHES["aircomp_combine"] += 1
+        return out
+    rows = stacked if i is None else torch.index_select(stacked, 0, i.long())
+    return ref.aircomp_combine_ref(rows, w, nz, scale[0])
+
+
+def robust_combine(stacked, weights, scales, global_ref):
+    """Robust Eq. 1: per-row delta shrink against the old global, then
+    the masked weighted sum in order. stacked: (K, ...); weights: (K,)
+    merge weights (zero = masked row, EXACT zero even when non-finite);
+    scales: (K,) shrink factors, ``row' = g + s_k * (row - g)`` (``s_k
+    == 1``: the row untouched); global_ref: (...) the old global. With
+    all-ones scales this is ``gather_combine``'s sum, bit for bit."""
+    w = _on(stacked.device, weights, torch.float32)
+    s = _on(stacked.device, scales, torch.float32)
+    if stacked.is_cuda:
+        out = robust_cuda(stacked, w, s, global_ref)
+        LAUNCHES["robust_combine"] += 1
+        return out
+    return ref.robust_combine_ref(stacked, w, s, global_ref)
 
 
 def fused_sgd(param, grad, lr):

@@ -70,6 +70,50 @@ def gather_combine_ref(stacked, idx, weights, glob):
     return torch.where(has, acc, glob.float()).to(stacked.dtype)
 
 
+def aircomp_combine_ref(stacked, weights, noise, scale):
+    """AirComp over-the-air merge: ``(sum_j w_j * stacked[j] + noise)
+    * scale``.
+
+    stacked: (K, ...); weights: (K,) f32 effective receive weights
+    (alpha_k * misalignment c_k); noise: the f32 receiver-noise plane of
+    the output shape, or None for none; scale: f32 scalar (tensor) —
+    sum(alpha) / sum(weight), restoring the Eq. 1 mass the truncated
+    power control attenuated. The sum runs j = 0, 1, ... in order with
+    each product and addition rounded on its own; a zero weight
+    contributes EXACT zero even for a non-finite row. With no noise and
+    ``scale == 1`` this is ``gather_combine_ref``'s sum over the same
+    rows, bit for bit.
+    """
+    acc = _ordered_masked_sum(stacked, weights)
+    if noise is not None:
+        acc = acc + noise.float()
+    return (acc * scale.float()).to(stacked.dtype)
+
+
+def robust_combine_ref(stacked, weights, scales, global_ref):
+    """Robust Eq. 1: each row shrunk in delta space against the old
+    global, ``row' = g + s_k * (row - g)``, then the masked weighted sum
+    in order.
+
+    stacked: (K, ...); weights, scales: (K,) f32; global_ref: (...).
+    ``s_k == 1`` takes the row untouched (no arithmetic), and a zero
+    weight contributes EXACT zero even when the row or its scale is
+    non-finite — so all-ones scales give ``gather_combine_ref``'s sum
+    over the same rows, bit for bit.
+    """
+    w = weights.float()
+    s = scales.float()
+    g = global_ref.float()
+    acc = torch.zeros(stacked.shape[1:], dtype=torch.float32,
+                      device=stacked.device)
+    zero = torch.zeros((), dtype=torch.float32, device=stacked.device)
+    for j in range(stacked.shape[0]):
+        x = stacked[j].float()
+        shrunk = torch.where(s[j] == 1.0, x, g + s[j] * (x - g))
+        acc = acc + torch.where(w[j] != 0.0, shrunk * w[j], zero)
+    return acc.to(stacked.dtype)
+
+
 def fused_sgd_ref(param, grad, lr):
     """param - lr * grad, computed in f32 (product and difference
     rounded separately), cast back."""

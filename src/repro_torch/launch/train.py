@@ -20,6 +20,7 @@ belong to parts of the reference that are not ported yet and raise
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -54,9 +55,13 @@ def classification_loss(apply_fn):
     return loss_fn
 
 
-def build_paper_engine(args) -> FLEngine:
+def build_paper_engine(args, **spec_fields) -> FLEngine:
     """The paper's experiment from parsed arguments. ``args.device``
-    ``None`` / ``"cuda"`` needs the GPU; ``"cpu"`` asks for the CPU."""
+    ``None`` / ``"cuda"`` needs the GPU; ``"cpu"`` asks for the CPU.
+    ``spec_fields`` replace fields of the spec the arguments give (the
+    command line has no channel or fault flags; a caller that wants the
+    paper's cell with ``channel=`` / ``faults=`` / ``merge_backend=``
+    passes them here)."""
     device = resolve_device(getattr(args, "device", None))
     (xtr, ytr), (xte, yte) = make_classification_dataset(
         args.dataset, n_train=args.n_train, n_test=args.n_test,
@@ -71,7 +76,8 @@ def build_paper_engine(args) -> FLEngine:
 
     eval_fn = make_accuracy_eval(apply_fn, xte, yte, device=device)
     params = init_fn(args.seed, device=device)
-    return build_host_engine(_spec_from_args(args), params,
+    spec = dataclasses.replace(_spec_from_args(args), **spec_fields)
+    return build_host_engine(spec, params,
                              classification_loss(apply_fn), user_data,
                              eval_fn, round_mode=args.round_mode,
                              device=device)

@@ -18,62 +18,25 @@ What must agree, and how tightly:
 import json
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro import engine as jeng
 from repro_torch import engine as teng
 from repro_torch.engine.backends import HostBackend as THostBackend
 
-from torch_port_util import assert_trees_close, f32, to_jax, to_torch
+from torch_port_util import (PIN_USERS, assert_trees_close, f32, to_jax,
+                             to_torch)
+from torch_port_util import pin_init as _init
+from torch_port_util import pin_jax_engine as _jax_engine
+from torch_port_util import pin_jax_loss as _jax_loss
+from torch_port_util import pin_torch_engine as _torch_engine
+from torch_port_util import pin_torch_loss as _torch_loss
+from torch_port_util import pin_user_data as _user_data
 
-ROUNDS, SEEDS, NUM_USERS = 4, (0, 1), 8
+ROUNDS, SEEDS, NUM_USERS = 4, (0, 1), PIN_USERS
 PINS = json.load(open(os.path.join(os.path.dirname(__file__),
                                    "winner_pins.json")))["winners"]
-
-
-def _user_data():
-    rng = np.random.default_rng(7)
-    user_data = []
-    for u in range(NUM_USERS):
-        probs = np.ones(4) / 4
-        probs[u % 4] += 1.0
-        probs /= probs.sum()
-        user_data.append({
-            "x": rng.normal(size=(64, 16)).astype(np.float32),
-            "y": rng.choice(4, 64, p=probs)})
-    return user_data
-
-
-def _init():
-    return {"w": np.zeros((16, 4), np.float32),
-            "b": np.zeros((4,), np.float32)}
-
-
-def _jax_loss(params, batch):
-    logits = batch["x"] @ params["w"] + params["b"]
-    oh = jax.nn.one_hot(batch["y"], 4)
-    return -jnp.mean(jnp.sum(oh * jax.nn.log_softmax(logits), -1))
-
-
-def _torch_loss(params, batch):
-    logp = torch.log_softmax(batch["x"] @ params["w"] + params["b"], -1)
-    return -logp.gather(-1, batch["y"].long()[:, None]).mean()
-
-
-def _torch_engine(spec_kw, **kw):
-    spec = teng.ExperimentSpec(**spec_kw)
-    return teng.build_host_engine(spec, to_torch(_init()), _torch_loss,
-                                  _user_data(), device="cpu", **kw)
-
-
-def _jax_engine(spec_kw):
-    spec = jeng.ExperimentSpec(**spec_kw)
-    return jeng.build_host_engine(spec, to_jax(_init()), _jax_loss,
-                                  _user_data())
 
 
 # ----------------------------------------------------- (a) winner pins
@@ -263,8 +226,9 @@ def test_sparse_auto_selection_raises_and_names_the_way_out():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(channel=teng.ChannelSpec(per_model="off")), "channel"),
-    (dict(merge_backend="aircomp"), "aircomp"),
+    (dict(objective=teng.ObjectiveSpec(aggregator="fedavgm")), "objective"),
+    (dict(objective=teng.ObjectiveSpec(local="feddyn", alpha=0.1)),
+     "objective"),
     (dict(objective=teng.ObjectiveSpec(local="fedprox", mu=0.1)),
      "objective"),
     (dict(strategy="random-centralized"), "random-centralized"),
@@ -276,8 +240,9 @@ def test_unported_spec_options_raise(kw, what):
 
 def test_unported_faults_mesh_objective_and_uneven_cohort_raise():
     from repro_torch.faults import FaultSpec
-    with pytest.raises(NotImplementedError, match="faults"):
-        _build(_spec(faults=FaultSpec()))
+    # the fault and channel layers are ported: these build
+    _build(_spec(faults=FaultSpec(),
+                 channel=teng.ChannelSpec(per_model="off")))
     with pytest.raises(NotImplementedError, match="mesh"):
         _build(mesh=object())
     with pytest.raises(NotImplementedError, match="objective"):
@@ -302,10 +267,6 @@ def test_unported_run_options_and_merge_contexts_raise():
     assert eng.backend.objective_active() is False
     assert eng.backend.objective_needs_h() is False
     tr = eng.backend.train_round(eng.state, 0, list(range(NUM_USERS)), True)
-    with pytest.raises(NotImplementedError, match="merge_ctx"):
-        eng.backend.merge(eng.state, tr, [0], merge_ctx=object())
-    with pytest.raises(NotImplementedError, match="fault_ctx"):
-        eng.backend.merge(eng.state, tr, [0], fault_ctx=object())
     with pytest.raises(NotImplementedError, match="partial-cohort"):
         eng.backend.train_round(eng.state, 0, [0, 1], True)
     empty = eng.backend.train_round(eng.state, 0, [], True)

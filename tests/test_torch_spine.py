@@ -20,7 +20,8 @@ SPINE = [
     "core/rngs.py", "core/counter.py", "core/csma.py",
     "data/partition.py", "data/synthetic.py", "data/__init__.py",
     "engine/registry.py", "engine/strategies.py", "engine/types.py",
-    "engine/spec.py", "channel/spec.py", "faults/spec.py",
+    "engine/spec.py", "channel/spec.py", "channel/model.py",
+    "faults/spec.py", "faults/injectors.py",
     "objectives/spec.py", "objectives/server.py",
 ]
 
@@ -55,6 +56,13 @@ ALLOWED_HUNKS = {
         (["                max_sim_slots=cfg.max_sim_slots)"],
          ["                max_sim_slots=cfg.max_sim_slots, "
           "device=self.device)"])],
+    # the stale buffer's checkpoint form: tensors to numpy, not
+    # jax.device_get
+    "faults/injectors.py": [
+        (["        import jax"],
+         ["        from repro_torch.convert import params_to_numpy"]),
+        (["            \"stale\": [(u, jax.device_get(p), n)"],
+         ["            \"stale\": [(u, params_to_numpy(p), n)"])],
     # lane_params slices tensors of a nested dict, not a jax pytree
     "engine/types.py": [(
         ["        import jax",
