@@ -8,7 +8,7 @@ without CUDA (there is no CPU path here). It
 
   1. names the card (``nvidia-smi`` name and power limit) and the
      toolchain;
-  2. builds the nine hand-written ``sm_90a`` kernels (four sources)
+  2. builds the ten hand-written ``sm_90a`` kernels (five sources)
      from ``src/repro_torch/kernels/csrc/``;
   3. holds every kernel against its plain PyTorch version on the card —
      f32 and bf16, ragged sizes and every leaf shape the driven paths
@@ -16,7 +16,9 @@ without CUDA (there is no CPU path here). It
      CNN with 10; the AirComp and robust merges with 2 and with 64 rows),
      including the masked non-finite row and the all-zero-weight merge,
      and the AirComp and robust merges' bit-level contracts with the
-     plain merge; the three contention passes bit for bit at every
+     plain merge; the server step of the objectives layer in its three
+     kinds (identity, FedAvgM, FedAdam) with its passthrough contracts;
+     the three contention passes bit for bit at every
      (B, M) pool shape the contention loop runs on, with forced expiry
      ties, dead lanes and rows with no live lane — and times kernel,
      plain version and, where one exists, the single PyTorch library
@@ -37,15 +39,21 @@ without CUDA (there is no CPU path here). It
      receiver noise, ``channel-distributed`` selection under a lossy
      waterfall PER, the robust merge under the active fault spec of
      ``benchmarks/faults_bench.py``, and that fault spec at 1000 users
-     and 64 winners with device contention for 3 rounds — with the
-     launch counts set to zero just before each path and read just
-     after;
+     and 64 winners with device contention for 3 rounds; then the
+     objectives layer on the MLP cell, 20 rounds each: FedDyn + FedAvgM
+     under the lossy channel (rounds with attempts and no deliveries
+     still update h) and FedProx + FedAdam, and FedDyn + FedAvgM at
+     1000 users for 3 rounds — with the launch counts set to zero just
+     before each path and read just after;
   5. checks the result by the repository's own means: the pinned
      winners of ``tests/winner_pins.json``, the card against the CPU run
      of the same rounds (channel, AirComp with and without receiver
-     noise, and fault lanes included),
-     run-to-run bit-equality on the card (a noisy AirComp run included),
-     a finite global in every round of the fault paths, and the
+     noise, fault and active-objective lanes included), inert
+     objectives bit-equal to the plain run on the card,
+     run-to-run bit-equality on the card (a noisy AirComp run and a
+     FedAdam run included),
+     a finite global in every round of the fault and objective paths,
+     and the
      contention invariants and numpy parity of
      ``tests/test_contention_device.py``.
 
@@ -90,6 +98,7 @@ from repro_torch.kernels import contention as kcont       # noqa: E402
 from repro_torch.kernels import ops, ref                  # noqa: E402
 from repro_torch.launch import train as launch_train      # noqa: E402
 from repro_torch.models.paper_models import get_paper_model  # noqa: E402
+from repro_torch.objectives import ObjectiveSpec          # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map        # noqa: E402
 
 DEV = torch.device("cuda")
@@ -124,6 +133,8 @@ KERNELS = {
                             replaces="src/repro/kernels/aircomp.py:65"),
     "robust_combine": dict(source="src/repro_torch/kernels/csrc/combine.cu",
                            replaces="src/repro/kernels/robust.py:57"),
+    "server_opt": dict(source="src/repro_torch/kernels/csrc/server_opt.cu",
+                       replaces="src/repro/kernels/server_opt.py:63"),
 }
 CONTENTION = ("contention_min", "contention_expiry", "contention_transition")
 #: the channel and fault layers' specs on the main path. LOSSY: waterfall
@@ -138,6 +149,19 @@ AIRCOMP = dict(merge_backend="aircomp",
 ACTIVE = FaultSpec(crash_prob=0.1, straggle_prob=0.2, corrupt_prob=0.1,
                    outage_prob=0.1, max_retries=2, clip_norm=2.0)
 MERGE_K = (2, 64)                # rows a merge reads: k = 2 and k = 64
+#: the objectives layer on the main path: FedDyn + FedAvgM under LOSSIER
+#: (LOSSY at a 20 dB threshold: there 20 rounds of the MLP cell hold
+#: rounds whose two attempts are both lost, which must still update h; at
+#: 15 dB a CPU run of them held none) and FedProx + FedAdam
+LOSSIER = ChannelSpec(fading="rayleigh", per_snr_threshold_db=20.0)
+FEDDYN = ObjectiveSpec(local="feddyn", alpha=0.01, aggregator="fedavgm",
+                       beta=0.9, server_lr=1.0)
+FEDADAM = ObjectiveSpec(local="fedprox", mu=0.01, aggregator="fedadam",
+                        server_lr=0.01)
+#: server_opt consts [kind, beta1, beta2, server_lr, eps]: identity,
+#: FedAvgM, FedAdam (FedAdam's is the one timed)
+SERVER_KINDS = {0: [0, 0.9, 0.99, 0.5, 1e-3], 1: [1, 0.9, 0.0, 0.5, 1e-3],
+                2: [2, 0.9, 0.99, 0.1, 1e-3]}
 BIG = ref.CONTENTION_BIG
 SLOT_S = 20e-6
 
@@ -229,7 +253,39 @@ def check_kernels_at(shape, U, dtype, seed):
         got = ops.robust_combine(rows, a, sc, glob)
         fold(out, "robust_combine",
              compare(f"robust_combine K={K}", got, want, dtype))
+    out["server_opt"] = check_server_opt_at(shape, dtype, seed + 50)
     return out
+
+
+def check_server_opt_at(shape, dtype, seed):
+    """The server step in each kind against its plain version (all three
+    outputs), and its contracts bitwise: kind 0, and kind 1 with beta1 =
+    0 and server_lr = 1, return avg's bits; server_lr = 0.5 is not a
+    passthrough; m passes through under kind 0 and v under kinds 0 and
+    1. Returns (worst error, every output bit-equal)."""
+    avg, old, m = (randn(seed + i, shape, dtype) for i in range(3))
+    v = randn(seed + 3, shape, dtype).abs()
+    err, equal = 0.0, True
+    for kind, consts in SERVER_KINDS.items():
+        got = ops.server_opt_combine(avg, old, m, v, consts)
+        want = ref.server_opt_combine_ref(avg, old, m, v,
+                                          torch.tensor(consts))
+        for part, g, w in zip(("out", "m", "v"), got, want):
+            e, b = compare(f"server_opt kind {kind} {part}", g, w, dtype)
+            err, equal = max(err, e), equal and b
+        if kind in (0, 1) and not torch.equal(got[2], v) \
+                or kind == 0 and not torch.equal(got[1], m):
+            raise AssertionError(f"server_opt kind {kind}: m / v did not "
+                                 "pass through")
+    for consts, inert in (([0, 0.9, 0.99, 0.5, 1e-3], True),
+                          ([1, 0.0, 0.0, 1.0, 1e-3], True),
+                          ([1, 0.0, 0.0, 0.5, 1e-3], False)):
+        out = ops.server_opt_combine(avg, old, m, v, consts)[0]
+        torch.cuda.synchronize()
+        if torch.equal(out, avg) != inert:
+            raise AssertionError(f"server_opt {consts}: passthrough is "
+                                 f"{not inert}, the law says {inert}")
+    return err, equal
 
 
 def fold(out, name, result):
@@ -763,6 +819,25 @@ def bench_kernels(U, shape, dtype, reps, K=2):
     record("robust_combine", rob_k, rob_p, rob_l, (K + 2) * n * item,
            (5 * (K - passthrough) + 2 * passthrough) * n,
            max(1, min(reps, 2000 // K)))
+
+    # the server step (FedAdam, the kind with the most work) on one leaf:
+    # avg, old, m, v of its own, enough sets to stay out of L2
+    adam = SERVER_KINDS[2]
+    adam_t = torch.tensor(adam)
+    nxt_so = rotating(lambda i: tuple(
+        randn(600 + 4 * i + j, shape, dtype).abs() if j == 3
+        else randn(600 + 4 * i + j, shape, dtype) for j in range(4)),
+        max(2, min(64, int(160e6 // (4 * n * item)) + 1)))
+
+    def so_k():
+        ops.server_opt_combine(*nxt_so(), adam)
+
+    def so_p():
+        ref.server_opt_combine_ref(*nxt_so(), adam_t)
+
+    # 4 leaf-shaped reads, 3 writes; FedAdam: 13 operations an element
+    # (no single PyTorch call computes this law: no library yardstick)
+    record("server_opt", so_k, so_p, None, 7 * n * item, 13 * n, reps)
     return res
 
 
@@ -772,22 +847,26 @@ def paper_args(*extra):
 
 
 def run_main_path(model, rounds, *extra, split=None, merges=None,
-                  finite=None, **spec):
+                  finite=None, h_moved=None, **spec):
     """The paper's cell (``extra`` appends command-line flags, ``spec``
     replaces spec fields the command line has no flag for: ``channel``,
-    ``faults``, ``merge_backend``) through
+    ``faults``, ``merge_backend``, ``objective``) through
     ``launch.train.build_paper_engine`` and ``FLEngine.run``; returns
     (history, engine, seconds, launches, per-round seconds, contention
     events). The engine evaluates after every round, so the clock is read
     inside its eval callback, after a synchronize. A ``split`` dict
     collects the seconds spent in training and in selection; a ``merges``
     list the kind of each merge the engine asks for ("digital",
-    "aircomp", "robust", "robust+stale"); a ``finite`` list whether every
-    leaf of the global was finite after each round."""
+    "aircomp", "robust", "robust+stale", "objective", and
+    "objective-empty" for an objective merge with attempts but no
+    deliveries); an ``h_moved`` list, for each "objective-empty" merge
+    of an h-carrying objective, whether the merge changed the attempt
+    winners' FedDyn h rows; a ``finite`` list whether every leaf of the
+    global was finite after each round."""
     engine = launch_train.build_paper_engine(
         paper_args("--model", model, "--rounds", str(rounds), *extra),
         **spec)
-    inner, stamps = engine.eval_fn, []
+    inner, stamps, marks = engine.eval_fn, [], []
     if split is not None:
         for obj, attr in ((engine.backend, "train_round"),
                           (engine.strategy, "select")):
@@ -796,14 +875,29 @@ def run_main_path(model, rounds, *extra, split=None, merges=None,
     if merges is not None:
         inner_merge = engine.backend.merge
 
+        be = engine.backend
+
         def spy(state, tr, winners, merge_ctx=None, fault_ctx=None,
                 attempts=None):
-            merges.append(
-                "digital" if merge_ctx is None and fault_ctx is None
-                else "aircomp" if fault_ctx is None
-                else "robust+stale" if fault_ctx.stale else "robust")
-            return inner_merge(state, tr, winners, merge_ctx=merge_ctx,
-                               fault_ctx=fault_ctx, attempts=attempts)
+            kind = ("robust+stale" if fault_ctx.stale else "robust"
+                    ) if fault_ctx is not None else (
+                "aircomp" if merge_ctx is not None
+                else ("objective" if winners else "objective-empty")
+                if be.objective_active() else "digital")
+            merges.append(kind)
+            watch = (kind == "objective-empty" and be.objective_needs_h()
+                     and h_moved is not None)
+            if watch:
+                rows = torch.as_tensor(attempts, device=DEV)
+                before = [h[rows].clone()
+                          for h in tree_leaves(be._ensure_obj_h(state))]
+            out = inner_merge(state, tr, winners, merge_ctx=merge_ctx,
+                              fault_ctx=fault_ctx, attempts=attempts)
+            if watch:
+                h_moved.append(all(
+                    not torch.equal(b, h[rows]) for b, h in
+                    zip(before, tree_leaves(be._ensure_obj_h(state)))))
+            return out
         engine.backend.merge = spy
 
     def timed_eval(params):
@@ -813,6 +907,7 @@ def run_main_path(model, rounds, *extra, split=None, merges=None,
                               for l in tree_leaves(params)))
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        marks.append(dict(kcont.LOOP))
         return acc
 
     engine.eval_fn = timed_eval
@@ -825,6 +920,11 @@ def run_main_path(model, rounds, *extra, split=None, merges=None,
     dt = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)             # just after it
     loop = dict(kcont.LOOP, shapes=sorted(kcont.LOOP["shapes"]))
+    # contention events and pool attempts of each round, read at the
+    # round's eval
+    for key in ("events", "attempts"):
+        loop["round_" + key] = np.diff(
+            [0, *[m[key] for m in marks]]).tolist()
     round_s = np.diff([t0, *stamps]).tolist()
     return hist, engine, dt, launches, round_s, loop
 
@@ -845,34 +945,45 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
     """``events``: the contention loop's events in the run (0 on the
     numpy backend); each runs the three contention passes once.
     ``merges``: the kinds of the run's merges (``run_main_path``); None
-    for a run without channel and faults, where every round with winners
-    merges digitally. A merge launches its kernel once per leaf; the
-    robust merge runs ``delta_norm`` and ``robust_combine`` once per leaf
-    for each group (fresh, and stale when there is one)."""
+    for a run without channel, faults and objective, where every round
+    with winners merges digitally. A merge launches its kernel once per
+    leaf; the robust merge runs ``delta_norm`` and ``robust_combine``
+    once per leaf for each group (fresh, and stale when there is one);
+    the objective merge runs ``gather_combine`` once per leaf and, when
+    the aggregator carries m / v and a weight is nonzero, ``server_opt``
+    once per leaf. Without faults a round merges when it delivered, or
+    when it had attempts and the objective carries h."""
     leaves = len(tree_leaves(engine.global_params))
     steps = engine.backend._nb * engine.spec.local_epochs
+    needs_h = engine.backend.objective_needs_h()
+    server = (engine.backend.objective_active()
+              and engine.spec.objective.uses_server)
     if merges is None:
         merges = ["digital"] * sum(1 for w in hist.winners if w)
-    elif engine.spec.faults is None \
-            and len(merges) != sum(1 for d in hist.delivered if d):
+    elif engine.spec.faults is None and len(merges) != sum(
+            1 for w, d in zip(hist.winners, hist.delivered)
+            if d or (w and needs_h)):
         raise AssertionError(f"{name}: {len(merges)} merges for "
-                             f"{hist.delivered}")
+                             f"{hist.winners} / {hist.delivered}")
     kinds = Counter(merges)
     groups = kinds["robust"] + 2 * kinds["robust+stale"]
     want = {"fused_sgd": leaves * steps * rounds,
             "delta_norm": leaves * (rounds + groups),
-            "gather_combine": leaves * kinds["digital"],
+            "gather_combine": leaves * (kinds["digital"] + kinds["objective"]
+                                        + kinds["objective-empty"]),
             "fedavg_combine": 0,
             **{k: events for k in CONTENTION},
             "aircomp_combine": leaves * kinds["aircomp"],
-            "robust_combine": leaves * groups}
+            "robust_combine": leaves * groups,
+            "server_opt": leaves * kinds["objective"] if server else 0}
     if engine.spec.contention_backend == "device" and events < rounds:
         raise AssertionError(f"{name}: {events} contention events in "
                              f"{rounds} rounds")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, the code "
                              f"predicts {want}")
-    if min(want["fused_sgd"], want["delta_norm"], len(merges)) < 1:
+    if min(want["fused_sgd"], want["delta_norm"], len(merges)) < 1 \
+            or server and want["server_opt"] < 1:
         raise AssertionError(f"{name}: a kernel of the path never ran")
     if len(hist.winners) != rounds or len(hist.train_loss) != rounds:
         raise AssertionError(f"{name}: history is short")
@@ -1038,6 +1149,26 @@ LAYER_LANES = {
     "faults-nan": ("priority-distributed", dict(channel=PIN_LOSSY,
                                                 faults=ACTIVE)),
 }
+#: the objective lanes of tests/test_torch_objectives.py (the active and
+#: the inert specs of tests/test_objectives.py:302-309 and :266-273)
+OBJ_ACTIVE = {
+    "fedprox/fedavg": ObjectiveSpec(local="fedprox", mu=0.1),
+    "feddyn/fedavg": ObjectiveSpec(local="feddyn", alpha=0.1),
+    "fedavg/fedavgm": ObjectiveSpec(aggregator="fedavgm", beta=0.9,
+                                    server_lr=0.5),
+    "fedavg/fedadam": ObjectiveSpec(aggregator="fedadam", server_lr=0.1),
+    "feddyn/fedavgm": ObjectiveSpec(local="feddyn", alpha=0.05,
+                                    aggregator="fedavgm", beta=0.5,
+                                    server_lr=0.8)}
+OBJ_INERT = {
+    "fedavg/fedavg": ObjectiveSpec(),
+    "fedprox-mu0": ObjectiveSpec(local="fedprox", mu=0.0),
+    "feddyn-alpha0": ObjectiveSpec(local="feddyn", alpha=0.0),
+    "fedavgm-beta0-slr1": ObjectiveSpec(aggregator="fedavgm", beta=0.0,
+                                        server_lr=1.0),
+    "feddyn+fedavgm-inert": ObjectiveSpec(local="feddyn", alpha=0.0,
+                                          aggregator="fedavgm", beta=0.0,
+                                          server_lr=1.0)}
 HISTORY_COUNTS = ("winners", "delivered", "upload_failures", "collisions",
                   "contention_slots", "round_seconds", "round_energy_j",
                   "retries", "dropped_clients", "stale_merges",
@@ -1047,8 +1178,11 @@ HISTORY_COUNTS = ("winners", "delivered", "upload_failures", "collisions",
 def phase_reference_small():
     """The card's winners equal the pinned ones, and for a priority
     strategy (whose winners depend on trained floats) the card and the
-    CPU run of the same rounds agree. One strategy and seed each: the
-    CPU tests hold every pinned cell against the reference package."""
+    CPU run of the same rounds agree — with the channel, AirComp, fault
+    and active-objective lanes too; the inert objectives give the plain
+    lane's winners and its global bit for bit on the card. One strategy
+    and seed each: the CPU tests hold every pinned cell against the
+    reference package."""
     with open(os.path.join(ROOT, "tests", "winner_pins.json")) as f:
         pins = json.load(f)["winners"]
     hist, _ = pin_scenario("random-distributed", 0, "cuda")
@@ -1070,6 +1204,7 @@ def phase_reference_small():
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
                                    rtol=1e-4, atol=1e-6)
     lanes = {}
+    plain = gp                  # the plain lane's global on the card
     for label, (strategy, spec) in LAYER_LANES.items():
         gh, gp = pin_scenario(strategy, 0, "cuda", **spec)
         ch, cp = pin_scenario(strategy, 0, "cpu", **spec)
@@ -1083,18 +1218,46 @@ def phase_reference_small():
         lanes[label] = dict(upload_failures=gh.upload_failures,
                             retries=gh.retries, stale_merges=gh.stale_merges,
                             quarantined=gh.quarantined_updates)
+    gaps = {}
+    for label, obj in OBJ_ACTIVE.items():
+        oh, op = pin_scenario("priority-distributed", 0, "cuda", objective=obj)
+        ch, cp = pin_scenario("priority-distributed", 0, "cpu", objective=obj)
+        for f in HISTORY_COUNTS:
+            if getattr(oh, f) != getattr(ch, f):
+                raise AssertionError(f"reference_small objective {label}: "
+                                     f"{f} differs between the card and "
+                                     "the CPU")
+        for a, b in zip(tree_leaves(op), tree_leaves(cp)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-4, atol=1e-6)
+        gaps[label] = max(float((a.cpu() - b).abs().max())
+                          for a, b in zip(tree_leaves(op), tree_leaves(cp)))
+    for label, obj in OBJ_INERT.items():
+        ih, ip = pin_scenario("priority-distributed", 0, "cuda", objective=obj)
+        if ih.winners != pins["priority-distributed/seed0"] or not all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(ip),
+                                                  tree_leaves(plain))):
+            raise AssertionError(f"reference_small inert objective {label}: "
+                                 "not the plain lane's winners and global "
+                                 "bits on the card")
     emit("reference_small", agree_with_pins=["random-distributed/seed0",
-                                             "priority-distributed/seed0"],
-         card_equals_cpu=["priority-distributed/seed0", *lanes],
-         layer_lanes=lanes,
-         tolerance="history counts exact; globals rtol 1e-4 atol 1e-6")
+                                             "priority-distributed/seed0",
+                                             *OBJ_INERT],
+         card_equals_cpu=["priority-distributed/seed0", *lanes,
+                          *OBJ_ACTIVE],
+         layer_lanes=lanes, objective_max_abs_gap_card_vs_cpu=gaps,
+         inert_objectives_bit_equal_to_plain=list(OBJ_INERT),
+         tolerance="history counts exact; globals rtol 1e-4 atol 1e-6; "
+                   "inert objectives bitwise")
 
 
 def phase_determinism(rounds=5):
-    """Two runs of the MLP cell, and two of its noisy AirComp variant
-    (receiver noise drawn on the card), are bit-equal."""
+    """Two runs of the MLP cell, two of its noisy AirComp variant
+    (receiver noise drawn on the card) and two of its FedProx + FedAdam
+    variant are bit-equal."""
     winners = {}
-    for label, spec in (("mlp", {}), ("mlp_aircomp", AIRCOMP)):
+    for label, spec in (("mlp", {}), ("mlp_aircomp", AIRCOMP),
+                        ("mlp_fedadam", dict(objective=FEDADAM))):
         runs = []
         for _ in range(2):
             hist, engine, _, _, _, _ = run_main_path("mlp", rounds, **spec)
@@ -1167,6 +1330,8 @@ def phase_main_path_u1000(rounds=3):
          first_round_s=round_s[0], median_later_round_s=steady,
          rounds_per_s=1.0 / steady, round_s=round_s, launches=launches,
          events=loop["events"], attempts=loop["attempts"],
+         round_events=loop["round_events"],
+         round_attempts=loop["round_attempts"],
          pool_shapes=loop["shapes"],
          train_s=split["train_round"], select_s=split["select"],
          train_share=split["train_round"] / dt,
@@ -1178,26 +1343,37 @@ def phase_main_path_u1000(rounds=3):
     return launches, set(map(tuple, loop["shapes"]))
 
 
-def phase_layer_path(name, rounds, check_accuracy, *extra, **spec):
-    """A channel / fault path of the MLP cell (``spec``: the layers'
-    spec fields; ``extra``: command-line flags): the checks of
+def phase_layer_path(name, rounds, check_accuracy, *extra,
+                     attempt_only=False, **spec):
+    """A channel / fault / objective path of the MLP cell (``spec``: the
+    layers' spec fields; ``extra``: command-line flags): the checks of
     ``check_main_path`` with the launches predicted from the kinds of the
-    run's merges, and a finite global after every round."""
+    run's merges, and a finite global after every round. With an
+    h-carrying objective, every merge of a round with attempts but no
+    deliveries must have moved the attempt winners' h rows; with
+    ``attempt_only`` the run must hold such a round."""
     torch.cuda.reset_peak_memory_stats()
     base_mb = torch.cuda.memory_allocated() / 2**20
-    merges, finite = [], []
+    merges, finite, h_moved = [], [], []
     hist, engine, dt, launches, round_s, loop = run_main_path(
-        "mlp", rounds, *extra, merges=merges, finite=finite, **spec)
+        "mlp", rounds, *extra, merges=merges, finite=finite,
+        h_moved=h_moved, **spec)
     check_main_path(name, hist, engine, launches, rounds, check_accuracy,
                     events=loop["events"], merges=merges)
     if len(finite) != rounds or not all(finite):
         raise AssertionError(f"{name}: the global was not finite after "
                              f"every round: {finite}")
+    if not all(h_moved) or attempt_only and not h_moved:
+        raise AssertionError(f"{name}: rounds with attempts and no "
+                             f"deliveries: h moved {h_moved}")
     steady = statistics.median(round_s[1:])
     emit(name, rounds=rounds, seconds=dt, first_round_s=round_s[0],
          median_later_round_s=steady, rounds_per_s=1.0 / steady,
          round_s=round_s, launches=launches, merges=dict(Counter(merges)),
-         events=loop["events"], uploads_total=hist.uploads_total,
+         events=loop["events"], attempts=loop["attempts"],
+         round_events=loop["round_events"],
+         round_attempts=loop["round_attempts"],
+         uploads_total=hist.uploads_total,
          delivered=sum(len(d) for d in hist.delivered),
          upload_failures=hist.upload_failures, retries=hist.retries,
          dropped_clients=hist.dropped_clients,
@@ -1208,22 +1384,26 @@ def phase_layer_path(name, rounds, check_accuracy, *extra, **spec):
          energy_j=float(sum(hist.round_energy_j)),
          accuracy_first=hist.accuracy[0], accuracy_last=hist.accuracy[-1],
          loss_first=hist.train_loss[0], loss_last=hist.train_loss[-1],
-         finite_every_round=True,
+         finite_every_round=True, attempt_only_merges_h_moved=h_moved,
          # what the path allocated on top of what was live before it
-         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20 - base_mb)
+         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20 - base_mb,
+         peak_mem_total_mb=torch.cuda.max_memory_allocated() / 2**20)
     del engine
     torch.cuda.empty_cache()
     return launches
 
 
 def phase_layer_overhead(rounds=10):
-    """The MLP cell plain, with the AirComp merge and with the fault
-    layer, in turns (plain, AirComp, faults, faults, AirComp, plain), so
-    that the host's drift over the call falls on all three alike: the
-    median later-round seconds of each run."""
+    """The MLP cell plain, with the AirComp merge, with the fault layer
+    and with FedProx + FedAdam, in turns (plain, AirComp, faults,
+    objectives, objectives, faults, AirComp, plain), so that the host's
+    drift over the call falls on all four alike: the median later-round
+    seconds of each run."""
     variants = {"plain": {}, "aircomp": AIRCOMP,
-                "faults": dict(channel=LOSSY, faults=ACTIVE)}
-    order = ["plain", "aircomp", "faults", "faults", "aircomp", "plain"]
+                "faults": dict(channel=LOSSY, faults=ACTIVE),
+                "objectives": dict(objective=FEDADAM)}
+    order = ["plain", "aircomp", "faults", "objectives", "objectives",
+             "faults", "aircomp", "plain"]
     out = {v: [] for v in variants}
     for v in order:
         _, _, _, _, round_s, _ = run_main_path("mlp", rounds, **variants[v])
@@ -1261,7 +1441,7 @@ def phase_profile(model, rounds=4, *extra, label=None, **spec):
     busy_ms = sum(r[1] for r in rows)
     ours = sum(r[1] for r in rows if "repro" in r[0] or "fused_sgd" in r[0]
                or "delta_norm" in r[0] or "combine_kernel" in r[0]
-               or "robust_kernel" in r[0]
+               or "robust_kernel" in r[0] or "server_opt" in r[0]
                or "contention_cu" in r[0])
     label = label or model + ("_device" if extra else "")
     emit(f"profile_{label}", rounds=rounds, wall_ms=wall_ms,
@@ -1331,7 +1511,10 @@ def main():
                    "contention: bit-equal, all six outputs and dtypes",
          merge_contracts="bitwise: zero weight masks inf/NaN rows, "
                          "all-zero weights return glob, pad width, "
-                         "S=U ids vs S=K positions",
+                         "S=U ids vs S=K positions; server_opt kinds 0 "
+                         "and 1 (beta1 0, server_lr 1) return avg, "
+                         "server_lr 0.5 does not, m / v pass through "
+                         "where the law keeps them",
          contention_cases=[list(c) for c in c_shapes],
          contention_inputs="forced expiry tie, dead lanes, a row with no "
                            "live lane (B > 1), no live lane at all, "
@@ -1394,18 +1577,31 @@ def main():
         "--contention-backend", "device", channel=LOSSY, faults=ACTIVE)
     phase_layer_overhead()
 
+    # ---- the objectives layer ------------------------------------------
+    l_dyn = phase_layer_path("main_path_mlp_feddyn_fedavgm", 20, False,
+                             attempt_only=True, channel=LOSSIER,
+                             objective=FEDDYN)
+    l_adam = phase_layer_path("main_path_mlp_fedprox_fedadam", 20, False,
+                              objective=FEDADAM)
+    l_u1000o = phase_layer_path(
+        "main_path_mlp_U1000_feddyn", 3, False, "--users", "1000", "--k",
+        "64", "--n-train", "60000", "--round-mode", "fused",
+        "--contention-backend", "device", objective=FEDDYN)
+
     if "--profile" in sys.argv[1:]:
         phase_profile("mlp")
         phase_profile("mlp", 4, "--contention-backend", "device")
         phase_profile("mlp", 4, label="mlp_aircomp", **AIRCOMP)
         phase_profile("mlp", 4, label="mlp_faults", channel=LOSSY,
                       faults=ACTIVE)
+        phase_profile("mlp", 4, label="mlp_objectives", objective=FEDADAM)
         phase_profile("cnn", rounds=2)
 
     # ---- the record ---------------------------------------------------
     record = []
     path_of = {"fedavg_combine": l_srv, "aircomp_combine": l_air,
-               "robust_combine": l_flt, **{k: l_dev for k in CONTENTION}}
+               "robust_combine": l_flt, "server_opt": l_dyn,
+               **{k: l_dev for k in CONTENTION}}
     for name, meta in KERNELS.items():
         contention = name in CONTENTION
         launches = path_of.get(name, l_mlp)[name]
@@ -1428,8 +1624,12 @@ def main():
             launches_U1000_device=l_u1000[name],
             launches_channel=l_chan[name],
             launches_U1000_faults=l_u1000f[name],
+            launches_fedadam=l_adam[name],
+            launches_U1000_feddyn=l_u1000o[name],
             timed_at=("int32 (1, 10): the paper cell's contention pool, "
                       "10 users" if contention else
+                      "f32 (784, 200): the MLP's fc1.w leaf, FedAdam"
+                      if name == "server_opt" else
                       "f32 (10, 784, 200): the MLP's fc1.w leaf, 10 users")))
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": record}), flush=True)

@@ -13,27 +13,32 @@ from repro_torch.tree import tree_leaves, tree_map
 
 
 def sgd_epoch_scan(loss_fn: Callable, lr: float) -> Callable:
-    """Returns ``run(stack, batched) -> (stack, per_batch_losses)`` over
-    a stacked cohort: one SGD step per batch for every user at once.
+    """Returns ``run(stack, batched, law=None) -> (stack,
+    per_batch_losses)`` over a stacked cohort: one SGD step per batch
+    for every user at once.
 
     ``stack`` leaves are ``(U, ...)``, ``batched`` leaves
     ``(U, num_batches, batch, ...)``; losses come back ``(U,
     num_batches)``. The reference's ``vmap`` over users is
     ``torch.func.vmap(grad_and_value(loss_fn))`` over the stack, its
     ``lax.scan`` over batches a Python loop, and its donated carry an
-    IN-PLACE update: ``stack`` is overwritten and returned.
+    IN-PLACE update: ``stack`` is overwritten and returned. ``law``,
+    when given, maps ``(grads, stack) -> grads`` before each step (an
+    objective's local gradient law).
 
-    THE local-SGD inner loop — the per-client trainer and the fused
-    cohort round both build on this one closure.
+    THE local-SGD inner loop — the per-client trainer, the fused cohort
+    round and the objectives' local laws all build on this one closure.
     """
     grad_fn = torch.func.vmap(torch.func.grad_and_value(loss_fn))
 
-    def run(stack, batched):
+    def run(stack, batched, law=None):
         nb = tree_leaves(batched)[0].shape[1]
         losses = []
         for i in range(nb):
             batch = tree_map(lambda a: a[:, i], batched)
             grads, loss = grad_fn(stack, batch)
+            if law is not None:
+                grads = law(grads, stack)
             sgd_update(stack, grads, lr)
             losses.append(loss.detach())
         return stack, torch.stack(losses, dim=1)

@@ -17,10 +17,17 @@ One implementation so far:
                launch per leaf per step), Eq. 2 priorities from the
                trained stack (``delta_norm`` kernel, one launch per
                leaf), and ONE Eq. 1 merge a round in delivery order,
-               one launch per leaf, in one of three forms:
+               one launch per leaf, in one of four forms:
 
                  * digital (no context): a gather-K reduction
                    (``gather_combine``);
+                 * objective (a non-plain ``ObjectiveSpec``): the same
+                   reduction, then the FedAvgM / FedAdam server step on
+                   the pseudo-gradient (``server_opt_combine``, skipped
+                   on a merge with no delivered weight), then the FedDyn
+                   h update over the round's attempt winners; the local
+                   step runs the FedProx / FedDyn gradient law
+                   (``objectives.local.objective_epoch_scan``);
                  * AirComp (``merge_ctx``, the channel layer's
                    over-the-air merge): the same reduction under the
                    power-control coefficients, plus a receiver-noise
@@ -41,8 +48,9 @@ One implementation so far:
 
                The reference's other round paths (``stacked``,
                ``ragged``, ``sparse``) with their gather-path AirComp and
-               robust merges, its sweep path, non-plain objectives and
-               cohort sharding are not ported yet; asking for one raises
+               robust merges and their objective programs, its sweep
+               path (objective lanes included) and cohort sharding are
+               not ported yet; asking for one raises
                ``NotImplementedError`` naming it. Nothing downgrades
                silently.
 
@@ -64,12 +72,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.client import Client, sgd_epoch_scan
+from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.priority import stacked_model_priorities
 from repro_torch.device import resolve_device
 from repro_torch.engine.types import TrainResult
 from repro_torch.faults.robust import robust_merge
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.contention import counter_seed
+from repro_torch.objectives.local import objective_epoch_scan
 from repro_torch.tree import tree_leaves, tree_map
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -233,10 +243,7 @@ class HostBackend(Backend):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: sharding the cohort over devices is not ported yet")
-        if objective is not None and not objective.is_plain:
-            raise NotImplementedError(
-                "objective: non-plain objectives (fedprox / feddyn / "
-                "fedavgm / fedadam) are not ported yet")
+        self._objective = objective
         self.device = resolve_device(device)
         self.num_users = len(user_data)
         self.heterogeneity = label_heterogeneity(user_data, num_classes)
@@ -247,6 +254,8 @@ class HostBackend(Backend):
                    local_epochs=local_epochs, seed=seed)
             for u in range(self.num_users)
         ]
+        self._loss_fn = loss_fn
+        self._lr = lr
         self._batch_size = batch_size
         self._local_epochs = local_epochs
         self._k_max = int(k_max) if k_max else None
@@ -266,6 +275,11 @@ class HostBackend(Backend):
         self._noise_draw = aircomp_noise
         self._resident = None      # device-resident merged cohort stack
         self._resident_key = None  # the global-state object it mirrors
+        # ---- objectives state (lazy, on the device) -------------------
+        self._obj_run = None          # objective_epoch_scan closure
+        self._obj_m = None            # server-opt first moment (~ glob)
+        self._obj_v = None            # server-opt second moment
+        self._obj_h = None            # (U, ...) per-user FedDyn h-state
 
     # ------------------------------------------------------------------
     def init_state(self, init_params):
@@ -281,6 +295,50 @@ class HostBackend(Backend):
 
     def _can_fuse(self, train_ids) -> bool:
         return self._rect and len(train_ids) == self.num_users
+
+    # ------------------------------------------------ objectives helpers
+    def objective_active(self) -> bool:
+        return (self._objective is not None
+                and not self._objective.is_plain)
+
+    def objective_needs_h(self) -> bool:
+        return self.objective_active() and self._objective.uses_h
+
+    def _ensure_obj_run(self):
+        if self._obj_run is None:
+            self._obj_run = objective_epoch_scan(
+                self._loss_fn, self._lr, self._objective.uses_h)
+        return self._obj_run
+
+    def _ensure_obj_h(self, state):
+        """(U, ...) FedDyn h tensors on the device, zero-initialised on
+        first touch (no RNG — the objectives subsystem draws nothing)."""
+        if self._obj_h is None:
+            U = self.num_users
+            self._obj_h = tree_map(
+                lambda p: torch.zeros((U,) + tuple(p.shape), dtype=p.dtype,
+                                      device=self.device), state)
+        return self._obj_h
+
+    def objective_state(self):
+        """Host numpy copies of the server-opt moments and the FedDyn
+        h-state (None for a piece this objective never materialised),
+        or None without an active objective. bf16 leaves widen to f32
+        (``convert.params_to_numpy``)."""
+        if not self.objective_active():
+            return None
+        host = lambda x: None if x is None else params_to_numpy(x)  # noqa: E731
+        return {"m": host(self._obj_m), "v": host(self._obj_v),
+                "h": host(self._obj_h)}
+
+    def restore_objective_state(self, state) -> None:
+        if state is None:
+            return
+        dev = lambda x: None if x is None else params_from_numpy(  # noqa: E731
+            x, device=self.device)
+        self._obj_m = dev(state.get("m"))
+        self._obj_v = dev(state.get("v"))
+        self._obj_h = dev(state.get("h"))
 
     # ------------------------------------------------- fused round path
     def _ensure_xstack(self):
@@ -312,11 +370,15 @@ class HostBackend(Backend):
         leaf; the trained stack's buffer is then overwritten with its
         broadcast and becomes next round's resident stack."""
         with torch.no_grad():
-            new_glob = tree_map(
-                lambda l, g: kops.gather_combine(l, idx, w, g),
-                trained, old_glob)
+            new_glob = self._average(trained, idx, w, old_glob)
             new_stack = self._restack(new_glob, trained)
         return new_glob, new_stack
+
+    @staticmethod
+    def _average(trained, idx, w, old_glob):
+        """Eq. 1 per leaf: one ``gather_combine`` launch each."""
+        return tree_map(lambda l, g: kops.gather_combine(l, idx, w, g),
+                        trained, old_glob)
 
     @staticmethod
     def _restack(new_glob, trained):
@@ -429,8 +491,16 @@ class HostBackend(Backend):
         # row 0 of the stack, a value there; here that would be a view
         # of the buffer the SGD kernel is about to overwrite. `state`
         # never aliases the stack (`_bcast` and the merge both produce
-        # fresh tensors), so it is used as is.
-        trained, losses = self._epoch_run(stack, self._fused_batches())
+        # fresh tensors), so it is used as is — as the proximal anchor
+        # of an objective's gradient law too.
+        if self.objective_active():
+            extra = ((self._ensure_obj_h(state),)
+                     if self._objective.uses_h else ())
+            trained, losses = self._ensure_obj_run()(
+                stack, self._fused_batches(), state,
+                self._objective.prox_coeff, *extra)
+        else:
+            trained, losses = self._epoch_run(stack, self._fused_batches())
         # per-user loss = mean over the LAST epoch's batches
         loss_u = losses[:, -self._nb:].mean(dim=1)
         if need_priority:
@@ -451,6 +521,10 @@ class HostBackend(Backend):
                                priorities=np.ones(self.num_users),
                                local_handle={})
         if not self._can_fuse(train_ids):
+            if self.objective_active():
+                raise RuntimeError(
+                    "non-plain objective on an unfused round (partial "
+                    "cohort?): objectives run in the fused round only")
             raise NotImplementedError(
                 "partial-cohort round: it needs round_mode='stacked' / "
                 "'ragged', which are not ported yet")
@@ -469,13 +543,61 @@ class HostBackend(Backend):
             return self._k_max
         return max(m, 1)
 
+    def _objective_merge(self, state, trained, idx, w, w_host, attempts):
+        """Objective twin of ``_fused_merge``: the FedDyn h update over the
+        round's ATTEMPT winners, then the shared Eq. 1 average, then the
+        server step on the pseudo-gradient (``server_opt_combine``) when
+        the aggregator carries m/v, then the shared restack.
+
+        The h update ``h_u <- h_u - alpha * (w_u^end - w_glob)`` reads
+        only the trained rows of the attempt winners (row = user id on
+        the fused handle) and ``state``, so it runs first, before the
+        stack is overwritten; it writes each user's row once (the winners
+        are distinct: an indexed write, no float atomics); ``alpha == 0``
+        skips it, so h stays bitwise. A merge whose weights are all zero
+        (attempts but no deliveries: only an h-carrying objective
+        dispatches one) skips the server step on the host — the global is
+        the average, which is the old global's bits, and m / v stay as
+        they were, bitwise. m, v and h are device-resident; the new
+        global and moments are fresh tensors."""
+        obj = self._objective
+        with torch.no_grad():
+            if obj.uses_h:
+                h = self._ensure_obj_h(state)
+                att = [int(u) for u in (attempts or [])]
+                if att and obj.alpha_coeff != 0.0:
+                    rows = torch.as_tensor(att, dtype=torch.int64,
+                                           device=self.device)
+                    neg_alpha = -float(np.float32(obj.alpha_coeff))
+                    for hh, l, g in zip(tree_leaves(h), tree_leaves(trained),
+                                        tree_leaves(state)):
+                        hh[rows] = hh[rows] + neg_alpha * (l[rows] - g)
+            new_glob = self._average(trained, idx, w, state)
+            if obj.uses_server:
+                if self._obj_m is None:
+                    self._obj_m = tree_map(torch.zeros_like, state)
+                    self._obj_v = tree_map(torch.zeros_like, state)
+                if np.any(w_host != 0.0):
+                    consts = obj.server_consts()
+                    out = tree_map(
+                        lambda a, o, m, v: kops.server_opt_combine(
+                            a, o, m, v, consts),
+                        new_glob, state, self._obj_m, self._obj_v)
+                    new_glob = tree_map(lambda r: r[0], out)
+                    self._obj_m = tree_map(lambda r: r[1], out)
+                    self._obj_v = tree_map(lambda r: r[2], out)
+            new_stack = self._restack(new_glob, trained)
+        return new_glob, new_stack
+
     def merge(self, state, train_result, winners, merge_ctx=None,
               fault_ctx=None, attempts=None):
         """Eq. 1 over ``winners`` (delivery order) on the fused train
         handle: the robust merge when ``fault_ctx`` is given, else the
-        AirComp merge when ``merge_ctx`` is, else the digital one. The
-        old global ``state`` is only read; the trained stack becomes the
-        new resident stack."""
+        AirComp merge when ``merge_ctx`` is, else the objective merge
+        when a non-plain objective is active, else the digital one.
+        ``attempts`` (the round's attempt winners) feed the FedDyn h
+        update. The old global ``state`` is only read; the trained stack
+        becomes the new resident stack."""
         handle = train_result.local_handle
         trained = handle.get("fused_stack") \
             if isinstance(handle, dict) else None
@@ -496,7 +618,10 @@ class HostBackend(Backend):
             # one upload of the host-assembled (k_pad,) vectors per merge
             idx_d = torch.from_numpy(idx).to(self.device)
             w_d = torch.from_numpy(w).to(self.device)
-            if merge_ctx is None:
+            if merge_ctx is None and self.objective_active():
+                new_glob, new_stack = self._objective_merge(
+                    state, trained, idx_d, w_d, w, attempts)
+            elif merge_ctx is None:
                 new_glob, new_stack = self._fused_merge(trained, idx_d, w_d,
                                                         state)
             else:

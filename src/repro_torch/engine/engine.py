@@ -11,7 +11,9 @@ One round, regardless of strategy or backend:
      HARQ retries, stragglers, corruption) turn the contention winners
      (upload attempts) into the merge candidates;
   5. backend.merge of the candidates (Eq. 1: digital, AirComp or the
-     robust guard);
+     robust guard; with a non-plain objective, the server step after it
+     and the FedDyn h update — a round with attempts but no deliveries
+     still merges when the objective carries h);
   6. counter + history update — including the contention's collision
      and airtime stats, the channel's airtime / energy and the fault
      counters.
@@ -20,15 +22,14 @@ There is deliberately no strategy-name branching here: behaviour
 differences ride entirely on the Strategy capability flags and the
 Backend contract.
 
-This is the per-round loop of the reference engine, channel and fault
-layers included; its stream draws come in the reference's order, so
-every count of the history equals the reference's. Its sweep path
-(``run_sweep``, the E = 1 delegation of ``run``), checkpoint/resume,
-non-plain objectives and strategies that select before training are
-not ported yet: each raises ``NotImplementedError`` naming what is
-missing. The reference pins the sweep lane and the per-round loop to
-the same winners and globals, so this loop is the sequential reference
-of both.
+This is the per-round loop of the reference engine, channel, fault and
+objectives layers included; its stream draws come in the reference's
+order, so every count of the history equals the reference's. Its sweep
+path (``run_sweep``, the E = 1 delegation of ``run``), checkpoint/resume
+and strategies that select before training are not ported yet: each
+raises ``NotImplementedError`` naming what is missing. The reference
+pins the sweep lane and the per-round loop to the same winners and
+globals, so this loop is the sequential reference of both.
 """
 from __future__ import annotations
 
@@ -47,13 +48,6 @@ from repro_torch.engine.types import FLHistory, SelectionContext
 from repro_torch.faults.injectors import FaultInjector
 from repro_torch.faults.robust import FaultMergeContext, fault_alphas
 from repro_torch.tree import tree_leaves
-
-
-def _reject_unported(spec: ExperimentSpec) -> None:
-    """Raise for every spec option whose subsystem is not ported."""
-    if spec.objective is not None and not spec.objective.is_plain:
-        raise NotImplementedError(
-            "spec.objective: non-plain objectives are not ported yet")
 
 
 def _gate_round(channel, attempted):
@@ -92,7 +86,6 @@ class FLEngine:
 
     def __init__(self, spec: ExperimentSpec, backend: Backend, init_params,
                  eval_fn: Optional[Callable] = None):
-        _reject_unported(spec)
         self.spec = spec
         self.backend = backend
         self.eval_fn = eval_fn
@@ -110,6 +103,19 @@ class FLEngine:
         if sim is not None:
             # device contention runs where the cohort lives
             sim.device = backend.device
+        obj = spec.objective
+        if obj is not None and not obj.is_plain:
+            if not backend.objective_active():
+                raise ValueError(
+                    "spec.objective is non-plain but the backend was "
+                    "built without it; construct HostBackend with "
+                    "objective=spec.objective (build_host_engine wires "
+                    "this automatically)")
+            if self.strategy.trains_before_selection:
+                raise ValueError(
+                    "non-plain objectives need the full-cohort fused "
+                    "round; trains_before_selection strategy "
+                    f"{spec.strategy!r} runs partial-cohort rounds")
         if self.strategy.trains_before_selection:
             raise NotImplementedError(
                 f"strategy {spec.strategy!r} selects before training "
@@ -230,7 +236,12 @@ class FLEngine:
             for u in rf.stragglers:
                 faults.push_stale(u, self.backend.extract_local(tr, u),
                                   self.backend.num_examples(u))
-        if merged_now or stale_in:
+        # FedDyn's h-state is keyed to the round's ATTEMPT winners (they
+        # trained, so their local h advanced even if the channel dropped
+        # the upload) — such rounds still dispatch the merge, whose
+        # all-zero-weight guard keeps the global while h updates
+        needs_h = self.backend.objective_needs_h()
+        if merged_now or stale_in or (winners and needs_h):
             fault_ctx = self._lane_fault_ctx(spec, rf, stale_in,
                                              merged_now)
             self.state = self.backend.merge(
@@ -322,7 +333,6 @@ def build_host_engine(spec: ExperimentSpec, init_params, loss_fn,
     is the CUDA device (raises without one); ``"cpu"`` runs on the CPU.
     """
     from repro_torch.engine.backends import HostBackend
-    _reject_unported(spec)
     mode = round_mode if round_mode is not None else spec.round_mode
     if mode is None:
         ns = {len(tree_leaves(d)[0]) for d in user_data}

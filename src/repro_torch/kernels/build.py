@@ -56,6 +56,10 @@ SIGNATURES = {
         "repro_contention_transition": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _I, _I, _I, _P),
     },
+    "server_opt": {
+        "repro_server_opt": (_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
+                             _LL, _I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

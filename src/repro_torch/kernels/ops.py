@@ -18,8 +18,9 @@ Kernels, one wrapper each: ``fused_sgd`` (the local step),
 clip), ``gather_combine`` and ``fedavg_combine`` (Eq. 1),
 ``aircomp_combine`` / ``aircomp_combine_weighted`` (the channel layer's
 over-the-air merge, from alphas or from weights formed once a merge),
-``robust_combine`` (the fault layer's guarded merge) and
-``contention_event`` (the three CSMA passes).
+``robust_combine`` (the fault layer's guarded merge),
+``server_opt_combine`` (the objectives layer's FedAvgM / FedAdam server
+step) and ``contention_event`` (the three CSMA passes).
 
 No op is differentiated in the reference, so none has a backward
 kernel.
@@ -41,13 +42,15 @@ from repro_torch.kernels.fedavg import fedavg_cuda
 from repro_torch.kernels.fused_sgd import fused_sgd_cuda_
 from repro_torch.kernels.gather import gather_combine_cuda
 from repro_torch.kernels.robust import robust_cuda
+from repro_torch.kernels.server_opt import server_opt_cuda
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"fused_sgd": 0, "delta_norm": 0,
                             "gather_combine": 0, "fedavg_combine": 0,
                             "contention_min": 0, "contention_expiry": 0,
                             "contention_transition": 0,
-                            "aircomp_combine": 0, "robust_combine": 0}
+                            "aircomp_combine": 0, "robust_combine": 0,
+                            "server_opt": 0}
 
 
 def reset_launches() -> None:
@@ -200,6 +203,22 @@ def robust_combine(stacked, weights, scales, global_ref):
         LAUNCHES["robust_combine"] += 1
         return out
     return ref.robust_combine_ref(stacked, w, s, global_ref)
+
+
+def server_opt_combine(avg, old, m, v, consts):
+    """The server aggregator step after Eq. 1 (see
+    ``ref.server_opt_combine_ref``): ``(new_global, m', v')`` from the
+    merged average ``avg``, the round-start global ``old`` and the
+    server-opt state ``m``, ``v`` (one shape). ``consts``: the five host
+    values ``[kind, beta1, beta2, server_lr, eps]`` (numpy, a sequence
+    or a CPU tensor) — the kernel takes them by value, so no merge reads
+    a device scalar. Returns fresh tensors."""
+    c = np.asarray(consts, np.float32)
+    if avg.is_cuda:
+        out = server_opt_cuda(avg, old, m, v, c)
+        LAUNCHES["server_opt"] += 1
+        return out
+    return ref.server_opt_combine_ref(avg, old, m, v, torch.from_numpy(c))
 
 
 def fused_sgd(param, grad, lr):

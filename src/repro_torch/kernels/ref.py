@@ -114,6 +114,38 @@ def robust_combine_ref(stacked, weights, scales, global_ref):
     return acc.to(stacked.dtype)
 
 
+def server_opt_combine_ref(avg, old, m, v, consts):
+    """Server aggregator step on the pseudo-gradient ``d = old - avg``.
+
+    avg: (...) the Eq. 1 merged average; old: (...) the round-start
+    global; m, v: (...) server-opt state; consts: (5,) f32 ``[kind,
+    beta1, beta2, server_lr, eps]`` with kind 0 = identity (plain
+    FedAvg), 1 = momentum (FedAvgM: ``m' = beta1*m + d; out = old -
+    server_lr*m'``), 2 = adam (FedAdam, no bias correction: ``m' =
+    beta1*m + (1-beta1)*d; v' = beta2*v + ((1-beta2)*d)*d; out = old -
+    server_lr * m' / (sqrt(v') + eps)``). Returns ``(new_global, new_m,
+    new_v)`` in the dtypes of ``avg``, ``m``, ``v``.
+
+    Every operation is one f32 operation, rounded on its own, and
+    ``1 - beta1`` / ``1 - beta2`` are f32 differences. Kind 0, and kind 1
+    with ``beta1 == 0 and server_lr == 1``, take a passthrough select:
+    the output is bitwise ``avg`` (``old - (old - avg)`` is not an
+    IEEE-754 identity). Kind 2 has no inert setting.
+    """
+    c = torch.as_tensor(consts).to(device=avg.device, dtype=torch.float32)
+    kind, b1, b2, slr, eps = c[0], c[1], c[2], c[3], c[4]
+    a, o, mm, vv = avg.float(), old.float(), m.float(), v.float()
+    one = torch.ones((), dtype=torch.float32, device=avg.device)
+    d = o - a
+    scale1 = torch.where(kind == 2.0, one - b1, one)
+    nm = torch.where(kind == 0.0, mm, b1 * mm + scale1 * d)
+    nv = torch.where(kind == 2.0, b2 * vv + (one - b2) * d * d, vv)
+    step = torch.where(kind == 2.0, nm / (torch.sqrt(nv) + eps), nm)
+    inert = (kind == 0.0) | ((kind == 1.0) & (b1 == 0.0) & (slr == 1.0))
+    out = torch.where(inert, a, o - slr * step)
+    return out.to(avg.dtype), nm.to(m.dtype), nv.to(v.dtype)
+
+
 def fused_sgd_ref(param, grad, lr):
     """param - lr * grad, computed in f32 (product and difference
     rounded separately), cast back."""

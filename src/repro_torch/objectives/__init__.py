@@ -1,6 +1,11 @@
-"""Objectives subsystem — the frozen ``ObjectiveSpec`` and the registry
-descriptors are ported; the training law and the server-opt kernel are
-not (a non-plain objective raises ``NotImplementedError``)."""
+"""Objectives subsystem: registered local objectives (FedAvg / FedProx /
+FedDyn) + server aggregators (FedAvg / FedAvgM / FedAdam), run on
+HostBackend's fused round path: the local law in the training loop
+(``objective_epoch_scan``), the server step after Eq. 1
+(``kernels.ops.server_opt_combine``), the FedDyn h update at merge
+time. The reference's sweep and winner-sparse objective programs are
+not ported yet."""
+from repro_torch.objectives.local import objective_epoch_scan
 from repro_torch.objectives.server import (ObjectiveTable,
                                            build_objective_table)
 from repro_torch.objectives.spec import (LOCAL_OBJECTIVES,
@@ -10,6 +15,7 @@ from repro_torch.objectives.spec import (LOCAL_OBJECTIVES,
 
 __all__ = [
     "ObjectiveSpec", "ObjectiveTable", "build_objective_table",
-    "LocalObjective", "ServerAggregator", "register_local",
-    "register_server", "LOCAL_OBJECTIVES", "SERVER_AGGREGATORS",
+    "objective_epoch_scan", "LocalObjective", "ServerAggregator",
+    "register_local", "register_server",
+    "LOCAL_OBJECTIVES", "SERVER_AGGREGATORS",
 ]

@@ -267,11 +267,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tops.contention_event(cnt, cnt == 0, cnt, x, x.abs() % 1.0, 5)
     tops.aircomp_combine(x, _alphas(19, 4), np.ones(4), x[0])
     tops.robust_combine(x, _alphas(20, 4), np.ones(4), x[0])
+    tops.server_opt_combine(x[0], x[1], x[2], x[3].abs(),
+                            [2, 0.9, 0.99, 0.1, 1e-3])
     assert tops.LAUNCHES == {"fused_sgd": 0, "delta_norm": 0,
                              "gather_combine": 0, "fedavg_combine": 0,
                              "contention_min": 0, "contention_expiry": 0,
                              "contention_transition": 0,
-                             "aircomp_combine": 0, "robust_combine": 0}
+                             "aircomp_combine": 0, "robust_combine": 0,
+                             "server_opt": 0}
 
 
 def test_plain_versions_agree_with_wrappers_on_cpu():

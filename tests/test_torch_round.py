@@ -226,16 +226,24 @@ def test_sparse_auto_selection_raises_and_names_the_way_out():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(objective=teng.ObjectiveSpec(aggregator="fedavgm")), "objective"),
-    (dict(objective=teng.ObjectiveSpec(local="feddyn", alpha=0.1)),
-     "objective"),
-    (dict(objective=teng.ObjectiveSpec(local="fedprox", mu=0.1)),
-     "objective"),
     (dict(strategy="random-centralized"), "random-centralized"),
 ])
 def test_unported_spec_options_raise(kw, what):
     with pytest.raises(NotImplementedError, match=what):
         _build(_spec(**kw))
+
+
+@pytest.mark.parametrize("obj", [
+    teng.ObjectiveSpec(aggregator="fedavgm"),
+    teng.ObjectiveSpec(local="feddyn", alpha=0.1),
+    teng.ObjectiveSpec(local="fedprox", mu=0.1),
+], ids=["fedavgm", "feddyn", "fedprox"])
+def test_objective_spec_options_build_and_run(obj):
+    eng = _build(_spec(objective=obj))
+    assert eng.backend.objective_active() is True
+    assert eng.backend.objective_needs_h() is obj.uses_h
+    hist = eng.run()
+    assert len(hist.winners) == 1 and hist.uploads_total >= 1
 
 
 def test_unported_faults_mesh_objective_and_uneven_cohort_raise():
@@ -245,9 +253,10 @@ def test_unported_faults_mesh_objective_and_uneven_cohort_raise():
                  channel=teng.ChannelSpec(per_model="off")))
     with pytest.raises(NotImplementedError, match="mesh"):
         _build(mesh=object())
-    with pytest.raises(NotImplementedError, match="objective"):
-        THostBackend(_torch_loss, _user_data(), device="cpu",
-                     objective=teng.ObjectiveSpec(aggregator="fedavgm"))
+    # the objectives layer is ported: a non-plain objective builds
+    assert THostBackend(_torch_loss, _user_data(), device="cpu",
+                        objective=teng.ObjectiveSpec(aggregator="fedavgm")
+                        ).objective_active()
     uneven = _user_data()
     uneven[3] = {k: v[:40] for k, v in uneven[3].items()}
     with pytest.raises(NotImplementedError, match="ragged"):

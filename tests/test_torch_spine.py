@@ -118,8 +118,8 @@ def test_every_suppression_sits_on_an_rng_constructor_line():
 
 
 def test_objective_descriptors_match_the_reference():
-    """``objectives/local.py`` carries only the registrations; they must
-    describe the reference's objectives."""
+    """The registrations in ``objectives/local.py`` must describe the
+    reference's objectives."""
     from repro.objectives import spec as jspec
     from repro_torch.objectives import spec as tspec
     jspec._ensure_registered()
