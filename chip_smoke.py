@@ -8,7 +8,7 @@ without CUDA (there is no CPU path here). It
 
   1. names the card (``nvidia-smi`` name and power limit) and the
      toolchain;
-  2. builds the ten hand-written ``sm_90a`` kernels (five sources)
+  2. builds the eleven hand-written ``sm_90a`` kernels (five sources)
      from ``src/repro_torch/kernels/csrc/``;
   3. holds every kernel against its plain PyTorch version on the card —
      f32 and bf16, ragged sizes and every leaf shape the driven paths
@@ -18,19 +18,25 @@ without CUDA (there is no CPU path here). It
      and the AirComp and robust merges' bit-level contracts with the
      plain merge; the server step of the objectives layer in its three
      kinds (identity, FedAvgM, FedAdam) with its passthrough contracts;
-     the three contention passes bit for bit at every
-     (B, M) pool shape the contention loop runs on, with forced expiry
-     ties, dead lanes and rows with no live lane — and times kernel,
-     plain version and, where one exists, the single PyTorch library
-     call;
+     the robust merge where its vector path splits (ragged and skewed
+     leaves, K = 1, 9, 65, a NaN row at zero weight inside an unrolled
+     group); the three contention passes bit for bit at every (B, M) pool
+     shape the contention loop runs on, with forced expiry ties, dead
+     lanes and rows with no live lane — and times kernel, plain version
+     and, where one exists, the single PyTorch library call (eager and
+     from a CUDA graph, like the kernel); the persistent contention loop
+     at the engine's pools;
   4. drives the port's main path through its normal entry points:
      ``launch.train.build_paper_engine`` with the paper's defaults (MLP
      784x200x10, 10 users, 2 winners a round, ``priority-distributed``)
      for 20 rounds, the full-width CNN for 3 rounds, and after each the
      ``core.server`` merges and the backend's own merge on a freshly
      trained stack, held against the plain version; then device CSMA
-     contention (``--contention-backend device``): the contention loop
-     with the kernels against the loop with the plain event op, the
+     contention (``--contention-backend device``): the persistent loop
+     kernel (one launch a pool attempt) against the plain Python loop
+     with the same counter draws — every field and per-row events, the
+     retry ladder past the shared-memory limit included — and against
+     the ``device="cpu"`` run, the loop with the three pass kernels, the
      dense 1e4-1e6-contender regime of ``benchmarks/contention_bench.py``
      through ``CSMASimulator(backend="device")`` (against numpy at 1e4),
      the paper's MLP cell for 20 rounds and the MLP with 1000 users and
@@ -129,6 +135,10 @@ KERNELS = {
     "contention_transition": dict(
         source="src/repro_torch/kernels/csrc/contention.cu",
         replaces="src/repro/kernels/contention.py:147"),
+    # the three passes fused with the host event loop that drove them
+    "contention_loop": dict(
+        source="src/repro_torch/kernels/csrc/contention.cu",
+        replaces="src/repro/kernels/contention.py:113"),
     "aircomp_combine": dict(source="src/repro_torch/kernels/csrc/combine.cu",
                             replaces="src/repro/kernels/aircomp.py:65"),
     "robust_combine": dict(source="src/repro_torch/kernels/csrc/combine.cu",
@@ -137,6 +147,9 @@ KERNELS = {
                        replaces="src/repro/kernels/server_opt.py:63"),
 }
 CONTENTION = ("contention_min", "contention_expiry", "contention_transition")
+LOOP_KERNEL = "contention_loop"
+LOOP_FIELDS = ("winners", "finish_slots", "collisions", "elapsed_slots",
+               "n_delivered")
 #: the channel and fault layers' specs on the main path. LOSSY: waterfall
 #: PER under Rayleigh fading with the threshold raised to 15 dB, so the
 #: MLP cell's 10 users lose a good share of their uploads (the default
@@ -384,6 +397,39 @@ def check_merge_contracts(dtype):
                                  f"{bad} row leaked into the merge")
 
 
+def check_robust_split(dtype):
+    """robust_combine where its vector path splits from its scalar path
+    (n % 4 != 0, n < 4, n % 8 != 0 for bf16, an operand 4 bytes off a
+    16-byte boundary) and around its unroll of 8 rows (K = 1, 9, 65),
+    with a NaN row at zero weight in the second unrolled group (row 8 or
+    13):
+    bit-equal to the plain version and to the unpoisoned merge. Returns
+    (worst error, every case bit-equal)."""
+    err, equal = 0.0, True
+    for K in (1, 9, 65):
+        for shape in ((3,), (10,), (2, 7), (4, 130), (784, 200)):
+            n = int(np.prod(shape))
+            stack = randn(K * 7 + n, (K,) + shape, dtype)
+            glob = randn(K * 7 + n + 1, shape, dtype)
+            _, a, _, sc = channel_merge_inputs(K, K, seed=K + n, zero=False)
+            poisoned = stack.clone()
+            if K > 1:
+                z = min(K - 1, 13)
+                a[z], sc[z] = 0.0, float("nan")
+                poisoned[z] = float("nan")
+            # the same rows 4 bytes past a 16-byte boundary: scalar path
+            flat = torch.empty(K * n + 1, dtype=dtype, device=DEV)
+            skew = flat[1:].view((K,) + shape)
+            skew.copy_(poisoned)
+            want = ref.robust_combine_ref(stack, a, sc, glob)
+            for label, rows in (("aligned", poisoned), ("skewed", skew)):
+                got = ops.robust_combine(rows, a, sc, glob)
+                e, b = compare(f"robust_combine K={K} {shape} {label}", got,
+                               want, dtype)
+                err, equal = max(err, e), equal and b
+    return err, equal
+
+
 # ------------------------------------------------------------ contention
 def event_inputs(B, N, seed, kind):
     """One (counters, live, doublings, windows, rand) pool on the card.
@@ -472,52 +518,127 @@ def contention_run(sim, backoffs, windows, k):
     res = sim.contend_batch(backoffs, windows, k_target=k)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k_: ops.LAUNCHES[k_] for k_ in CONTENTION}
+    launches = {k_: ops.LAUNCHES[k_] for k_ in (*CONTENTION, LOOP_KERNEL)}
     loop = dict(kcont.LOOP, shapes=sorted(kcont.LOOP["shapes"]))
-    if any(v != loop["events"] for v in launches.values()) \
-            or loop["events"] < 1:
-        raise AssertionError(f"contention: launches {launches} are not "
-                             f"one per pass per event ({loop})")
+    if launches != {**{k_: 0 for k_ in CONTENTION},
+                    LOOP_KERNEL: loop["attempts"]} or loop["events"] < 1:
+        raise AssertionError(f"contention: launches {launches} are not one "
+                             f"loop kernel per attempt ({loop})")
     return res, dt, launches, loop
 
 
-def phase_contention_loop_agree():
-    """The loop with the kernels against the loop with the plain event op,
-    fed the same counter-based draws: every field bit-equal. Dense 1e4 x
-    64, and the retry ladder (identical backoffs drain the pool)."""
-    out, shapes = {}, set()
-    cases = {"dense_1e4x64": (*(a / SLOT_S for a in dense_inputs(
-                 10_000, 64, seed=10_000)), 8),
-             "retry_ladder_2x2000": (np.full((2, 2000), 50.0),
-                                     np.full(2000, 2.5e6), 3)}
-    for label, (bo, win, k) in cases.items():
+def loop_agree_cases():
+    """(backoff slots, window slots, k, participating, overrides) of the
+    persistent kernel's corners: the dense grid's 1e4 x 64, the retry
+    ladder (identical backoffs drain the pool), the ladder past the
+    shared-memory limit (its last attempt runs on global-memory state),
+    the 1000-user round's pool (priority-scaled windows, k = 64), a
+    horizon that cuts rows mid-run, and rows with k = 0, a row nobody
+    contends in and masked participation."""
+    rng = np.random.default_rng(15)
+    wide = 2 * kcont.loop_shared_lanes()
+    prio = 1.0 + rng.random(1000)
+    part = rng.random((6, 3000)) > 0.4
+    part[2] = False
+    return {
+        "dense_1e4x64": (*(a / SLOT_S for a in dense_inputs(
+            10_000, 64, seed=10_000)), 8, None, {}),
+        "retry_ladder_2x2000": (np.full((2, 2000), 50.0),
+                                np.full(2000, 2.5e6), 3, None, {}),
+        f"past_shared_2x{wide}": (np.full((2, wide), 50.0),
+                                  np.full(wide, 2.5e6), 3, None, {}),
+        "u1000_pool": (rng.uniform(0, 1, (1, 1000)) * 1024 / prio,
+                       1024 / prio, 64, None, {}),
+        "tiny_max_sim_slots": (rng.uniform(0, 400, (16, 500)),
+                               np.full(500, 400.0), 8, None,
+                               dict(max_sim_slots=900)),
+        "k0_rows_masked": (rng.uniform(0, 1500, (6, 3000)),
+                           np.full(3000, 1500.0),
+                           np.array([8, 0, 5, 64, 0, 1]), part, {}),
+    }
+
+
+def contend(bo, win, k, part, kw, **hooks):
+    """One ``device_contend_batch`` with LOOP and the launch counts set to
+    0 just before and read just after: (result, seconds, LOOP, launches)."""
+    torch.cuda.synchronize()
+    kcont.reset_loop_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = kcont.device_contend_batch(bo, win, k, part, **kw, **hooks)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    loop = dict(kcont.LOOP, shapes=sorted(kcont.LOOP["shapes"]))
+    return res, dt, loop, dict(ops.LAUNCHES)
+
+
+def same_result(label, got, want, what):
+    for f in LOOP_FIELDS:
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"contention_kernel_loop_agree {label}: {f} "
+                                 f"differs from {what}")
+
+
+def phase_contention_kernel_loop_agree():
+    """The persistent kernel (one launch an attempt) against the plain
+    Python loop on the card, fed the same counter draws: every field,
+    the per-row events of every attempt and the attempts bit-equal; the
+    loop with the three pass kernels as its event op equal too (so they
+    stay on a path); one case equal to the ``device="cpu"`` run. Returns
+    (every pool shape run, the three passes' launches on their path)."""
+    out, shapes, passes = {}, set(), None
+    for label, (bo, win, k, part, cfg) in loop_agree_cases().items():
         kw = dict(entropy=1234, call_index=5, tx_slots=50,
                   max_backoff_doublings=5, max_sim_slots=2_000_000,
                   device=DEV)
-        kcont.reset_loop_stats()
-        t0 = time.perf_counter()
-        got = kcont.device_contend_batch(bo, win, k, None, **kw)
-        t1 = time.perf_counter()
-        loop = dict(kcont.LOOP, shapes=sorted(kcont.LOOP["shapes"]))
-        shapes |= kcont.LOOP["shapes"]
-        want = kcont.device_contend_batch(
-            bo, win, k, None, event_op=ref.contention_event_ref, **kw)
-        t2 = time.perf_counter()
-        for f in ("winners", "finish_slots", "collisions", "elapsed_slots",
-                  "n_delivered"):
-            if not np.array_equal(getattr(got, f), getattr(want, f)):
-                raise AssertionError(f"contention_loop_agree {label}: {f} "
-                                     "differs from the plain loop")
-        out[label] = dict(kernel_loop_s=t1 - t0, plain_loop_s=t2 - t1,
-                          events=loop["events"], attempts=loop["attempts"],
-                          pool_shapes=loop["shapes"],
-                          delivered=int(got.n_delivered.sum()),
-                          collisions=int(got.collisions.sum()))
-    if out["retry_ladder_2x2000"]["attempts"] < 2:
-        raise AssertionError("contention_loop_agree: the retry ladder was "
-                             "not climbed")
-    emit("contention_loop_agree", bit_equal=True, cases=out)
-    return shapes
+        kw.update(cfg)
+        got, t_kernel, lk, launches = contend(bo, win, k, part, kw)
+        want, t_plain, lp, _ = contend(
+            bo, win, k, part, kw, event_op=ref.contention_event_ref,
+            draw=kcont.counter_draw(kw["entropy"], kw["call_index"], DEV))
+        same_result(label, got, want, "the plain loop")
+        if lk["row_events"] != lp["row_events"] \
+                or lk["attempts"] != lp["attempts"]:
+            raise AssertionError(f"contention_kernel_loop_agree {label}: "
+                                 f"per-row events {lk['row_events']} vs "
+                                 f"{lp['row_events']}")
+        if launches[LOOP_KERNEL] != lk["attempts"] \
+                or any(launches[c] for c in CONTENTION):
+            raise AssertionError(f"contention_kernel_loop_agree {label}: "
+                                 f"launches {launches}")
+        shapes |= set(lk["shapes"])
+        row = dict(kernel_s=t_kernel, plain_loop_s=t_plain,
+                   attempts=lk["attempts"], events=lk["events"],
+                   max_row_events=[max(r) for r in lk["row_events"]],
+                   pool_shapes=lk["shapes"],
+                   delivered=int(got.n_delivered.sum()),
+                   collisions=int(got.collisions.sum()))
+        if label == "retry_ladder_2x2000":
+            three, t3, l3, passes = contend(bo, win, k, part, kw,
+                                            event_op=ops.contention_event)
+            same_result(label, three, got, "the three-pass loop")
+            if not passes["contention_min"] == l3["events"] >= 1:
+                raise AssertionError(f"three-pass loop: launches {passes}")
+            passes = {c: passes[c] for c in CONTENTION}
+            row.update(three_pass_loop_s=t3, three_pass_launches=passes)
+        if label == "u1000_pool":
+            cpu = kcont.device_contend_batch(bo, win, k, part,
+                                             **dict(kw, device="cpu"))
+            same_result(label, got, cpu, "the device='cpu' run")
+            row["equals_cpu_run"] = True
+        out[label] = row
+    lanes = kcont.loop_shared_lanes()
+    if not any(m > lanes for _, m in shapes):
+        raise AssertionError("contention_kernel_loop_agree: no pool past "
+                             "the shared-memory limit ran")
+    for label in ("retry_ladder_2x2000", f"past_shared_2x{2 * lanes}"):
+        if out[label]["attempts"] < 2:
+            raise AssertionError(f"{label}: the retry ladder was not "
+                                 "climbed")
+    emit("contention_kernel_loop_agree", bit_equal=True,
+         fields=[*LOOP_FIELDS, "row_events", "attempts"],
+         shared_lanes=lanes, cases=out)
+    return shapes, passes
 
 
 def phase_contention_dense():
@@ -625,21 +746,25 @@ def rotating(make, n_sets):
     return nxt
 
 
-def measure(kernel, plain, library, nbytes, ops_count, reps, plain_reps):
-    """Kernel (eager and from a CUDA graph), plain version and library
-    call times, and the bound: the larger of bytes over the HBM rate and
-    operations over the f32 rate outside the tensor cores (the integer
-    passes are counted at that rate too; bytes bound every kernel here)."""
+def measure(kernel, plain, library, nbytes, ops_count, reps, plain_reps,
+            graph_reps=20):
+    """Kernel and library call, each eager and from a CUDA graph (the
+    graph times compare like with like), the plain version, and the
+    bound: the larger of bytes over the HBM rate and operations over the
+    f32 rate outside the tensor cores (the integer passes are counted at
+    that rate too; bytes bound every kernel here)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_count / F32_FLOPS_PER_S * 1e3
     return dict(
         ms=time_ms(kernel, reps),
-        graph_ms=graph_ms(kernel),
+        graph_ms=graph_ms(kernel, graph_reps),
         plain_ms=time_ms(plain, plain_reps, samples=3, warmup=1),
         library_ms=(time_ms(library, reps) if library else None),
+        library_graph_ms=(graph_ms(library, graph_reps) if library
+                          else None),
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bytes=nbytes)
+        bytes=nbytes, ops=ops_count)
 
 
 def bench_contention(B, N, reps):
@@ -669,6 +794,57 @@ def bench_contention(B, N, reps):
             lambda: ref.contention_transition_ref(
                 cnt, live, dbl, win, rand, step, nexp, 5),
             None, 26 * lanes + 8 * B, 10 * lanes, reps, plain_reps)}
+
+
+#: the pools the engine's contention calls build, as (rows B, contenders
+#: N, winners k): the paper cell, the 1000-user round, the dense 1e4 x 64
+LOOP_POOLS = ((1, 10, 2), (1, 1000, 64), (64, 10_000, 8))
+
+
+def bench_loop(B, N, k):
+    """The persistent loop kernel on one attempt at the pool an engine
+    call of B rows, N contenders and k winners builds (the dense regime,
+    CW = N/2 slots): kernel eager and from a CUDA graph, the plain Python
+    loop on the card (held bit-equal first), and the bound from this
+    run's events: 12 bytes a lane read once, the (B,) thresholds and k,
+    the packed result written; three operations a lane an event (the
+    scan's compare-select and the redraw test). No PyTorch call computes
+    a contention loop: no library yardstick."""
+    backoffs, windows = dense_inputs(N, B, seed=N + B)
+    counters = np.minimum(np.maximum(0, np.round(backoffs / SLOT_S)),
+                          BIG).astype(np.int32)
+    M = min(N, max(128, 8 * k))
+    pool = kcont.gather_pool(
+        counters, np.broadcast_to(windows / SLOT_S, (B, N)), M)
+    args = [torch.from_numpy(np.array(a, dtype=d, order="C")).to(DEV)
+            for a, d in zip(pool, (np.int32, np.float32, np.int32, np.int32))]
+    k_dev = torch.full((B,), k, dtype=torch.int32, device=DEV)
+    kw = dict(k_max=k, tx_slots=50, max_doublings=5,
+              max_sim_slots=2_000_000)
+    key = kcont.counter_key(7, 0)
+
+    def kernel():
+        return kcont.contention_loop_cuda(*args, k_dev, key=key, **kw)
+
+    def plain():
+        return kcont._contend_device(
+            *args, k_dev, draw=lambda ev, b, m: kcont.counter_uniform(
+                key, ev, b, m, DEV),
+            event_op=ref.contention_event_ref, **kw)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"contention_loop at {(B, M)}: not bit-equal "
+                             "to the plain loop")
+    events = got[:, kcont.HEAD.index("events")]
+    row = measure(kernel, plain, None,
+                  12 * B * M + 8 * B + 4 * got.numel(),
+                  3 * M * int(events.sum()), reps=20, plain_reps=1,
+                  graph_reps=5)
+    row.update(pool=[B, M], k=k, max_row_events=int(events.max()),
+               events_per_us=float(events.max()) / (row["graph_ms"] * 1e3))
+    return row
 
 
 def bench_kernels(U, shape, dtype, reps, K=2):
@@ -941,9 +1117,11 @@ def _timed(fn, split, key):
 
 
 def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
-                    events=0, merges=None):
-    """``events``: the contention loop's events in the run (0 on the
-    numpy backend); each runs the three contention passes once.
+                    events=0, attempts=0, merges=None):
+    """``events`` / ``attempts``: the contention loop's events and pool
+    attempts in the run (0 on the numpy backend); each attempt launches
+    the persistent loop kernel once, and the three per-event passes
+    never run.
     ``merges``: the kinds of the run's merges (``run_main_path``); None
     for a run without channel, faults and objective, where every round
     with winners merges digitally. A merge launches its kernel once per
@@ -972,7 +1150,7 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
             "gather_combine": leaves * (kinds["digital"] + kinds["objective"]
                                         + kinds["objective-empty"]),
             "fedavg_combine": 0,
-            **{k: events for k in CONTENTION},
+            **{k: 0 for k in CONTENTION}, LOOP_KERNEL: attempts,
             "aircomp_combine": leaves * kinds["aircomp"],
             "robust_combine": leaves * groups,
             "server_opt": leaves * kinds["objective"] if server else 0}
@@ -1277,16 +1455,16 @@ def phase_determinism(rounds=5):
 
 def phase_main_path_device(rounds=20):
     """The paper's MLP cell with ``--contention-backend device``, run
-    twice: the checks of ``check_main_path`` (learning included), each
-    contention pass launched once per loop event, and the two runs
-    bit-equal in winners and final global."""
+    twice: the checks of ``check_main_path`` (learning included), the
+    persistent loop kernel launched once per pool attempt, and the two
+    runs bit-equal in winners and final global."""
     runs = []
     for _ in range(2):
         hist, engine, dt, launches, round_s, loop = run_main_path(
             "mlp", rounds, "--contention-backend", "device")
         leaves, steps, merged = check_main_path(
             "main_path_mlp_device", hist, engine, launches, rounds, True,
-            events=loop["events"])
+            events=loop["events"], attempts=loop["attempts"])
         runs.append((hist, [l.clone() for l in
                             tree_leaves(engine.global_params)]))
         del engine
@@ -1302,8 +1480,7 @@ def phase_main_path_device(rounds=20):
          pool_shapes=loop["shapes"],
          launches_per_round={"fused_sgd": leaves * steps,
                              "delta_norm": leaves, "gather_combine": leaves,
-                             **{k: loop["events"] / rounds
-                                for k in CONTENTION}},
+                             LOOP_KERNEL: loop["attempts"] / rounds},
          merged_rounds=merged, collisions=hist.collisions,
          contention_slots=hist.contention_slots,
          accuracy_first=hist.accuracy[0], accuracy_last=hist.accuracy[-1],
@@ -1324,7 +1501,8 @@ def phase_main_path_u1000(rounds=3):
         "60000", "--round-mode", "fused", "--contention-backend", "device",
         split=split)
     check_main_path("main_path_mlp_U1000_device", hist, engine, launches,
-                    rounds, False, events=loop["events"])
+                    rounds, False, events=loop["events"],
+                    attempts=loop["attempts"])
     steady = statistics.median(round_s[1:])
     emit("main_path_mlp_U1000_device", rounds=rounds, seconds=dt,
          first_round_s=round_s[0], median_later_round_s=steady,
@@ -1359,7 +1537,8 @@ def phase_layer_path(name, rounds, check_accuracy, *extra,
         "mlp", rounds, *extra, merges=merges, finite=finite,
         h_moved=h_moved, **spec)
     check_main_path(name, hist, engine, launches, rounds, check_accuracy,
-                    events=loop["events"], merges=merges)
+                    events=loop["events"], attempts=loop["attempts"],
+                    merges=merges)
     if len(finite) != rounds or not all(finite):
         raise AssertionError(f"{name}: the global was not finite after "
                              f"every round: {finite}")
@@ -1442,7 +1621,7 @@ def phase_profile(model, rounds=4, *extra, label=None, **spec):
     ours = sum(r[1] for r in rows if "repro" in r[0] or "fused_sgd" in r[0]
                or "delta_norm" in r[0] or "combine_kernel" in r[0]
                or "robust_kernel" in r[0] or "server_opt" in r[0]
-               or "contention_cu" in r[0])
+               or "contention_cu" in r[0] or "loop_kernel" in r[0])
     label = label or model + ("_device" if extra else "")
     emit(f"profile_{label}", rounds=rounds, wall_ms=wall_ms,
          device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
@@ -1495,6 +1674,10 @@ def main():
                 bit_equal[k] = bit_equal[k] and v[1]
             dn_rel = max(dn_rel, got["delta_norm"][2])
         check_merge_contracts(dtype)
+        e, b = check_robust_split(dtype)
+        key = str(dtype).split(".")[1]
+        worst["robust_combine"][key] = max(worst["robust_combine"][key], e)
+        bit_equal["robust_combine"] = bit_equal["robust_combine"] and b
     # the contention passes at the JAX test's shapes, the paper cell's
     # pool, the dense pool and its first retry, the exact M = N fallback;
     # every pool shape the loop runs on later is checked after it ran
@@ -1534,6 +1717,10 @@ def main():
     # of the exact fallback's size (8, 100000)
     for B, N in ((1, 10), (1, 128), (1, 512), (64, 128), (8, 100000)):
         timed[f"contention_{B}x{N}"] = bench_contention(B, N, reps=200)
+    # the persistent loop at the pools the engine's calls build
+    for B, N, k in LOOP_POOLS:
+        row = bench_loop(B, N, k)
+        timed["contention_loop_{}x{}".format(*row["pool"])] = row
     emit("kernel_times", dtype="float32 / int32", timed=timed)
 
     # ---- the main path, through the entry points ---------------------
@@ -1551,7 +1738,8 @@ def main():
     phase_determinism()
 
     # ---- device contention --------------------------------------------
-    ran = phase_contention_loop_agree() | phase_contention_dense()
+    ran, l_passes = phase_contention_kernel_loop_agree()
+    ran |= phase_contention_dense()
     l_dev, s_dev = phase_main_path_device()
     torch.cuda.empty_cache()
     l_u1000, s_u1000 = phase_main_path_u1000()
@@ -1598,24 +1786,36 @@ def main():
         phase_profile("cnn", rounds=2)
 
     # ---- the record ---------------------------------------------------
+    # the three passes left the main path (the loop kernel fuses them):
+    # their launches are those of the loop they still drive
     record = []
     path_of = {"fedavg_combine": l_srv, "aircomp_combine": l_air,
                "robust_combine": l_flt, "server_opt": l_dyn,
-               **{k: l_dev for k in CONTENTION}}
+               LOOP_KERNEL: l_dev, **{k: l_passes for k in CONTENTION}}
+    timed_at = {
+        **{k: ("contention_1x10", "int32 (1, 10): the paper cell's "
+               "contention pool, 10 users") for k in CONTENTION},
+        LOOP_KERNEL: ("contention_loop_1x512", "one attempt at the (1, 512) "
+                      "pool of a 1000-user, k = 64 round"),
+        "server_opt": ("mlp_fc1w_U10", "f32 (784, 200): the MLP's fc1.w "
+                       "leaf, FedAdam")}
     for name, meta in KERNELS.items():
-        contention = name in CONTENTION
+        integer = name in CONTENTION or name == LOOP_KERNEL
         launches = path_of.get(name, l_mlp)[name]
         if launches < 1:
             raise AssertionError(f"{name}: never launched on its path")
-        t = timed["contention_1x10" if contention else "mlp_fc1w_U10"][name]
+        entry, where = timed_at.get(name, (
+            "mlp_fc1w_U10", "f32 (10, 784, 200): the MLP's fc1.w leaf, 10 "
+            "users"))
+        t = timed[entry] if name == LOOP_KERNEL else timed[entry][name]
         record.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches,
             max_abs_err=worst[name]["float32"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            graph_ms=t["graph_ms"],
-            max_abs_err_bf16=None if contention else worst[name]["bfloat16"],
+            graph_ms=t["graph_ms"], library_graph_ms=t["library_graph_ms"],
+            max_abs_err_bf16=None if integer else worst[name]["bfloat16"],
             # delta_norm's outputs are sums of ~1e5: its tolerance is
             # relative, and so is the error worth reading
             max_rel_err=(dn_rel if name == "delta_norm" else None),
@@ -1626,11 +1826,7 @@ def main():
             launches_U1000_faults=l_u1000f[name],
             launches_fedadam=l_adam[name],
             launches_U1000_feddyn=l_u1000o[name],
-            timed_at=("int32 (1, 10): the paper cell's contention pool, "
-                      "10 users" if contention else
-                      "f32 (784, 200): the MLP's fc1.w leaf, FedAdam"
-                      if name == "server_opt" else
-                      "f32 (10, 784, 200): the MLP's fc1.w leaf, 10 users")))
+            timed_at=where))
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": record}), flush=True)
     print(smi, flush=True)

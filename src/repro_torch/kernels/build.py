@@ -30,8 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_float)
+_P, _I, _LL, _U64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_uint64, ctypes.c_float)
 
 #: source stem -> {function: argtypes}; every pointer and the stream is a
 #: ``c_void_p`` (a bare Python int would be cut to 32 bits)
@@ -55,6 +55,9 @@ SIGNATURES = {
         "repro_contention_expiry": (_P, _P, _P, _P, _P, _I, _I, _P),
         "repro_contention_transition": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _I, _I, _I, _P),
+        "repro_contention_loop_shared_lanes": (),
+        "repro_contention_loop": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _U64, _P),
     },
     "server_opt": {
         "repro_server_opt": (_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,

@@ -103,27 +103,127 @@ __global__ void combine_kernel(const T* __restrict__ stack,
 // over the same rows bit for bit; a zero weight skips the row before its
 // scale is read, so a NaN scale or a NaN row there cannot leak. A NaN row
 // with a nonzero weight propagates (the caller's quarantine masks it).
+//
+// Bound: bytes, K rows streamed once. A thread owns V contiguous columns
+// (16 B of a row: 4 f32 or 8 bf16, one vector load a row; V = 1 where n
+// or the operands' alignment does not allow vectors) and walks the rows
+// in groups of kUnroll: all the group's loads are issued first, each
+// predicated on its weight (a masked row is still never read), then the
+// group's updates run in delivery order. So a thread keeps kUnroll x 16 B
+// in flight where one scalar load a row kept 4 B, which is what a K = 64
+// merge needs to keep the HBM busy. w and s are staged in shared memory
+// once a block; g is loaded once per column group. The arithmetic of a
+// column is unchanged: __fmul_rn / __fadd_rn / __fsub_rn, j = 0, 1, ...
+template <typename T, int V>
+struct Cols;
+
+template <>
+struct Cols<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void get(Raw r, float* f) {
+    f[0] = r.x;
+    f[1] = r.y;
+    f[2] = r.z;
+    f[3] = r.w;
+  }
+  static __device__ __forceinline__ void put(float* p, const float* f) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+// eight bf16 as four 32-bit words, the lower address in the low half; a
+// bf16 is the high half of its f32, so widening is a shift (exact)
+template <>
+struct Cols<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void get(Raw r, float* f) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ void put(__nv_bfloat16* p,
+                                             const float* f) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i])) |
+             ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1]))
+              << 16);
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
 template <typename T>
+struct Cols<T, 1> {
+  using Raw = T;
+  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
+  static __device__ __forceinline__ void get(Raw r, float* f) {
+    f[0] = to_f32(r);
+  }
+  static __device__ __forceinline__ void put(T* p, const float* f) {
+    from_f32(p, f[0]);
+  }
+};
+
+constexpr int kUnroll = 8;
+
+template <typename T, int V>
 __global__ void robust_kernel(const T* __restrict__ stack,
                               const float* __restrict__ w,
                               const float* __restrict__ s,
                               const T* __restrict__ glob,
-                              T* __restrict__ out, int K, long long n) {
+                              T* __restrict__ out, int K, long long groups) {
+  using C = Cols<T, V>;
+  extern __shared__ float ws[];         // w[K], then s[K]
+  for (int j = threadIdx.x; j < K; j += blockDim.x) {
+    ws[j] = w[j];
+    ws[K + j] = s[j];
+  }
+  __syncthreads();
+  const long long n = groups * V;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < n;
-       c += stride) {
-    const float g = to_f32(glob[c]);
-    float acc = 0.0f;
-    for (int j = 0; j < K; ++j) {
-      const float wj = w[j];
-      if (wj == 0.0f) continue;
-      const float sj = s[j];
-      const float x = to_f32(stack[(long long)j * n + c]);
-      const float v =
-          (sj == 1.0f) ? x : __fadd_rn(g, __fmul_rn(sj, __fsub_rn(x, g)));
-      acc = __fadd_rn(acc, __fmul_rn(v, wj));
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       q < groups; q += stride) {
+    const long long c = q * V;
+    float g[V], acc[V];
+    C::get(C::load(glob + c), g);
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.0f;
+    for (int j0 = 0; j0 < K; j0 += kUnroll) {
+      typename C::Raw raw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = j0 + u;
+        if (j < K && ws[j] != 0.0f) raw[u] = C::load(stack + j * n + c);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = j0 + u;
+        const float wj = j < K ? ws[j] : 0.0f;
+        if (wj == 0.0f) continue;
+        const float sj = ws[K + j];
+        float x[V];
+        C::get(raw[u], x);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float v = (sj == 1.0f)
+                              ? x[e]
+                              : __fadd_rn(g[e],
+                                          __fmul_rn(sj, __fsub_rn(x[e], g[e])));
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(v, wj));
+        }
+      }
     }
-    from_f32(out + c, acc);
+    C::put(out + c, acc);
   }
 }
 
@@ -146,15 +246,46 @@ int launch(const void* stack, const int* idx, const float* w,
   return (int)cudaGetLastError();
 }
 
+constexpr int kRobustThreads = 128;      // 64-512 measured within 4 % (PERF.md)
+constexpr int kRobustMaxK = 232448 / 8;   // w and s in a block's shared memory
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
+}
+
+template <typename T, int V>
+int launch_robust_v(const void* stack, const float* w, const float* sc,
+                    const void* glob, void* out, int K, long long groups,
+                    cudaStream_t s) {
+  const size_t smem = (size_t)8 * K;
+  if (smem > 48 * 1024) {
+    // above 48 KB only after opting in, which holds for the current device
+    // alone: opt in on every such launch
+    const cudaError_t rc = cudaFuncSetAttribute(
+        robust_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  long long blocks = (groups + kRobustThreads - 1) / kRobustThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  robust_kernel<T, V><<<(unsigned)blocks, kRobustThreads, smem, s>>>(
+      static_cast<const T*>(stack), w, sc, static_cast<const T*>(glob),
+      static_cast<T*>(out), K, groups);
+  return (int)cudaGetLastError();
+}
+
+// Vector columns when every row starts 16 B aligned (n a multiple of V and
+// aligned operands), else one column a thread.
 template <typename T>
 int launch_robust(const void* stack, const float* w, const float* sc,
                   const void* glob, void* out, int K, long long n,
                   cudaStream_t s) {
   if (n <= 0) return 0;
-  robust_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-      static_cast<const T*>(stack), w, sc, static_cast<const T*>(glob),
-      static_cast<T*>(out), K, n);
-  return (int)cudaGetLastError();
+  if (K > kRobustMaxK) return (int)cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(T);
+  if (n % V == 0 && aligned16(stack) && aligned16(glob) && aligned16(out))
+    return launch_robust_v<T, V>(stack, w, sc, glob, out, K, n / V, s);
+  return launch_robust_v<T, 1>(stack, w, sc, glob, out, K, n, s);
 }
 
 int dispatch(const void* stack, const int* idx, const float* w,

@@ -20,7 +20,9 @@ clip), ``gather_combine`` and ``fedavg_combine`` (Eq. 1),
 over-the-air merge, from alphas or from weights formed once a merge),
 ``robust_combine`` (the fault layer's guarded merge),
 ``server_opt_combine`` (the objectives layer's FedAvgM / FedAdam server
-step) and ``contention_event`` (the three CSMA passes).
+step), ``contention_loop`` (a whole CSMA contention attempt, the
+persistent event-loop kernel) and ``contention_event`` (the three
+per-event CSMA passes).
 
 No op is differentiated in the reference, so none has a backward
 kernel.
@@ -34,9 +36,12 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.aircomp import aircomp_cuda
-from repro_torch.kernels.contention import (contention_expiry_cuda,
+from repro_torch.kernels.contention import (_contend_device,
+                                            contention_expiry_cuda,
+                                            contention_loop_cuda,
                                             contention_min_cuda,
-                                            contention_transition_cuda)
+                                            contention_transition_cuda,
+                                            counter_uniform)
 from repro_torch.kernels.delta_norm import delta_norm_cuda
 from repro_torch.kernels.fedavg import fedavg_cuda
 from repro_torch.kernels.fused_sgd import fused_sgd_cuda_
@@ -49,6 +54,7 @@ LAUNCHES: Dict[str, int] = {"fused_sgd": 0, "delta_norm": 0,
                             "gather_combine": 0, "fedavg_combine": 0,
                             "contention_min": 0, "contention_expiry": 0,
                             "contention_transition": 0,
+                            "contention_loop": 0,
                             "aircomp_combine": 0, "robust_combine": 0,
                             "server_opt": 0}
 
@@ -259,3 +265,29 @@ def contention_event(counters, live, doublings, windows, rand,
         LAUNCHES["contention_transition"] += 1
         return (step, nexp, winner) + out
     return ref.contention_event_ref(cnt, liv, dbl, win, rnd, max_doublings)
+
+
+def contention_loop(pool_exp, pool_win, pool_idx, threshold, k_arr, *,
+                    k_max: int, tx_slots: int, max_doublings: int,
+                    max_sim_slots: int, key: int):
+    """One contention attempt over (B, M) candidate pools (int32 absolute
+    expiries, f32 windows, int32 user ids; (B,) int32 thresholds and k):
+    the whole event loop, redraws from ``counter_uniform`` under ``key``.
+    Returns the packed (B, 5 + 2 k_max) int32 result (see
+    ``contention.HEAD``). On a CUDA device it is ONE launch of the
+    persistent kernel; on the CPU the Python loop with the plain event
+    op, which draws the same numbers."""
+    if not 0 <= max_doublings <= 30:
+        raise ValueError(f"max_doublings={max_doublings} outside [0, 30]")
+    kw = dict(k_max=k_max, tx_slots=tx_slots, max_doublings=max_doublings,
+              max_sim_slots=max_sim_slots)
+    if pool_exp.is_cuda:
+        out = contention_loop_cuda(pool_exp, pool_win, pool_idx, threshold,
+                                   k_arr, key=key, **kw)
+        LAUNCHES["contention_loop"] += 1
+        return out
+    dev = pool_exp.device
+    return _contend_device(
+        pool_exp, pool_win, pool_idx, threshold, k_arr,
+        draw=lambda ev, B, M: counter_uniform(key, ev, B, M, dev),
+        event_op=ref.contention_event_ref, **kw)

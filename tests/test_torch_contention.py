@@ -14,7 +14,12 @@ What must agree, and how tightly:
   * with the port's own counter-based draws, the contracts the JAX tests
     pin for the reference: collision-free rounds equal numpy exactly,
     determinism per seed and call order, and distributional agreement
-    with numpy (winner-rank TV < 0.08, the same invariants).
+    with numpy (winner-rank TV < 0.08, the same invariants);
+  * the counter draw itself, bit for bit, against a Python-int oracle of
+    the same function (the persistent kernel computes it too, so the CPU
+    and the card draw the same numbers), and the loop's default route
+    (``ops.contention_loop``) against the hooked Python loop fed the same
+    draws: every field, per-row events and pool attempts.
 """
 import json
 
@@ -211,6 +216,116 @@ def test_counter_draw_is_a_function_of_entropy_call_and_event():
     assert not torch.equal(a(5, 3, 7), tcont.counter_draw(8, 2, "cpu")(5, 3, 7))
     x = a(0, 64, 128)
     assert x.dtype == torch.float32 and (x >= 0).all() and (x < 1).all()
+
+
+_M64 = (1 << 64) - 1
+
+
+def _oracle_splitmix64(x):
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def _oracle_uniform(entropy, call_index, ev, row, col):
+    """The redraw of (row, pool column) in event ``ev``, in Python ints:
+    top 24 bits of splitmix64(splitmix64(key ^ ev) ^ (row << 32 | col))
+    over 2^24, key = splitmix64(splitmix64(entropy) ^ call_index)."""
+    key = _oracle_splitmix64(_oracle_splitmix64(entropy & _M64)
+                             ^ (call_index & _M64))
+    kev = _oracle_splitmix64(key ^ (ev & _M64))
+    x = _oracle_splitmix64(kev ^ ((row << 32) | col))
+    return (x >> 40) / float(1 << 24), key >> 63, kev >> 63, x >> 63
+
+
+@pytest.mark.parametrize("entropy,call_index,ev,row,col", [
+    (0, 0, 0, 0, 0),
+    (2 ** 63 - 1, 0, 0, 0, 1),
+    (1234, 5, 17, 3, 127),
+    (2 ** 62 + 7, 2 ** 40 + 3, 2 ** 31 - 1, 7, 65535),
+    (987654321, 2 ** 64 - 1, 1000, 1, 2),
+    (77, 3, 380, 0, 511),
+])
+def test_counter_draw_equals_the_python_int_oracle(entropy, call_index, ev,
+                                                   row, col):
+    got = tcont.counter_draw(entropy, call_index, "cpu")(ev, row + 1,
+                                                         col + 1)
+    want = _oracle_uniform(entropy, call_index, ev, row, col)[0]
+    assert got.dtype == torch.float32
+    assert float(got[row, col]) == want           # exact in f32
+
+
+def test_counter_draw_whole_plane_equals_the_oracle_top_bits_included():
+    entropy, call_index, ev, B, M = 2 ** 63 - 5, 11, 42, 4, 300
+    got = tcont.counter_draw(entropy, call_index, "cpu")(ev, B, M).numpy()
+    top = {"key": set(), "kev": set(), "x": set()}
+    for b in range(B):
+        for c in range(M):
+            u, *bits = _oracle_uniform(entropy, call_index, ev, b, c)
+            assert got[b, c] == u, (b, c)
+            for name, bit in zip(top, bits):
+                top[name].add(bit)
+    assert top["x"] == {0, 1}          # products wrapped past the sign bit
+    assert (got >= 0).all() and (got < 1).all()
+
+
+def test_default_loop_equals_the_hooked_plain_loop():
+    """On the CPU ``ops.contention_loop``'s route is the Python loop itself,
+    so this holds the routing only: the default draws are the counter
+    draws under the call's key, and LOOP's bookkeeping (per-row events of
+    every attempt, attempts, events the most any row ran) matches the
+    hooked loop's. A retry ladder with a k = 0 row covers both. The
+    persistent kernel is held against the plain loop on the card."""
+    backoffs, windows = np.full((3, 2000), 50.0), np.full(2000, 2.5e6)
+    k = np.array([3, 0, 3])
+    kw = dict(entropy=321, call_index=9, tx_slots=50,
+              max_backoff_doublings=5, max_sim_slots=2_000_000)
+    stats = []
+    results = []
+    for hooks in ({}, dict(draw=tcont.counter_draw(321, 9, "cpu"),
+                           event_op=tref.contention_event_ref)):
+        tcont.reset_loop_stats()
+        results.append(tcont.device_contend_batch(
+            backoffs, windows, k, None, device="cpu", **hooks, **kw))
+        stats.append(dict(tcont.LOOP))
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(results[0], f),
+                                      getattr(results[1], f), err_msg=f)
+    a, b = stats
+    assert a["row_events"] == b["row_events"]
+    assert a["attempts"] == b["attempts"] == len(a["row_events"]) > 1
+    assert a["events"] == b["events"] == sum(
+        max(r) for r in a["row_events"])
+    got = results[0]
+    assert got.n_delivered.tolist() == [3, 0, 3]
+    assert all(r[1] == 0 for r in a["row_events"])
+    assert got.elapsed_slots[1] == got.collisions[1] == 0
+    assert (got.winners[1] == -1).all()
+    for r in (0, 2):
+        w = got.winners[r][got.winners[r] >= 0]
+        assert len(set(w.tolist())) == 3
+
+
+def test_cpu_contention_loop_counts_no_launch_and_binding_refuses_cpu():
+    rng = np.random.default_rng(5)
+    backoffs, windows, k, part = (rng.uniform(0, 1000, (8, 2000)),
+                                  np.full(2000, 1000.0), 8, None)
+    ops.reset_launches()
+    tcont.device_contend_batch(backoffs, windows, k, part, device="cpu",
+                               entropy=1, call_index=0, tx_slots=50,
+                               max_backoff_doublings=5,
+                               max_sim_slots=2_000_000)
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+    z = torch.zeros((2, 4), dtype=torch.int32)
+    r = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="must lie on"):
+        tcont.contention_loop_cuda(z, z.float(), z, r, r, k_max=1,
+                                   tx_slots=50, max_doublings=5,
+                                   max_sim_slots=100, key=0)
+    with pytest.raises(ValueError, match="max_doublings"):
+        ops.contention_loop(z, z.float(), z, r, r, k_max=1, tx_slots=50,
+                            max_doublings=31, max_sim_slots=100, key=0)
 
 
 def test_collision_free_rounds_match_numpy_exactly():

@@ -107,6 +107,50 @@ def test_robust_unit_scales_is_gather_combine_bitwise(dtype):
     assert np.array_equal(bits(out), bits(plain))
 
 
+#: the shapes where the kernel's 16-byte vector path splits from its
+#: scalar path (n % 4 != 0, n < 4; n % 8 != 0 for bf16) and the row counts
+#: around its unroll of 8 (K = 1, 9 and 65)
+SPLIT_SHAPES = [(3,), (10,), (2, 7), (4, 130)]
+
+
+def _split_case(k, shape, seed):
+    """``_case`` and its stack with a NaN row at zero weight inside the
+    second unrolled group of eight rows (row 13; row 5 when k < 9)."""
+    st, w, s, g = _case(seed, k, shape)
+    poisoned = st.copy()
+    if k > 1:
+        z = min(k - 1, 5 if k < 9 else 13)
+        w[z], s[z] = 0.0, 2.0
+        poisoned[z] = np.nan
+    return st, poisoned, w, s, g
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [1, 9, 65])
+def test_robust_vector_split_shapes_match_jax_ref(shape, dtype, k):
+    st, poisoned, w, s, g = _split_case(k, shape, seed=k + len(shape))
+    out = tops.robust_combine(arr_t(poisoned, dtype), w, s, arr_t(g, dtype))
+    clean = tops.robust_combine(arr_t(st, dtype), w, s, arr_t(g, dtype))
+    want = jref.robust_combine_ref(arr_j(st, dtype), w, s, arr_j(g, dtype))
+    assert np.array_equal(bits(out), bits(clean))
+    np.testing.assert_allclose(f32(out), f32(want), rtol=1e-5,
+                               atol=_atol(dtype))
+
+
+@pytest.mark.parametrize("shape", [(3,), (4, 130)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [9, 65])
+def test_robust_vector_split_shapes_match_pallas_interpret(shape, dtype, k):
+    _, poisoned, w, s, g = _split_case(k, shape, seed=2 * k + len(shape))
+    out = tops.robust_combine(arr_t(poisoned, dtype), w, s, arr_t(g, dtype))
+    want = jops.robust_combine(arr_j(poisoned, dtype), w, s,
+                               arr_j(g, dtype), interpret=True)
+    assert np.isfinite(f32(out)).all()
+    np.testing.assert_allclose(f32(out), f32(want), rtol=1e-5,
+                               atol=_atol(dtype))
+
+
 def test_robust_nan_row_with_weight_propagates():
     st, w, s, g = _case(7, 3, (64,))
     st[0, 5] = np.nan                      # w[0] > 0, s[0] == 1

@@ -265,6 +265,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tops.fused_sgd(x.clone(), x, 0.1)
     cnt = torch.zeros((4, 33), dtype=torch.int32)
     tops.contention_event(cnt, cnt == 0, cnt, x, x.abs() % 1.0, 5)
+    rows = torch.zeros(4, dtype=torch.int32)
+    tops.contention_loop(cnt, x, cnt, rows + 1000, rows + 2, k_max=2,
+                         tx_slots=5, max_doublings=5, max_sim_slots=10_000,
+                         key=7)
     tops.aircomp_combine(x, _alphas(19, 4), np.ones(4), x[0])
     tops.robust_combine(x, _alphas(20, 4), np.ones(4), x[0])
     tops.server_opt_combine(x[0], x[1], x[2], x[3].abs(),
@@ -273,6 +277,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                              "gather_combine": 0, "fedavg_combine": 0,
                              "contention_min": 0, "contention_expiry": 0,
                              "contention_transition": 0,
+                             "contention_loop": 0,
                              "aircomp_combine": 0, "robust_combine": 0,
                              "server_opt": 0}
 
