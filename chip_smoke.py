@@ -18,14 +18,21 @@ without CUDA (there is no CPU path here). It
      and the AirComp and robust merges' bit-level contracts with the
      plain merge; the server step of the objectives layer in its three
      kinds (identity, FedAvgM, FedAdam) with its passthrough contracts;
-     the robust merge where its vector path splits (ragged and skewed
-     leaves, K = 1, 9, 65, a NaN row at zero weight inside an unrolled
-     group); the three contention passes bit for bit at every (B, M) pool
+     the merges' shared row walk where its vector path splits (gather,
+     FedAvg, AirComp with a noise plane, and robust; ragged and skewed
+     operands, K = 1, 5, 9, 10, 17, 65 around its groups of rows in
+     flight, a NaN row at zero weight, all-zero weights, winner ids against positions, FedAvg with
+     1024 rows of which 2 are live, a K past the shared-memory limit
+     refused) bit for bit; the multi-leaf SGD step on lists of aligned
+     and unaligned leaves, more than one launch's worth included; the
+     three contention passes bit for bit at every (B, M) pool
      shape the contention loop runs on, with forced expiry ties, dead
      lanes and rows with no live lane — and times kernel, plain version
      and, where one exists, the single PyTorch library call (eager and
-     from a CUDA graph, like the kernel); the persistent contention loop
-     at the engine's pools;
+     from a CUDA graph, like the kernel) — the merges at K = 64 in f32 and
+     bf16, a whole MLP SGD step against ``torch._foreach_add_`` and the
+     CNN's permuted-gradient copy; the persistent contention loop at the
+     engine's pools;
   4. drives the port's main path through its normal entry points:
      ``launch.train.build_paper_engine`` with the paper's defaults (MLP
      784x200x10, 10 users, 2 winners a round, ``priority-distributed``)
@@ -54,7 +61,9 @@ without CUDA (there is no CPU path here). It
   5. checks the result by the repository's own means: the pinned
      winners of ``tests/winner_pins.json``, the card against the CPU run
      of the same rounds (channel, AirComp with and without receiver
-     noise, fault and active-objective lanes included), inert
+     noise, fault and active-objective lanes included; the noisy AirComp
+     lane also through the default counter-based noise draw on each
+     side), inert
      objectives bit-equal to the plain run on the card,
      run-to-run bit-equality on the card (a noisy AirComp run and a
      FedAdam run included),
@@ -101,6 +110,7 @@ from repro_torch.engine.backends import (aircomp_noise,  # noqa: E402
 from repro_torch.faults import FaultSpec                  # noqa: E402
 from repro_torch.kernels import build as kbuild           # noqa: E402
 from repro_torch.kernels import contention as kcont       # noqa: E402
+from repro_torch.kernels import fused_sgd as kfused        # noqa: E402
 from repro_torch.kernels import ops, ref                  # noqa: E402
 from repro_torch.launch import train as launch_train      # noqa: E402
 from repro_torch.models.paper_models import get_paper_model  # noqa: E402
@@ -397,16 +407,166 @@ def check_merge_contracts(dtype):
                                  f"{bad} row leaked into the merge")
 
 
+#: where the merges' row walk splits from its one-column path: n % 4 != 0,
+#: n < 4, n % 8 != 0 (bf16); and around its groups of rows in flight (4
+#: rows a group up to 8 live rows, 16 past them): with one zero weight,
+#: 4, 8, 9, 16 and 64 live rows
+SPLIT_K = (1, 5, 9, 10, 17, 65)
+SPLIT_SHAPES = ((3,), (10,), (2, 7), (4, 130), (784, 200))
+
+
+def skewed(t):
+    """``t``'s values in a fresh buffer one element past a 16-byte
+    boundary: the same contiguous tensor, but the one-column path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=DEV)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def same_bits(a, b):
+    """Two tensors of one float dtype hold the same bit patterns."""
+    torch.cuda.synchronize()
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def bit_check(name, got, want, dtype):
+    """``compare``, and raise unless the kernel is bit-equal."""
+    e, b = compare(name, got, want, dtype)
+    if not b:
+        raise AssertionError(f"{name}: not bit-equal to the plain version "
+                             f"(max abs err {e:.3e})")
+    return e
+
+
+def check_combine_split(dtype):
+    """gather / FedAvg / AirComp (one kernel) where the vector path
+    splits: SPLIT_K rows out of an (S = K + 3, ...) stack, every
+    SPLIT_SHAPES leaf, a NaN row at zero weight (delivery slot 8 or 13, or
+    the last), each operand in turn skewed off its 16-byte boundary, a noise
+    plane; and the contracts there: winner ids into (S, ...) against
+    positions into the gathered (K, ...) rows, all-zero weights giving
+    glob's bits, AirComp without idx. Everything bit-equal to the plain
+    versions; returns {kernel: (worst error, True)}."""
+    err = {"gather_combine": 0.0, "fedavg_combine": 0.0,
+           "aircomp_combine": 0.0}
+    for K in SPLIT_K:
+        for shape in SPLIT_SHAPES:
+            n, S = int(np.prod(shape)), K + 3
+            seed = 31 * K + n
+            stack = randn(seed, (S,) + shape, dtype)
+            glob = randn(seed + 1, shape, dtype)
+            noise = randn(seed + 2, shape, torch.float32) * 0.01
+            idx, a, c, _ = channel_merge_inputs(S, K, seed, zero=False)
+            poisoned = stack.clone()
+            if K > 1:
+                z = min(K - 1, 13)
+                a[z] = 0.0
+                poisoned[int(idx[z])] = float("nan")
+            tag = f"K={K} {shape} {str(dtype)[6:]}"
+            # gather
+            want = ref.gather_combine_ref(stack, idx, a, glob)
+            for label, st, g in (("aligned", poisoned, glob),
+                                 ("stack skewed", skewed(poisoned), glob),
+                                 ("glob skewed", poisoned, skewed(glob))):
+                e = bit_check(f"gather_combine {tag} {label}",
+                              ops.gather_combine(st, idx, a, g), want, dtype)
+                err["gather_combine"] = max(err["gather_combine"], e)
+            rows = poisoned[idx.long()].contiguous()
+            pos = torch.arange(K, dtype=torch.int32, device=DEV)
+            bit_check(f"gather_combine {tag} positions",
+                      ops.gather_combine(rows, pos, a, glob), want, dtype)
+            for g in (glob, skewed(glob)):
+                keep = ops.gather_combine(poisoned, idx, torch.zeros_like(a),
+                                          g)
+                if not same_bits(keep, g):
+                    raise AssertionError(f"gather_combine {tag}: all-zero "
+                                         "weights did not return glob's bits")
+            # FedAvg over every row of the stack, in row order
+            alphas = torch.zeros(S, dtype=torch.float32, device=DEV)
+            alphas[idx.long()] = a
+            want = ref.fedavg_combine_ref(stack, alphas)
+            for label, st in (("aligned", poisoned),
+                              ("skewed", skewed(poisoned))):
+                e = bit_check(f"fedavg_combine {tag} {label}",
+                              ops.fedavg_combine(st, alphas), want, dtype)
+                err["fedavg_combine"] = max(err["fedavg_combine"], e)
+            # AirComp with a noise plane, through idx and without
+            w_air, scale = ops.aircomp_weights(a, c, DEV)
+            want = ref.aircomp_combine_ref(stack[idx.long()], w_air, noise,
+                                           scale[0])
+            for label, st, nz, i in (
+                    ("aligned", poisoned, noise, idx),
+                    ("stack skewed", skewed(poisoned), noise, idx),
+                    ("noise skewed", poisoned, skewed(noise), idx),
+                    ("no idx", rows, noise, None)):
+                e = bit_check(f"aircomp_combine {tag} {label}",
+                              ops.aircomp_combine(st, a, c, nz, idx=i),
+                              want, dtype)
+                err["aircomp_combine"] = max(err["aircomp_combine"], e)
+    # FedAvg's masked scan: 1024 rows of a (784, 200) leaf, 2 of them live
+    stack = randn(77, (1024, 784, 200), dtype)
+    alphas = torch.zeros(1024, dtype=torch.float32, device=DEV)
+    alphas[1023], alphas[3] = 0.625, 0.375
+    e = bit_check("fedavg_combine 1024 rows, 2 live",
+                  ops.fedavg_combine(stack, alphas),
+                  ref.fedavg_combine_ref(stack, alphas), dtype)
+    err["fedavg_combine"] = max(err["fedavg_combine"], e)
+    del stack
+    # a K past the shared-memory limit is refused, never run another way
+    big = kbuild.library("combine").repro_combine_max_k() + 1
+    st = randn(78, (2, 8), dtype)
+    try:
+        ops.gather_combine(st, torch.zeros(big, dtype=torch.int32,
+                                           device=DEV),
+                           torch.ones(big, device=DEV), st[0])
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"gather_combine: K = {big} past the limit "
+                             "was not refused")
+    return {k: (v, True) for k, v in err.items()}
+
+
+def check_sgd_leaves(dtype):
+    """The multi-leaf SGD step against the plain version leaf by leaf,
+    bit for bit: the MLP's four stacked leaves at U = 10 (aligned, one
+    launch), a list of ragged and skewed leaves, and 40 leaves (two
+    launches). Returns (worst error, True)."""
+    mlp = [(10, 200), (10, 784, 200), (10, 10), (10, 200, 10)]
+    ragged = [(3,), (10,), (2, 7), (4, 130), (10, 784, 200), (1,), (4097,)]
+    many = [(int(k) % 7 + 1, 33 * (int(k) % 5) + 8) for k in range(40)]
+    err = 0.0
+    for label, shapes, skew in (("mlp", mlp, ()), ("ragged", ragged, (1, 4)),
+                                ("40 leaves", many, (5, 17))):
+        ps = [randn(300 + i, sh, dtype) for i, sh in enumerate(shapes)]
+        gs = [randn(400 + i, sh, dtype) for i, sh in enumerate(shapes)]
+        for i in skew:
+            ps[i], gs[i] = skewed(ps[i]), skewed(gs[i])
+        want = [ref.fused_sgd_ref(p, g, LR) for p, g in zip(ps, gs)]
+        before = ops.LAUNCHES["fused_sgd"]
+        got = ops.fused_sgd_leaves(ps, gs, LR)
+        launches = ops.LAUNCHES["fused_sgd"] - before
+        if launches != -(-len(shapes) // kfused.max_leaves()):
+            raise AssertionError(f"fused_sgd_leaves {label}: {launches} "
+                                 f"launches for {len(shapes)} leaves")
+        for i, (g, w) in enumerate(zip(got, want)):
+            err = max(err, bit_check(
+                f"fused_sgd_leaves {label} leaf {i} {tuple(g.shape)} "
+                f"{str(dtype)[6:]}", g, w, dtype))
+    return err, True
+
+
 def check_robust_split(dtype):
     """robust_combine where its vector path splits from its scalar path
     (n % 4 != 0, n < 4, n % 8 != 0 for bf16, an operand 4 bytes off a
-    16-byte boundary) and around its unroll of 8 rows (K = 1, 9, 65),
-    with a NaN row at zero weight in the second unrolled group (row 8 or
-    13):
-    bit-equal to the plain version and to the unpoisoned merge. Returns
-    (worst error, every case bit-equal)."""
-    err, equal = 0.0, True
-    for K in (1, 9, 65):
+    16-byte boundary) and around its groups of rows in flight (SPLIT_K),
+    with a NaN row at zero weight (row 8 or 13, or the last): bit-equal
+    to the plain version on the unpoisoned rows, or it raises. Returns
+    (worst error, True)."""
+    err = 0.0
+    for K in SPLIT_K:
         for shape in ((3,), (10,), (2, 7), (4, 130), (784, 200)):
             n = int(np.prod(shape))
             stack = randn(K * 7 + n, (K,) + shape, dtype)
@@ -417,17 +577,14 @@ def check_robust_split(dtype):
                 z = min(K - 1, 13)
                 a[z], sc[z] = 0.0, float("nan")
                 poisoned[z] = float("nan")
-            # the same rows 4 bytes past a 16-byte boundary: scalar path
-            flat = torch.empty(K * n + 1, dtype=dtype, device=DEV)
-            skew = flat[1:].view((K,) + shape)
-            skew.copy_(poisoned)
             want = ref.robust_combine_ref(stack, a, sc, glob)
-            for label, rows in (("aligned", poisoned), ("skewed", skew)):
-                got = ops.robust_combine(rows, a, sc, glob)
-                e, b = compare(f"robust_combine K={K} {shape} {label}", got,
-                               want, dtype)
-                err, equal = max(err, e), equal and b
-    return err, equal
+            for label, rows, g in (("aligned", poisoned, glob),
+                                   ("stack skewed", skewed(poisoned), glob),
+                                   ("glob skewed", poisoned, skewed(glob))):
+                err = max(err, bit_check(
+                    f"robust_combine K={K} {shape} {str(dtype)[6:]} {label}",
+                    ops.robust_combine(rows, a, sc, g), want, dtype))
+    return err, True
 
 
 # ------------------------------------------------------------ contention
@@ -850,7 +1007,9 @@ def bench_loop(B, N, k):
 def bench_kernels(U, shape, dtype, reps, K=2):
     """Times at one leaf shape: kernel (eager, cold operands), kernel
     from a CUDA graph, plain version, library call; plus the bound. The
-    AirComp and robust merges read ``K`` rows (the round's winners)."""
+    gather, AirComp and robust merges read ``K`` rows (the round's
+    winners, spread over the stack); in bf16 the library calls take bf16
+    operands too."""
     n = int(np.prod(shape))
     item = torch.empty((), dtype=dtype).element_size()
     set_bytes = (2 * U + K) * n * item
@@ -863,11 +1022,18 @@ def bench_kernels(U, shape, dtype, reps, K=2):
     idx_k, a_k, c_k, s_k = channel_merge_inputs(U, K, seed=7, zero=False)
     w_air, scale = ops.aircomp_weights(a_k, c_k, DEV)
     sc = float(scale)
-    nxt = rotating(lambda i: (randn(100 + i, (U,) + shape, dtype),
-                              randn(200 + i, (U,) + shape, dtype),
-                              randn(300 + i, shape, dtype),
-                              randn(400 + i, (K,) + shape, dtype),
-                              randn(500 + i, shape, torch.float32)), n_sets)
+    a_lib, w_air_lib, alphas_lib = (v.to(dtype) for v in (a_k, w_air,
+                                                           alphas))
+
+    def make(i):
+        # stack, grads, glob, K gathered rows, the noise plane, and the
+        # noise in the stack's dtype for the library call
+        nz = randn(500 + i, shape, torch.float32)
+        return (randn(100 + i, (U,) + shape, dtype),
+                randn(200 + i, (U,) + shape, dtype),
+                randn(300 + i, shape, dtype),
+                randn(400 + i, (K,) + shape, dtype), nz, nz.to(dtype))
+    nxt = rotating(make, n_sets)
     res = {}
 
     def record(name, kernel, plain, library, nbytes, flops, plain_reps):
@@ -883,11 +1049,16 @@ def bench_kernels(U, shape, dtype, reps, K=2):
         ref.fused_sgd_ref(p, g, LR)
 
     def sgd_l():
+        # in place, as the kernel: the out-of-place torch.add writes a
+        # fresh buffer that a graph's pool hands back each call, so its
+        # writes stay in L2 (timed beside it, not as the yardstick)
         p, g, *_ = nxt()
-        torch.add(p, g, alpha=-LR)
+        p.add_(g, alpha=-LR)
 
     record("fused_sgd", sgd_k, sgd_p, sgd_l, 3 * U * n * item, 2 * U * n,
            reps)
+    res["fused_sgd"]["torch_add_out_of_place_graph_ms"] = graph_ms(
+        lambda: torch.add(*nxt()[:2], alpha=-LR))
 
     def dn_k():
         s, _, g, *_ = nxt()
@@ -902,21 +1073,21 @@ def bench_kernels(U, shape, dtype, reps, K=2):
 
     def gc_k():
         s, _, g, *_ = nxt()
-        ops.gather_combine(s, idx, w, g)
+        ops.gather_combine(s, idx_k, a_k, g)
 
     def gc_p():
         s, _, g, *_ = nxt()
-        ref.gather_combine_ref(s, idx, w, g)
+        ref.gather_combine_ref(s, idx_k, a_k, g)
 
     def gc_l():
+        # the gather and the weighted sum: index_select, then one gemv
         s, *_ = nxt()
-        torch.einsum("k,kn->n", w,
-                     torch.index_select(s, 0, idx.long()).reshape(2, n)
-                     .float())
+        return torch.mv(torch.index_select(s, 0, idx_k.long())
+                        .reshape(K, n).T, a_lib)
 
-    # both weights are nonzero: two rows read, one written, glob unread
-    record("gather_combine", gc_k, gc_p, gc_l, (2 + 1) * n * item,
-           2 * 2 * n, reps)
+    # every weight is nonzero: K rows read, one written, glob unread
+    record("gather_combine", gc_k, gc_p, gc_l, (K + 1) * n * item,
+           2 * K * n, max(1, min(reps, 2000 // K)))
 
     def fa_k():
         s, *_ = nxt()
@@ -928,7 +1099,7 @@ def bench_kernels(U, shape, dtype, reps, K=2):
 
     def fa_l():
         s, *_ = nxt()
-        torch.matmul(alphas, s.reshape(U, n).float())
+        torch.mv(s.reshape(U, n).T, alphas_lib)
 
     # masked rows are not read: this run's alphas have two nonzero rows
     record("fedavg_combine", fa_k, fa_p, fa_l, (2 + 1) * n * item,
@@ -936,19 +1107,19 @@ def bench_kernels(U, shape, dtype, reps, K=2):
 
     def air_k():
         # the kernel alone: the merge forms (w, scale) once, not per leaf
-        s, _, _, _, nz = nxt()
+        s, _, _, _, nz, _ = nxt()
         ops.aircomp_combine_weighted(s, w_air, scale, nz, idx=idx_k)
 
     def air_p():
-        s, _, _, _, nz = nxt()
+        s, _, _, _, nz, _ = nxt()
         ref.aircomp_combine_ref(torch.index_select(s, 0, idx_k.long()),
                                 w_air, nz, scale[0])
 
     def air_l():
         # on the K rows already gathered: one call, (noise + rows^T w) sc
-        _, _, _, rows, nz = nxt()
-        return torch.addmv(nz.reshape(n), rows.reshape(K, n).T.float(),
-                           w_air, beta=sc, alpha=sc)
+        _, _, _, rows, _, nz_lib = nxt()
+        return torch.addmv(nz_lib.reshape(n), rows.reshape(K, n).T,
+                           w_air_lib, beta=sc, alpha=sc)
 
     # K rows read, the noise plane (f32) read, one plane written
     record("aircomp_combine", air_k, air_p, air_l,
@@ -956,36 +1127,45 @@ def bench_kernels(U, shape, dtype, reps, K=2):
            max(1, min(reps, 2000 // K)))
 
     def rob_k():
-        _, _, g, rows, _ = nxt()
+        _, _, g, rows, *_ = nxt()
         ops.robust_combine(rows, a_k, s_k, g)
 
     def rob_p():
-        _, _, g, rows, _ = nxt()
+        _, _, g, rows, *_ = nxt()
         ref.robust_combine_ref(rows, a_k, s_k, g)
 
     # sum_k w_k (g + s_k (x_k - g)) = rows^T (w s) + g sum_k w_k (1 - s_k):
     # one call on the gathered rows, its coefficients formed beforehand
-    ws_k = a_k * s_k
+    ws_k = (a_k * s_k).to(dtype)
     beta = float((a_k * (1.0 - s_k)).sum())
 
     def rob_l():
-        _, _, g, rows, _ = nxt()
-        return torch.addmv(g.reshape(n), rows.reshape(K, n).T.float(), ws_k,
+        _, _, g, rows, *_ = nxt()
+        return torch.addmv(g.reshape(n), rows.reshape(K, n).T, ws_k,
                            beta=beta)
 
     # each library call computes its kernel's function, to the rounding of
-    # a reordered sum: checked once on one input set, outside the timing
-    _, _, g, rows, nz = nxt()
+    # a reordered sum (and, in bf16, of bf16 weights): checked once on one
+    # input set, outside the timing
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    s0, _, g, rows, nz, nz_lib = nxt()
     for name, lib, plain in (
+            ("gather_combine",
+             torch.mv(torch.index_select(s0, 0, idx_k.long())
+                      .reshape(K, n).T, a_lib),
+             ref.gather_combine_ref(s0, idx_k, a_k, g)),
+            ("fedavg_combine", torch.mv(s0.reshape(U, n).T, alphas_lib),
+             ref.fedavg_combine_ref(s0, alphas)),
             ("aircomp_combine",
-             torch.addmv(nz.reshape(n), rows.reshape(K, n).T.float(), w_air,
-                         beta=sc, alpha=sc),
+             torch.addmv(nz_lib.reshape(n), rows.reshape(K, n).T,
+                         w_air_lib, beta=sc, alpha=sc),
              ref.aircomp_combine_ref(rows, w_air, nz, scale[0])),
             ("robust_combine",
-             torch.addmv(g.reshape(n), rows.reshape(K, n).T.float(), ws_k,
+             torch.addmv(g.reshape(n), rows.reshape(K, n).T, ws_k,
                          beta=beta),
              ref.robust_combine_ref(rows, a_k, s_k, g))):
-        if not torch.allclose(lib, plain.reshape(n), rtol=1e-4, atol=1e-5):
+        if not torch.allclose(lib.float(), plain.reshape(n).float(), **tol):
             raise AssertionError(f"{name}: the library call does not "
                                  "compute the kernel's function")
 
@@ -1015,6 +1195,67 @@ def bench_kernels(U, shape, dtype, reps, K=2):
     # (no single PyTorch call computes this law: no library yardstick)
     record("server_opt", so_k, so_p, None, 7 * n * item, 13 * n, reps)
     return res
+
+
+def bench_sgd_step(U, dtype, reps):
+    """One local SGD step of the MLP at U users: its four stacked leaves
+    in one ``fused_sgd_leaves`` launch, against ``torch._foreach_add_``
+    (one call that updates the list in place) and the plain version leaf
+    by leaf; the bound: every leaf's p and g read once, p written."""
+    shapes = [(U,) + tuple(l.shape) for l in
+              tree_leaves(get_paper_model("mlp")[0](0, device="cpu"))]
+    n = sum(int(np.prod(sh)) for sh in shapes)
+    item = torch.empty((), dtype=dtype).element_size()
+    nxt = rotating(lambda i: tuple(
+        [randn(700 + 40 * i + 10 * j + leaf, sh, dtype)
+         for leaf, sh in enumerate(shapes)] for j in range(2)),
+        max(2, min(16, int(128e6 // (2 * n * item)) + 1)))
+
+    def kernel():
+        ops.fused_sgd_leaves(*nxt(), LR)
+
+    def plain():
+        for p, g in zip(*nxt()):
+            ref.fused_sgd_ref(p, g, LR)
+
+    def library():
+        torch._foreach_add_(*nxt(), alpha=-LR)
+
+    row = measure(kernel, plain, library, 3 * n * item, 2 * n, reps, reps)
+    row.update(leaves=[list(sh) for sh in shapes])
+    return row
+
+
+def bench_grad_copy(U=10, batch=32):
+    """The CNN's gradient copy: ``vmap(grad)`` hands a conv weight's
+    gradient back as a permuted view (the weight is HWIO, the convolution
+    reads OIHW), and ``sgd_update`` makes it contiguous before the SGD
+    launch. On the gradients of one real step at U users, each
+    non-contiguous leaf's ``.contiguous()`` from a CUDA graph against its
+    bound (the leaf read once and written once)."""
+    init, apply = get_paper_model("cnn")
+    stack = tree_map(lambda p: p.unsqueeze(0).expand((U,) + tuple(p.shape))
+                     .contiguous(), init(0, device=DEV))
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    data = {"x": torch.randn((U, batch, 28, 28, 1), generator=gen).to(DEV),
+            "y": torch.randint(0, 10, (U, batch), generator=gen).to(DEV)}
+
+    def loss_fn(params, b):
+        return torch.nn.functional.cross_entropy(apply(params, b["x"]),
+                                                 b["y"])
+
+    grads = torch.func.vmap(torch.func.grad(loss_fn))(stack, data)
+    rows = []
+    for g in tree_leaves(grads):
+        if g.is_contiguous():
+            continue
+        nbytes = 2 * g.numel() * g.element_size()
+        rows.append(dict(shape=list(g.shape), stride=list(g.stride()),
+                         graph_ms=graph_ms(lambda g=g: g.contiguous()),
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         bytes=nbytes))
+    return dict(leaves=rows, step_graph_ms=sum(r["graph_ms"] for r in rows),
+                step_bound_ms=sum(r["bound_ms"] for r in rows))
 
 
 # -------------------------------------------------------------- main path
@@ -1145,7 +1386,8 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
                              f"{hist.winners} / {hist.delivered}")
     kinds = Counter(merges)
     groups = kinds["robust"] + 2 * kinds["robust+stale"]
-    want = {"fused_sgd": leaves * steps * rounds,
+    # one SGD launch a local step takes every leaf (up to max_leaves())
+    want = {"fused_sgd": -(-leaves // kfused.max_leaves()) * steps * rounds,
             "delta_norm": leaves * (rounds + groups),
             "gather_combine": leaves * (kinds["digital"] + kinds["objective"]
                                         + kinds["objective-empty"]),
@@ -1193,12 +1435,14 @@ def phase_main_path(model, rounds, check_accuracy):
     hist, engine, dt, launches, round_s, _ = run_main_path(model, rounds)
     leaves, steps, merged = check_main_path(
         f"main_path_{model}", hist, engine, launches, rounds, check_accuracy)
+    if launches["fused_sgd"] != steps * rounds:
+        raise AssertionError(f"main_path_{model}: {launches['fused_sgd']} "
+                             f"SGD launches for {steps * rounds} local steps")
     steady = statistics.median(round_s[1:])
     emit(f"main_path_{model}", rounds=rounds, seconds=dt,
          first_round_s=round_s[0], median_later_round_s=steady,
          rounds_per_s=1.0 / steady, launches=launches,
-         launches_per_round={"fused_sgd": leaves * steps,
-                             "delta_norm": leaves,
+         launches_per_round={"fused_sgd": steps, "delta_norm": leaves,
                              "gather_combine": leaves},
          merged_rounds=merged, collisions=hist.collisions,
          accuracy_first=hist.accuracy[0], accuracy_best=max(hist.accuracy),
@@ -1312,6 +1556,8 @@ def cpu_noise(key, leaf_index, shape, device):
 #: truncation floor, noiseless and with receiver noise (the card and the
 #: CPU handed the same planes), and the active fault spec over it
 PIN_LOSSY = ChannelSpec(fading="rayleigh", per_snr_threshold_db=20.0)
+AIR_NOISY = dict(merge_backend="aircomp", channel=ChannelSpec(
+    fading="rayleigh", aircomp_gain_floor=0.3, aircomp_sigma=0.05))
 LAYER_LANES = {
     "channel/priority-distributed": ("priority-distributed",
                                      dict(channel=PIN_LOSSY)),
@@ -1320,10 +1566,8 @@ LAYER_LANES = {
     "aircomp-sigma0": ("priority-distributed", dict(
         merge_backend="aircomp",
         channel=ChannelSpec(fading="rayleigh", aircomp_gain_floor=0.3))),
-    "aircomp-sigma0.05": ("priority-distributed", dict(
-        merge_backend="aircomp", noise_draw=cpu_noise,
-        channel=ChannelSpec(fading="rayleigh", aircomp_gain_floor=0.3,
-                            aircomp_sigma=0.05))),
+    "aircomp-sigma0.05": ("priority-distributed",
+                          dict(noise_draw=cpu_noise, **AIR_NOISY)),
     "faults-nan": ("priority-distributed", dict(channel=PIN_LOSSY,
                                                 faults=ACTIVE)),
 }
@@ -1351,6 +1595,60 @@ HISTORY_COUNTS = ("winners", "delivered", "upload_failures", "collisions",
                   "contention_slots", "round_seconds", "round_energy_j",
                   "retries", "dropped_clients", "stale_merges",
                   "quarantined_updates")
+
+
+def noise_bits_gap(calls):
+    """For each ``(key, leaf, shape)`` noise plane, the card's draw
+    against the CPU's: elements compared, the count that differ, and the
+    largest gap in f32 ulps (the difference of the bit patterns)."""
+    total = differ = gap = 0
+    for key, leaf, shape in calls:
+        a = aircomp_noise(key, leaf, shape, "cuda").cpu().view(torch.int32)
+        b = aircomp_noise(key, leaf, shape, "cpu").view(torch.int32)
+        d = (a.long() - b.long()).abs()
+        total += d.numel()
+        differ += int((d != 0).sum())
+        gap = max(gap, int(d.max()))
+    return dict(elements=total, differing=differ, max_ulp_gap=gap)
+
+
+def lane_default_noise():
+    """Noisy AirComp (sigma 0.05) through the DEFAULT noise route, the
+    counter-based draw computed where each run lives: the card's run
+    equals the CPU's in every history count, globals within rtol 1e-5 /
+    atol 1e-6. A third run on the card records its planes through a hook
+    that calls the same default draw (it must give the first run's bits);
+    those planes and 2^20 more draws are then compared card against CPU
+    element by element."""
+    gh, gp = pin_scenario("priority-distributed", 0, "cuda", **AIR_NOISY)
+    ch, cp = pin_scenario("priority-distributed", 0, "cpu", **AIR_NOISY)
+    for f in HISTORY_COUNTS:
+        if getattr(gh, f) != getattr(ch, f):
+            raise AssertionError(f"reference_small aircomp default noise: {f} "
+                                 "differs between the card and the CPU")
+    for a, b in zip(tree_leaves(gp), tree_leaves(cp)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    calls = []
+
+    def recording(key, leaf_index, shape, device):
+        calls.append((key, leaf_index, tuple(shape)))
+        return aircomp_noise(key, leaf_index, shape, device)
+
+    rh, rp = pin_scenario("priority-distributed", 0, "cuda",
+                          noise_draw=recording, **AIR_NOISY)
+    if rh.winners != gh.winners or not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(rp),
+                                              tree_leaves(gp))):
+        raise AssertionError("reference_small aircomp default noise: the "
+                             "recording run is not the default run's bits")
+    return dict(
+        winners=gh.winners, planes=len(calls),
+        merged_planes=noise_bits_gap(calls),
+        million_draws=noise_bits_gap([((20230917, 3), 1, (1 << 20,))]),
+        max_abs_gap_global=max(float((a.cpu() - b).abs().max())
+                               for a, b in zip(tree_leaves(gp),
+                                               tree_leaves(cp))))
 
 
 def phase_reference_small():
@@ -1396,6 +1694,7 @@ def phase_reference_small():
         lanes[label] = dict(upload_failures=gh.upload_failures,
                             retries=gh.retries, stale_merges=gh.stale_merges,
                             quarantined=gh.quarantined_updates)
+    lanes["aircomp-sigma0.05-default-noise"] = lane_default_noise()
     gaps = {}
     for label, obj in OBJ_ACTIVE.items():
         oh, op = pin_scenario("priority-distributed", 0, "cuda", objective=obj)
@@ -1425,7 +1724,8 @@ def phase_reference_small():
                           *OBJ_ACTIVE],
          layer_lanes=lanes, objective_max_abs_gap_card_vs_cpu=gaps,
          inert_objectives_bit_equal_to_plain=list(OBJ_INERT),
-         tolerance="history counts exact; globals rtol 1e-4 atol 1e-6; "
+         tolerance="history counts exact; globals rtol 1e-4 atol 1e-6 "
+                   "(the default-noise AirComp lane rtol 1e-5 atol 1e-6); "
                    "inert objectives bitwise")
 
 
@@ -1478,7 +1778,7 @@ def phase_main_path_device(rounds=20):
          rounds_per_s=1.0 / steady, launches=launches,
          events=loop["events"], attempts=loop["attempts"],
          pool_shapes=loop["shapes"],
-         launches_per_round={"fused_sgd": leaves * steps,
+         launches_per_round={"fused_sgd": steps,
                              "delta_norm": leaves, "gather_combine": leaves,
                              LOOP_KERNEL: loop["attempts"] / rounds},
          merged_rounds=merged, collisions=hist.collisions,
@@ -1618,7 +1918,7 @@ def phase_profile(model, rounds=4, *extra, label=None, **spec):
         raise AssertionError("profile: the profiler saw no device time")
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    ours = sum(r[1] for r in rows if "repro" in r[0] or "fused_sgd" in r[0]
+    ours = sum(r[1] for r in rows if "repro" in r[0] or "sgd_leaves" in r[0]
                or "delta_norm" in r[0] or "combine_kernel" in r[0]
                or "robust_kernel" in r[0] or "server_opt" in r[0]
                or "contention_cu" in r[0] or "loop_kernel" in r[0])
@@ -1674,10 +1974,14 @@ def main():
                 bit_equal[k] = bit_equal[k] and v[1]
             dn_rel = max(dn_rel, got["delta_norm"][2])
         check_merge_contracts(dtype)
-        e, b = check_robust_split(dtype)
         key = str(dtype).split(".")[1]
-        worst["robust_combine"][key] = max(worst["robust_combine"][key], e)
-        bit_equal["robust_combine"] = bit_equal["robust_combine"] and b
+        split = check_combine_split(dtype)
+        split["robust_combine"] = check_robust_split(dtype)
+        split["fused_sgd"] = check_sgd_leaves(dtype)
+        for k, (e, b) in split.items():
+            worst[k][key] = max(worst[k][key], e)
+            bit_equal[k] = bit_equal[k] and b
+        torch.cuda.empty_cache()
     # the contention passes at the JAX test's shapes, the paper cell's
     # pool, the dense pool and its first retry, the exact M = N fallback;
     # every pool shape the loop runs on later is checked after it ran
@@ -1706,12 +2010,17 @@ def main():
 
     # ---- times at the main path's largest leaf, and its small ones ---
     timed = {}
-    for label, U, shape, reps, K in (
-            ("mlp_fc1w_U10", 10, (784, 200), 200, 2),
-            ("mlp_fc2b_U10", 10, (10,), 200, 2),
-            ("mlp_fc1w_U1024", 1024, (784, 200), 10, 64)):
-        timed[label] = bench_kernels(U, shape, torch.float32, reps, K)
+    for label, U, shape, reps, K, dtype in (
+            ("mlp_fc1w_U10", 10, (784, 200), 200, 2, torch.float32),
+            ("mlp_fc2b_U10", 10, (10,), 200, 2, torch.float32),
+            ("mlp_fc1w_U1024", 1024, (784, 200), 10, 64, torch.float32),
+            ("mlp_fc1w_U1024_bf16", 1024, (784, 200), 10, 64,
+             torch.bfloat16)):
+        timed[label] = bench_kernels(U, shape, dtype, reps, K)
         torch.cuda.empty_cache()
+    timed["mlp_sgd_step_U10"] = bench_sgd_step(10, torch.float32, reps=200)
+    timed["cnn_grad_copy_U10"] = bench_grad_copy()
+    torch.cuda.empty_cache()
     # the contention passes at the paper cell's pool (1, 10), the 1000-
     # user pool (1, 512), (1, 128), the dense pool (64, 128) and a pool
     # of the exact fallback's size (8, 100000)
@@ -1721,7 +2030,8 @@ def main():
     for B, N, k in LOOP_POOLS:
         row = bench_loop(B, N, k)
         timed["contention_loop_{}x{}".format(*row["pool"])] = row
-    emit("kernel_times", dtype="float32 / int32", timed=timed)
+    emit("kernel_times", dtype="float32 / int32; bfloat16 where the entry "
+         "says bf16", timed=timed)
 
     # ---- the main path, through the entry points ---------------------
     torch.cuda.reset_peak_memory_stats()

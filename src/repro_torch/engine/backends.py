@@ -14,7 +14,7 @@ One implementation so far:
                device-resident step per round — ``local_epochs`` folded
                into the batch axis, every user's local SGD run over the
                stacked ``(U, ...)`` cohort (``fused_sgd`` kernel, one
-               launch per leaf per step), Eq. 2 priorities from the
+               launch per step for every leaf), Eq. 2 priorities from the
                trained stack (``delta_norm`` kernel, one launch per
                leaf), and ONE Eq. 1 merge a round in delivery order,
                one launch per leaf, in one of four forms:
@@ -66,6 +66,7 @@ float32, and cuDNN would otherwise run the CNN's convolutions in TF32.
 from __future__ import annotations
 
 import copy
+import math
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -78,7 +79,7 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.types import TrainResult
 from repro_torch.faults.robust import robust_merge
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.contention import counter_seed
+from repro_torch.kernels.contention import counter_key, counter_uniform53
 from repro_torch.objectives.local import objective_epoch_scan
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -141,17 +142,24 @@ def compact_weights(k_pad: int, positions: Sequence[int],
 
 def aircomp_noise(key, leaf_index: int, shape, device) -> torch.Tensor:
     """Standard-normal f32 receiver-noise plane of one leaf of one AirComp
-    merge, drawn on ``device``. ``key`` is the merge context's
-    ``(noise entropy, round)`` pair; the generator is seeded by a fixed
-    mix of ``(entropy, round, leaf_index)`` (``counter_seed``), so a run
-    is reproducible bit for bit and no two leaves or rounds share draws.
-    The reference draws threefry ``normal(fold_in(fold_in(key, t), i))``
-    instead: the two agree in distribution only."""
+    merge, computed on ``device``. ``key`` is the merge context's
+    ``(noise entropy, round)`` pair. Element ``e`` is a Box-Muller
+    normal, ``sqrt(-2 log u1) * cos(2 pi u2)`` in f64 and then cast to
+    f32, of two 53-bit uniforms on (0, 1] (``counter_uniform53`` under
+    ``counter_key(entropy, round)``, event ``leaf_index``, rows 0 and 1,
+    column ``e``): a function of ``(entropy, round, leaf_index, e)``
+    alone, so no two leaves or rounds share draws, a run is reproducible
+    bit for bit, and the CPU and the card compute the same integers and
+    uniforms (the f64 ``log`` / ``cos`` of the two may differ in the last
+    ulp, which the f32 cast almost always absorbs). The reference draws
+    threefry ``normal(fold_in(fold_in(key, t), i))`` instead: the two
+    agree in distribution only."""
     entropy, t = key
-    gen = torch.Generator(device=device)
-    gen.manual_seed(counter_seed(entropy, t, leaf_index))
-    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                       device=device)
+    shape = tuple(shape)
+    u = counter_uniform53(counter_key(entropy, t), leaf_index, 2,
+                          math.prod(shape), device)
+    z = torch.sqrt(-2.0 * torch.log(u[0])) * torch.cos((2.0 * math.pi) * u[1])
+    return z.to(torch.float32).reshape(shape)
 
 
 class Backend:
@@ -280,15 +288,18 @@ class HostBackend(Backend):
         self._obj_m = None            # server-opt first moment (~ glob)
         self._obj_v = None            # server-opt second moment
         self._obj_h = None            # (U, ...) per-user FedDyn h-state
+        self._param_dtypes = None     # the global's leaf dtypes (init_state)
 
     # ------------------------------------------------------------------
     def init_state(self, init_params):
         """The global state: ``init_params`` on this backend's device
         (the caller's tensors themselves when they already lie there —
         nothing in the backend ever writes into the global state)."""
-        return tree_map(
+        state = tree_map(
             lambda p: torch.as_tensor(p).detach().to(self.device),
             init_params)
+        self._param_dtypes = tree_map(lambda p: p.dtype, state)
+        return state
 
     def num_examples(self, u):
         return self.clients[u].num_examples
@@ -332,10 +343,22 @@ class HostBackend(Backend):
                 "h": host(self._obj_h)}
 
     def restore_objective_state(self, state) -> None:
+        """Inverse of ``objective_state``: each leaf back on the device in
+        the dtype of the global's leaf it belongs to (``init_state``
+        records them), so a bf16 model's m / v / h come back bf16 — the
+        widening to f32 was exact, and so is the cast back. Before any
+        ``init_state`` the leaves keep the snapshot's dtype."""
         if state is None:
             return
-        dev = lambda x: None if x is None else params_from_numpy(  # noqa: E731
-            x, device=self.device)
+        dtypes = self._param_dtypes
+
+        def dev(x):
+            if x is None:
+                return None
+            if dtypes is None:
+                return params_from_numpy(x, device=self.device)
+            return tree_map(lambda a, dt: params_from_numpy(
+                a, device=self.device, dtype=dt), x, dtypes)
         self._obj_m = dev(state.get("m"))
         self._obj_v = dev(state.get("v"))
         self._obj_h = dev(state.get("h"))

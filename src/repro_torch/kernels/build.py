@@ -7,9 +7,10 @@ includes no PyTorch header, so a build takes seconds. At first use every
 source is compiled for ``sm_90a`` — one ``nvcc`` process per source, all
 started together — into ``build/repro_torch_kernels/`` at the
 repository root, one shared library per source, named by a hash of the
-source and the flags so an edited source rebuilds and an unchanged one
-is reused. Nothing is fetched and nothing is prebuilt; a failed build
-or load raises with the compiler's output.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds and an unchanged one is reused. Nothing is fetched and
+nothing is prebuilt; a failed build or load raises with the compiler's
+output.
 """
 from __future__ import annotations
 
@@ -37,13 +38,15 @@ _P, _I, _LL, _U64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: ``c_void_p`` (a bare Python int would be cut to 32 bits)
 SIGNATURES = {
     "fused_sgd": {
-        "repro_fused_sgd": (_P, _P, _F, _LL, _I, _P),
+        "repro_fused_sgd_max_leaves": (),
+        "repro_fused_sgd_leaves": (_P, _P, _P, _I, _F, _I, _P),
     },
     "delta_norm": {
         "repro_delta_norm_blocks": (_LL,),
         "repro_delta_norm": (_P, _P, _P, _P, _I, _LL, _I, _P),
     },
     "combine": {
+        "repro_combine_max_k": (),
         "repro_gather_combine": (_P, _P, _P, _P, _P, _I, _I, _LL, _I, _P),
         "repro_fedavg_combine": (_P, _P, _P, _I, _LL, _I, _P),
         "repro_aircomp_combine": (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I,
@@ -86,6 +89,8 @@ def find_nvcc() -> str:
 def _target(src: Path) -> Path:
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 

@@ -11,7 +11,9 @@ Counterpart of ``repro/kernels/contention.py``. Four parts:
     composes;
   * the redraw material: ``counter_uniform``, a counter-based U[0, 1) of
     ``(key, event, row, pool column)`` in int64 torch arithmetic, the same
-    function the kernel computes;
+    function the kernel computes (``counter_bits`` is the integer draw,
+    ``counter_uniform53`` its 53-bit twin on (0, 1], which the AirComp
+    noise plane is made from);
   * ``_contend_device``, the event loop as a Python ``while`` over medium
     events on a candidate pool of the M smallest expiries per row, in
     absolute idle-time coordinates, with one host sync per event for the
@@ -190,13 +192,6 @@ def counter_key(entropy: int, call_index: int) -> int:
                        ^ (int(call_index) & _MASK64))
 
 
-def counter_seed(entropy: int, call_index: int, ev: int) -> int:
-    """A 63-bit generator seed from a fixed splitmix64 mix of
-    ``(entropy, call_index, ev)`` — a function of those three alone."""
-    return _splitmix64(counter_key(entropy, call_index)
-                       ^ (int(ev) & _MASK64)) >> 1
-
-
 def _i64(x: int) -> int:
     """A 64-bit pattern as the signed int64 that holds it."""
     x &= _MASK64
@@ -218,17 +213,35 @@ def _splitmix64_t(x: torch.Tensor) -> torch.Tensor:
     return x ^ _lshr(x, 31)
 
 
-def counter_uniform(key: int, ev: int, B: int, M: int,
-                    device) -> torch.Tensor:
-    """(B, M) f32 U[0, 1): element ``(b, c)`` is the top 24 bits of
-    ``splitmix64(splitmix64(key ^ ev) ^ (b << 32 | c))`` times 2^-24
-    (exact in f32) — the persistent kernel's draw, bit for bit."""
+def counter_bits(key: int, ev: int, B: int, M: int,
+                 device) -> torch.Tensor:
+    """(B, M) int64: element ``(b, c)`` holds the 64 bits of
+    ``splitmix64(splitmix64(key ^ ev) ^ (b << 32 | c))`` — a function of
+    ``(key, ev, b, c)`` alone, computed alike on every device."""
+    if M > 1 << 32:
+        raise ValueError(f"counter_bits: M = {M} columns exceed 2^32")
     k = torch.tensor(_i64(key), dtype=torch.int64, device=device)
     kev = _splitmix64_t(k ^ _i64(ev))
     lane = ((torch.arange(B, dtype=torch.int64, device=device) << 32)[:, None]
             | torch.arange(M, dtype=torch.int64, device=device)[None, :])
-    x = _splitmix64_t(kev ^ lane)
+    return _splitmix64_t(kev ^ lane)
+
+
+def counter_uniform(key: int, ev: int, B: int, M: int,
+                    device) -> torch.Tensor:
+    """(B, M) f32 U[0, 1): the top 24 bits of ``counter_bits`` times
+    2^-24 (exact in f32) — the persistent kernel's draw, bit for bit."""
+    x = counter_bits(key, ev, B, M, device)
     return _lshr(x, 40).to(torch.float32) * (2.0 ** -24)
+
+
+def counter_uniform53(key: int, ev: int, B: int, M: int,
+                      device) -> torch.Tensor:
+    """(B, M) f64 on (0, 1]: ``((counter_bits >> 11) + 1) * 2^-53``, the
+    top 53 bits of the draw (exact in f64), never 0 — a logarithm of it
+    is finite."""
+    x = counter_bits(key, ev, B, M, device)
+    return (_lshr(x, 11) + 1).to(torch.float64) * (2.0 ** -53)
 
 
 def counter_draw(entropy: int, call_index: int, device) -> Callable:

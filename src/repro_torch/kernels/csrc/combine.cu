@@ -1,5 +1,5 @@
 // Eq. 1 merges: the gather-K combine, the plain FedAvg combine, and the
-// two merges of the channel and fault layers built on the same loop.
+// two merges of the channel and fault layers built on the same walk.
 //
 //   gather_combine:  out = any(w != 0) ? sum_j w_j * stack[idx_j] : glob
 //   fedavg_combine:  out = sum_k a_k * stack[k]
@@ -10,9 +10,10 @@
 // src/repro/kernels/fedavg.py::fedavg_pallas,
 // src/repro/kernels/aircomp.py::aircomp_pallas and
 // src/repro/kernels/robust.py::robust_pallas. gather, fedavg and AirComp
-// share one device function: fedavg is the case "idx is the identity, no
-// glob guard", AirComp "no glob guard, a noise plane and a scale". Robust
-// is its own kernel with the same shape.
+// are one kernel (combine_kernel): fedavg is the case "idx is the
+// identity, no glob guard", AirComp "no glob guard, a noise plane and a
+// scale". Robust (robust_kernel) runs the same row walk with a per-row
+// shrink towards the old global.
 //
 // Bound on this card: bytes — one row of n elements read per NONZERO
 // weight, n written, plus glob when every weight is zero (gather), the
@@ -21,267 +22,311 @@
 //
 // The TPU version walks a (column block, winner) grid with the winner
 // axis innermost and accumulates into the resident output tile, steering
-// the row DMA with scalar-prefetched indices. Here each thread owns
-// output columns (grid-stride), reads idx and w itself (K is the winner
-// budget, a handful) and loops j = 0..K-1 with the sum in a register.
+// the row DMA with scalar-prefetched indices. Here:
+//   * each block first stages the LIVE rows once: the (row, weight[,
+//     scale]) of every nonzero weight, compacted in ascending j (a warp
+//     ballot prefix over w != 0, 32 weights a step) in shared memory. No thread reads w, idx or
+//     the scales from device memory afterwards, a masked row costs nothing
+//     per column (FedAvg's 1024-row mask with 2 live rows walks 2 rows),
+//     and the index check (an index outside [0, S) traps: a caller's bug,
+//     never data) runs once a live row a block;
+//   * a thread owns V contiguous columns (16 B of a row: 4 f32 or 8 bf16,
+//     one vector load a row; V = 1 where n or an operand's alignment does
+//     not allow vectors) and walks the live rows in groups of 16 (4 when
+//     at most 8 rows are live): all the group's loads are issued first,
+//     then its updates run in delivery order, so 16 x 16 B are in flight a
+//     thread where one scalar load a row kept 4 B — what a K = 64 merge
+//     needs to keep the HBM busy.
 // The contracts the reference pins are kept at the bit level:
-//   * delivery order: the sum runs j = 0, 1, ... in order, each product
-//     and each addition rounded on its own (__fmul_rn / __fadd_rn, no
-//     FMA contraction), so the result equals the plain version that
+//   * delivery order: the sum runs over the live rows in ascending j, each
+//     product and each addition rounded on its own (__fmul_rn / __fadd_rn,
+//     no FMA contraction), so the result equals the plain version that
 //     loops j in order, bit for bit, whatever the grid;
 //   * a zero weight contributes EXACT zero: its row is not read at all,
 //     so a non-finite loser cannot leak and padding costs no bytes.
 //     Skipping equals adding +0.0, which never changes an f32 sum that
 //     started from +0.0 — the pad width cannot change the bits;
-//   * all-zero weights return glob unchanged;
+//   * all-zero weights return glob unchanged (its raw bits are copied);
 //   * the result depends on the gathered rows only, not on the stack's
 //     length S: S = U with winner ids and S = K with positions agree
 //     bit for bit.
-// No atomics. The ragged tail is masked by the loop bound.
+// No atomics.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "vec.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
+using namespace repro_vec;
 
-// One body for gather, FedAvg and AirComp, so the three round alike by
-// construction. idx == nullptr: row j of the stack is term j. glob ==
-// nullptr: no guard. noise == nullptr adds nothing, which gives the bits
-// of adding +0.0 (acc is never -0.0: it starts at +0.0 and a
-// round-to-nearest sum is -0.0 only when both addends are). scale ==
-// nullptr multiplies by nothing; AirComp's scale is read from device
-// memory, so the wrapper forms sum(a) / sum(a * c) on the device without
-// a host sync, and with noise absent and scale == 1.0 AirComp gives the
-// gather sum bit for bit (x * 1.0 == x). The reference AirComp kernel has
-// no glob guard, and neither has this one when called for it.
-// An index outside [0, S) traps: it is a caller's bug, never data.
-template <typename T>
-__global__ void combine_kernel(const T* __restrict__ stack,
-                               const int* __restrict__ idx,
-                               const float* __restrict__ w,
-                               const T* __restrict__ glob,
-                               const float* __restrict__ noise,
-                               const float* __restrict__ scale,
-                               T* __restrict__ out, int S, int K,
-                               long long n) {
-  bool any = false;
-  if (glob != nullptr)
-    for (int j = 0; j < K; ++j) any |= (w[j] != 0.0f);
-  const float sc = (scale != nullptr) ? *scale : 1.0f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < n;
-       c += stride) {
-    if (glob != nullptr && !any) {
-      out[c] = glob[c];
-      continue;
-    }
-    float acc = 0.0f;
-    for (int j = 0; j < K; ++j) {
-      const float wj = w[j];
-      if (wj == 0.0f) continue;
-      const int r = (idx != nullptr) ? idx[j] : j;
-      if (r < 0 || r >= S) __trap();
-      acc = __fadd_rn(acc, __fmul_rn(to_f32(stack[(long long)r * n + c]), wj));
-    }
-    if (noise != nullptr) acc = __fadd_rn(acc, noise[c]);
-    if (scale != nullptr) acc = __fmul_rn(acc, sc);
-    from_f32(out + c, acc);
-  }
+constexpr int kThreads = 128;        // 64-512 measured within 4 % (PERF.md)
+// rows in flight a thread: 16 when more than kFewRows rows are live, else
+// 4 (a short walk pays for every predicated slot; PERF.md)
+constexpr int kFewRows = 8;
+constexpr unsigned kFull = 0xffffffffu;
+// staged per block in shared memory, 4 bytes each per weight: w, the row
+// ids and (robust) the scales, compacted in place; K is bounded so that
+// they fit a block's 227 KB
+constexpr int kMaxK = 16384;
+
+size_t stage_bytes(int K, bool scales) {
+  return (size_t)4 * ((scales ? 3 : 2) * (size_t)K + 1);
 }
 
-// Robust: each row is shrunk towards the old global g in delta space
-// before the same ordered masked sum. s == 1 takes the row as it is (no
-// arithmetic touches it), so all-ones scales give gather_combine's sum
-// over the same rows bit for bit; a zero weight skips the row before its
-// scale is read, so a NaN scale or a NaN row there cannot leak. A NaN row
-// with a nonzero weight propagates (the caller's quarantine masks it).
-//
-// Bound: bytes, K rows streamed once. A thread owns V contiguous columns
-// (16 B of a row: 4 f32 or 8 bf16, one vector load a row; V = 1 where n
-// or the operands' alignment does not allow vectors) and walks the rows
-// in groups of kUnroll: all the group's loads are issued first, each
-// predicated on its weight (a masked row is still never read), then the
-// group's updates run in delivery order. So a thread keeps kUnroll x 16 B
-// in flight where one scalar load a row kept 4 B, which is what a K = 64
-// merge needs to keep the HBM busy. w and s are staged in shared memory
-// once a block; g is loaded once per column group. The arithmetic of a
-// column is unchanged: __fmul_rn / __fadd_rn / __fsub_rn, j = 0, 1, ...
-template <typename T, int V>
-struct Cols;
-
-template <>
-struct Cols<float, 4> {
-  using Raw = float4;
-  static __device__ __forceinline__ Raw load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  static __device__ __forceinline__ void get(Raw r, float* f) {
-    f[0] = r.x;
-    f[1] = r.y;
-    f[2] = r.z;
-    f[3] = r.w;
-  }
-  static __device__ __forceinline__ void put(float* p, const float* f) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
-
-// eight bf16 as four 32-bit words, the lower address in the low half; a
-// bf16 is the high half of its f32, so widening is a shift (exact)
-template <>
-struct Cols<__nv_bfloat16, 8> {
-  using Raw = uint4;
-  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  static __device__ __forceinline__ void get(Raw r, float* f) {
-    const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ void put(__nv_bfloat16* p,
-                                             const float* f) {
-    unsigned w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i])) |
-             ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1]))
-              << 16);
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
-template <typename T>
-struct Cols<T, 1> {
-  using Raw = T;
-  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
-  static __device__ __forceinline__ void get(Raw r, float* f) {
-    f[0] = to_f32(r);
-  }
-  static __device__ __forceinline__ void put(T* p, const float* f) {
-    from_f32(p, f[0]);
-  }
-};
-
-constexpr int kUnroll = 8;
-
-template <typename T, int V>
-__global__ void robust_kernel(const T* __restrict__ stack,
-                              const float* __restrict__ w,
-                              const float* __restrict__ s,
-                              const T* __restrict__ glob,
-                              T* __restrict__ out, int K, long long groups) {
-  using C = Cols<T, V>;
-  extern __shared__ float ws[];         // w[K], then s[K]
+// Stage the live (row, weight[, scale]) triples of the block: every j with
+// w[j] != 0, compacted in ascending j into ws / rows / ss. All threads load
+// the K triples (idx == nullptr: row j; s == nullptr: no scales), then
+// warp 0 compacts them in place, 32 at a time in order: a lane's write
+// goes to a position at or below its own j, in this group or an earlier
+// one, so it never lands on a value not yet read. Returns the number of
+// live rows (the same in every thread); count is one int of shared memory.
+__device__ int stage_live(const int* __restrict__ idx,
+                          const float* __restrict__ w,
+                          const float* __restrict__ s, int S, int K,
+                          float* ws, int* rows, float* ss, int* count) {
   for (int j = threadIdx.x; j < K; j += blockDim.x) {
-    ws[j] = w[j];
-    ws[K + j] = s[j];
+    ws[j] = __ldg(w + j);
+    rows[j] = (idx != nullptr) ? __ldg(idx + j) : j;
+    if (s != nullptr) ss[j] = __ldg(s + j);
   }
   __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int m = 0;
+    for (int base = 0; base < K; base += 32) {
+      const int j = base + lane;
+      const float wj = j < K ? ws[j] : 0.0f;
+      const int r = j < K ? rows[j] : 0;
+      const float sj = (j < K && s != nullptr) ? ss[j] : 0.0f;
+      __syncwarp();                      // every read before any write
+      const unsigned live = __ballot_sync(kFull, wj != 0.0f);
+      if (wj != 0.0f) {
+        if (r < 0 || r >= S) __trap();
+        const int pos = m + __popc(live & ((1u << lane) - 1u));
+        ws[pos] = wj;
+        rows[pos] = r;
+        if (s != nullptr) ss[pos] = sj;
+      }
+      m += __popc(live);
+      __syncwarp();
+    }
+    if (lane == 0) *count = m;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// The per-row transforms of the walk: none (gather, FedAvg, AirComp), and
+// robust's shrink, where s == 1 takes the row as it is (no arithmetic
+// touches it) and any other scale (a NaN too) is applied.
+struct Identity {
+  __device__ __forceinline__ void apply(int, float*) const {}
+};
+
+template <int V>
+struct Shrink {
+  const float* ss;   // the live rows' scales (shared memory)
+  float g[V];        // the old global's V columns
+  __device__ __forceinline__ void apply(int i, float* x) const {
+    const float sj = ss[i];
+    if (sj == 1.0f) return;
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      x[e] = __fadd_rn(g[e], __fmul_rn(sj, __fsub_rn(x[e], g[e])));
+  }
+};
+
+// THE row walk: acc[e] += f(row)[e] * w over the m live rows in order, for
+// the V columns at c; kU rows' loads in flight before their updates.
+template <int kU, typename T, int V, typename F>
+__device__ __forceinline__ void walk_rows(const T* __restrict__ stack,
+                                          long long n, long long c,
+                                          const int* rows, const float* ws,
+                                          int m, const F& f, float* acc) {
+  using C = Cols<T, V>;
+  for (int j0 = 0; j0 < m; j0 += kU) {
+    typename C::Raw raw[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (j0 + u < m) raw[u] = C::load(stack + (long long)rows[j0 + u] * n + c);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (j0 + u >= m) break;
+      const float wj = ws[j0 + u];
+      float x[V];
+      C::get(raw[u], x);
+      f.apply(j0 + u, x);
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(x[e], wj));
+    }
+  }
+}
+
+template <typename T, int V, typename F>
+__device__ __forceinline__ void walk(const T* __restrict__ stack,
+                                     long long n, long long c,
+                                     const int* rows, const float* ws, int m,
+                                     const F& f, float* acc) {
+  if (m > kFewRows)
+    walk_rows<16, T, V>(stack, n, c, rows, ws, m, f, acc);
+  else
+    walk_rows<4, T, V>(stack, n, c, rows, ws, m, f, acc);
+}
+
+// gather / FedAvg / AirComp. idx == nullptr: row j of the stack is term j.
+// glob == nullptr: no guard. noise == nullptr adds nothing, which gives the
+// bits of adding +0.0 (acc is never -0.0: it starts at +0.0 and a
+// round-to-nearest sum is -0.0 only when both addends are). scale ==
+// nullptr multiplies by nothing; AirComp's scale is read from device
+// memory, so the wrapper forms sum(a) / sum(a * c) on the device without a
+// host sync, and with noise absent and scale == 1.0 AirComp gives the
+// gather sum bit for bit (x * 1.0 == x).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    combine_kernel(const T* __restrict__ stack, const int* __restrict__ idx,
+                   const float* __restrict__ w, const T* __restrict__ glob,
+                   const float* __restrict__ noise,
+                   const float* __restrict__ scale, T* __restrict__ out,
+                   int S, int K, long long groups) {
+  using C = Cols<T, V>;
+  extern __shared__ float smem[];
+  float* ws = smem;
+  int* rows = reinterpret_cast<int*>(smem + K);
+  int* count = reinterpret_cast<int*>(smem + 2 * K);
+  const float sc = (scale != nullptr) ? *scale : 1.0f;   // beside staging
+  const int m = stage_live(idx, w, nullptr, S, K, ws, rows, nullptr, count);
   const long long n = groups * V;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       q < groups; q += stride) {
+  const long long q0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m == 0 && glob != nullptr) {
+    for (long long q = q0; q < groups; q += stride)
+      C::put_raw(out + q * V, C::load(glob + q * V));
+    return;
+  }
+  for (long long q = q0; q < groups; q += stride) {
     const long long c = q * V;
-    float g[V], acc[V];
-    C::get(C::load(glob + c), g);
+    float acc[V];
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[e] = 0.0f;
-    for (int j0 = 0; j0 < K; j0 += kUnroll) {
-      typename C::Raw raw[kUnroll];
+    walk<T, V>(stack, n, c, rows, ws, m, Identity(), acc);
+    if (noise != nullptr) {
+      float z[V];
+      load_f32<V>(noise + c, z);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = j0 + u;
-        if (j < K && ws[j] != 0.0f) raw[u] = C::load(stack + j * n + c);
-      }
+      for (int e = 0; e < V; ++e) acc[e] = __fadd_rn(acc[e], z[e]);
+    }
+    if (scale != nullptr) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = j0 + u;
-        const float wj = j < K ? ws[j] : 0.0f;
-        if (wj == 0.0f) continue;
-        const float sj = ws[K + j];
-        float x[V];
-        C::get(raw[u], x);
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const float v = (sj == 1.0f)
-                              ? x[e]
-                              : __fadd_rn(g[e],
-                                          __fmul_rn(sj, __fsub_rn(x[e], g[e])));
-          acc[e] = __fadd_rn(acc[e], __fmul_rn(v, wj));
-        }
-      }
+      for (int e = 0; e < V; ++e) acc[e] = __fmul_rn(acc[e], sc);
     }
     C::put(out + c, acc);
   }
 }
 
-constexpr int kThreads = 256;
+// Robust: each live row is shrunk towards the old global g in delta space
+// before the same ordered sum. All-ones scales give gather_combine's sum
+// over the same rows bit for bit; a zero weight drops the row at staging,
+// so a NaN scale or a NaN row there cannot leak. A NaN row
+// with a nonzero weight propagates (the caller's quarantine masks it). g
+// is loaded once per column group.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    robust_kernel(const T* __restrict__ stack, const float* __restrict__ w,
+                  const float* __restrict__ s, const T* __restrict__ glob,
+                  T* __restrict__ out, int K, long long groups) {
+  using C = Cols<T, V>;
+  extern __shared__ float smem[];
+  float* ws = smem;
+  int* rows = reinterpret_cast<int*>(smem + K);
+  float* ss = smem + 2 * K;
+  int* count = reinterpret_cast<int*>(smem + 3 * K);
+  const int m = stage_live(nullptr, w, s, K, K, ws, rows, ss, count);
+  const long long n = groups * V;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       q < groups; q += stride) {
+    const long long c = q * V;
+    Shrink<V> shrink{ss, {}};
+    C::get(C::load(glob + c), shrink.g);
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.0f;
+    walk<T, V>(stack, n, c, rows, ws, m, shrink, acc);
+    C::put(out + c, acc);
+  }
+}
+
 constexpr long long kMaxBlocks = 132LL * 16;
 
-unsigned grid_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
+}
+
+unsigned grid_for(long long groups) {
+  long long blocks = (groups + kThreads - 1) / kThreads;
   return (unsigned)(blocks > kMaxBlocks ? kMaxBlocks : blocks);
 }
 
+// Above 48 KB of dynamic shared memory a kernel must opt in, which holds
+// for the current device alone: opt in on every such launch.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int V>
+int launch_v(const void* stack, const int* idx, const float* w,
+             const void* glob, const float* noise, const float* scale,
+             void* out, int S, int K, long long groups, cudaStream_t s) {
+  const size_t smem = stage_bytes(K, false);
+  const int rc = allow_smem(combine_kernel<T, V>, smem);
+  if (rc != 0) return rc;
+  combine_kernel<T, V><<<grid_for(groups), kThreads, smem, s>>>(
+      static_cast<const T*>(stack), idx, w, static_cast<const T*>(glob),
+      noise, scale, static_cast<T*>(out), S, K, groups);
+  return (int)cudaGetLastError();
+}
+
+// Vector columns when every row starts 16 B aligned (n a multiple of V and
+// aligned operands, the f32 noise plane included), else one column a
+// thread.
 template <typename T>
 int launch(const void* stack, const int* idx, const float* w,
            const void* glob, const float* noise, const float* scale,
            void* out, int S, int K, long long n, cudaStream_t s) {
   if (n <= 0) return 0;
-  combine_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-      static_cast<const T*>(stack), idx, w, static_cast<const T*>(glob),
-      noise, scale, static_cast<T*>(out), S, K, n);
-  return (int)cudaGetLastError();
-}
-
-constexpr int kRobustThreads = 128;      // 64-512 measured within 4 % (PERF.md)
-constexpr int kRobustMaxK = 232448 / 8;   // w and s in a block's shared memory
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
+  if (K > kMaxK) return (int)cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(T);
+  if (n % V == 0 && aligned16(stack) && aligned16(out) &&
+      (glob == nullptr || aligned16(glob)) &&
+      (noise == nullptr || aligned16(noise)))
+    return launch_v<T, V>(stack, idx, w, glob, noise, scale, out, S, K,
+                          n / V, s);
+  return launch_v<T, 1>(stack, idx, w, glob, noise, scale, out, S, K, n, s);
 }
 
 template <typename T, int V>
 int launch_robust_v(const void* stack, const float* w, const float* sc,
                     const void* glob, void* out, int K, long long groups,
                     cudaStream_t s) {
-  const size_t smem = (size_t)8 * K;
-  if (smem > 48 * 1024) {
-    // above 48 KB only after opting in, which holds for the current device
-    // alone: opt in on every such launch
-    const cudaError_t rc = cudaFuncSetAttribute(
-        robust_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  long long blocks = (groups + kRobustThreads - 1) / kRobustThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  robust_kernel<T, V><<<(unsigned)blocks, kRobustThreads, smem, s>>>(
+  const size_t smem = stage_bytes(K, true);
+  const int rc = allow_smem(robust_kernel<T, V>, smem);
+  if (rc != 0) return rc;
+  robust_kernel<T, V><<<grid_for(groups), kThreads, smem, s>>>(
       static_cast<const T*>(stack), w, sc, static_cast<const T*>(glob),
       static_cast<T*>(out), K, groups);
   return (int)cudaGetLastError();
 }
 
-// Vector columns when every row starts 16 B aligned (n a multiple of V and
-// aligned operands), else one column a thread.
 template <typename T>
 int launch_robust(const void* stack, const float* w, const float* sc,
                   const void* glob, void* out, int K, long long n,
                   cudaStream_t s) {
   if (n <= 0) return 0;
-  if (K > kRobustMaxK) return (int)cudaErrorInvalidValue;
+  if (K > kMaxK) return (int)cudaErrorInvalidValue;
   constexpr int V = 16 / sizeof(T);
   if (n % V == 0 && aligned16(stack) && aligned16(glob) && aligned16(out))
     return launch_robust_v<T, V>(stack, w, sc, glob, out, K, n / V, s);
@@ -302,6 +347,10 @@ int dispatch(const void* stack, const int* idx, const float* w,
 }
 
 }  // namespace
+
+// The largest K (weights a merge) a launch takes: the staged weights must
+// fit a block's shared memory. A larger K returns cudaErrorInvalidValue.
+extern "C" int repro_combine_max_k() { return kMaxK; }
 
 // stack: (S, n); idx: (K,) int32 device; w: (K,) f32 device; glob, out:
 // (n,). dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().

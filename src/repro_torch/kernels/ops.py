@@ -13,7 +13,8 @@ Dispatch policy:
 exactly where a wrapper launches its kernel, nowhere else, so a run can
 show that a path really went through the kernels.
 
-Kernels, one wrapper each: ``fused_sgd`` (the local step),
+Kernels, one wrapper each: ``fused_sgd_leaves`` (the local step, every
+leaf in one launch; ``fused_sgd`` is its one-leaf case),
 ``delta_norm`` / ``delta_norm_stacked`` (Eq. 2 and the fault guard's
 clip), ``gather_combine`` and ``fedavg_combine`` (Eq. 1),
 ``aircomp_combine`` / ``aircomp_combine_weighted`` (the channel layer's
@@ -44,7 +45,8 @@ from repro_torch.kernels.contention import (_contend_device,
                                             counter_uniform)
 from repro_torch.kernels.delta_norm import delta_norm_cuda
 from repro_torch.kernels.fedavg import fedavg_cuda
-from repro_torch.kernels.fused_sgd import fused_sgd_cuda_
+from repro_torch.kernels.fused_sgd import (fused_sgd_leaves_cuda_,
+                                           max_leaves as fused_sgd_max_leaves)
 from repro_torch.kernels.gather import gather_combine_cuda
 from repro_torch.kernels.robust import robust_cuda
 from repro_torch.kernels.server_opt import server_opt_cuda
@@ -227,17 +229,34 @@ def server_opt_combine(avg, old, m, v, consts):
     return ref.server_opt_combine_ref(avg, old, m, v, torch.from_numpy(c))
 
 
-def fused_sgd(param, grad, lr):
-    """SGD step ``param <- param - lr * grad`` (f32 math, cast back),
-    IN PLACE on ``param``, which is returned. The reference returns a
-    new array and donates the old buffer; updating in place is the same
-    saving said directly."""
-    if param.is_cuda:
-        fused_sgd_cuda_(param, grad, lr)
-        LAUNCHES["fused_sgd"] += 1
-        return param
+def fused_sgd_leaves(params, grads, lr):
+    """SGD step ``p <- p - lr * g`` (f32 math, cast back) for every pair
+    of the two equal-length lists, IN PLACE on each ``p``; returns
+    ``params``. The reference returns new arrays and donates the old
+    buffers; updating in place is the same saving said directly. On CUDA
+    tensors it is ONE launch for up to ``max_leaves()`` (32) leaves, so a
+    model's local step is one launch; on CPU tensors the plain version,
+    leaf by leaf."""
+    params, grads = list(params), list(grads)
+    if len(params) != len(grads):
+        raise ValueError(f"fused_sgd: {len(params)} params vs {len(grads)} "
+                         "grads")
+    if any(p.is_cuda or g.is_cuda for p, g in zip(params, grads)):
+        step = fused_sgd_max_leaves()
+        for i in range(0, len(params), step):
+            fused_sgd_leaves_cuda_(params[i:i + step], grads[i:i + step], lr)
+            LAUNCHES["fused_sgd"] += 1
+        return params
     with torch.no_grad():
-        param.copy_(ref.fused_sgd_ref(param, grad, lr))
+        for p, g in zip(params, grads):
+            p.copy_(ref.fused_sgd_ref(p, g, lr))
+    return params
+
+
+def fused_sgd(param, grad, lr):
+    """``fused_sgd_leaves`` of one leaf: ``param <- param - lr * grad``
+    in place; returns ``param``."""
+    fused_sgd_leaves([param], [grad], lr)
     return param
 
 

@@ -12,10 +12,13 @@
       ``tools/check_winner_pins.py`` (8 users, 16 -> 4 linear model, 4
       rounds, seeds 0 and 1) against the JAX engine's ``run()``: every
       count of the history exactly, globals ``rtol=1e-5``. AirComp noise
-      is drawn from a torch generator in the port and from threefry in
-      the reference; with the reference's noise planes handed in through
-      the backend's draw hook the two runs must agree;
-  (d) the bit-transparency contracts within the port.
+      is a counter-based Box-Muller draw in the port and threefry in the
+      reference; with the reference's noise planes handed in through the
+      backend's draw hook the two runs must agree;
+  (d) the bit-transparency contracts within the port, and the noise
+      draw itself: its uniforms bit for bit against a Python-int oracle,
+      its planes distinct across keys, rounds and leaves, and its
+      moments and normality over 1e6 draws.
 """
 import jax
 import jax.numpy as jnp
@@ -273,3 +276,77 @@ def test_plain_version_is_what_the_cpu_wrapper_runs():
     want = tref.aircomp_combine_ref(arr_t(st), w, arr_t(noise), scale[0])
     got = tops.aircomp_combine(arr_t(st), a, c, arr_t(noise))
     assert torch.equal(got, want)
+
+
+_M64 = (1 << 64) - 1
+
+
+def _oracle_splitmix64(x):
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def _oracle_noise_uniforms(entropy, t, leaf, e):
+    """The two uniforms behind noise element ``e`` in Python ints: the
+    top 53 bits of splitmix64(splitmix64(key ^ leaf) ^ (b << 32 | e)),
+    plus one, over 2^53 (b = 0, 1), key = splitmix64(splitmix64(entropy)
+    ^ t)."""
+    key = _oracle_splitmix64(_oracle_splitmix64(entropy & _M64) ^ (t & _M64))
+    kev = _oracle_splitmix64(key ^ (leaf & _M64))
+    return [((_oracle_splitmix64(kev ^ ((b << 32) | e)) >> 11) + 1)
+            / float(1 << 53) for b in (0, 1)]
+
+
+@pytest.mark.parametrize("entropy,t,leaf,e", [
+    (0, 0, 0, 0), (2 ** 63 - 1, 0, 1, 5), (1234, 17, 3, 127),
+    (2 ** 62 + 7, 2 ** 40 + 3, 0, 65535), (987654321, 99, 5, 156799)])
+def test_noise_uniforms_equal_the_python_int_oracle(entropy, t, leaf, e):
+    import math
+    from repro_torch.engine.backends import aircomp_noise
+    from repro_torch.kernels.contention import counter_key, counter_uniform53
+    u = counter_uniform53(counter_key(entropy, t), leaf, 2, e + 1, "cpu")
+    want = _oracle_noise_uniforms(entropy, t, leaf, e)
+    assert u.dtype == torch.float64
+    assert [float(u[0, e]), float(u[1, e])] == want      # exact in f64
+    assert all(0.0 < x <= 1.0 for x in want)
+    z = float(aircomp_noise((entropy, t), leaf, (e + 1,), "cpu")[e])
+    zw = math.sqrt(-2.0 * math.log(want[0])) * math.cos(2 * math.pi * want[1])
+    assert abs(z - zw) <= 1e-6 * abs(zw) + 1e-7      # one f32 rounding
+
+
+def test_noise_plane_is_a_function_of_key_leaf_and_element_alone():
+    from repro_torch.engine.backends import aircomp_noise
+    a = aircomp_noise((11, 4), 2, (6, 50), "cpu")
+    assert a.dtype == torch.float32 and a.shape == (6, 50)
+    assert np.array_equal(bits(a), bits(aircomp_noise((11, 4), 2, (6, 50),
+                                                      "cpu")))
+    # the same key and leaf at another shape: the same elements, in order
+    flat = aircomp_noise((11, 4), 2, (400,), "cpu")
+    assert np.array_equal(bits(a).ravel(), bits(flat)[:300])
+
+
+def test_noise_keys_rounds_and_leaves_never_share_draws():
+    from repro_torch.kernels.contention import counter_key, counter_uniform53
+    seen = []
+    for entropy in (0, 5, 2 ** 63 + 1):
+        for t in (0, 1, 7):
+            for leaf in (0, 1, 3):
+                seen.append(counter_uniform53(counter_key(entropy, t), leaf,
+                                              2, 256, "cpu").reshape(-1))
+    u = torch.cat(seen)
+    assert torch.unique(u).numel() == u.numel() == 27 * 2 * 256
+
+
+def test_noise_moments_and_normality_over_a_million_draws():
+    from scipy import stats
+    from repro_torch.engine.backends import aircomp_noise
+    z = aircomp_noise((20230917, 3), 1, (1_000_000,), "cpu").double().numpy()
+    assert np.isfinite(z).all()
+    assert abs(z.mean()) < 5e-3                      # 5 standard errors
+    assert abs(z.var() - 1.0) < 7e-3                 # 5 standard errors
+    assert abs(stats.skew(z)) < 0.0125 and abs(stats.kurtosis(z)) < 0.025
+    assert stats.kstest(z, "norm").pvalue > 1e-3
+    # both tails at 3 sigma: 0.27 % of the draws, within 5 standard errors
+    assert abs(np.mean(np.abs(z) > 3.0) - 0.0026998) < 2.6e-4

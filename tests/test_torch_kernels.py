@@ -253,6 +253,80 @@ def test_fused_sgd_matches_pallas_interpret(shape, dtype):
                                atol=_atol(dtype))
 
 
+#: the stacked leaves one local step updates: the paper's MLP and CNN
+#: (models/paper_models.py, leaf order) over a 3-user cohort, and a list
+#: of sizes that are no multiple of 4 or 8, below 4, and past one chunk
+SGD_LEAF_LISTS = {
+    "mlp": [(3, 200), (3, 784, 200), (3, 10), (3, 200, 10)],
+    "cnn": [(3, 128), (3, 5, 5, 1, 128), (3, 256), (3, 5, 5, 128, 256),
+            (3, 10), (3, 12544, 10)],
+    "ragged": [(1,), (3,), (7,), (2, 5), (4097,), (3, 129, 5), (8,)],
+    "empty": [],
+}
+
+
+@pytest.mark.parametrize("leaves", list(SGD_LEAF_LISTS))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_sgd_leaves_matches_jax_ref_leaf_by_leaf(leaves, dtype):
+    shapes = SGD_LEAF_LISTS[leaves]
+    ps = [_normal(30 + i, s) for i, s in enumerate(shapes)]
+    gs = [_normal(60 + i, s) for i, s in enumerate(shapes)]
+    pt = [arr_t(p, dtype) for p in ps]
+    out = tops.fused_sgd_leaves(pt, [arr_t(g, dtype) for g in gs], 1e-2)
+    assert len(out) == len(shapes)
+    for o, t, p, g in zip(out, pt, ps, gs):
+        assert o is t                              # in place
+        want = jref.fused_sgd_ref(arr_j(p, dtype), arr_j(g, dtype), 1e-2)
+        np.testing.assert_allclose(f32(o), f32(want), rtol=1e-5,
+                                   atol=_atol(dtype))
+        # and bit for bit the one-leaf op of the port
+        assert np.array_equal(bits(o), bits(tops.fused_sgd(
+            arr_t(p, dtype), arr_t(g, dtype), 1e-2)))
+
+
+def test_fused_sgd_leaves_rejects_unequal_lists():
+    with pytest.raises(ValueError):
+        tops.fused_sgd_leaves([torch.ones(3)], [], 0.1)
+
+
+@pytest.mark.parametrize("model", ["mlp", "cnn"])
+def test_sgd_epoch_scan_bits_equal_the_per_leaf_route(model):
+    """The local loop (one ``fused_sgd_leaves`` call a step) gives the
+    bits of the same loop stepping leaf by leaf with ``fused_sgd``."""
+    from repro_torch.core.client import sgd_epoch_scan
+    from repro_torch.models.paper_models import get_paper_model
+    from repro_torch.tree import tree_map
+    init, apply = get_paper_model(model)
+    U, nb, bs = 2, 2, 4
+    p0 = init(0, device="cpu")
+    stack = tree_map(lambda p: p.unsqueeze(0).expand((U,) + p.shape)
+                     .contiguous(), p0)
+    rng = np.random.default_rng(5)
+    batched = {"x": torch.from_numpy(rng.standard_normal(
+        (U, nb, bs, 28, 28, 1)).astype(np.float32)),
+        "y": torch.from_numpy(rng.integers(0, 10, (U, nb, bs)))}
+
+    def loss_fn(params, batch):
+        x = batch["x"] if model == "cnn" else batch["x"].reshape(
+            batch["x"].shape[0], -1)
+        logp = torch.log_softmax(apply(params, x), -1)
+        return -logp.gather(-1, batch["y"].long()[:, None]).mean()
+
+    got, losses = sgd_epoch_scan(loss_fn, 1e-2)(
+        tree_map(torch.clone, stack), batched)
+    grad_fn = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+    want = tree_map(torch.clone, stack)
+    for i in range(nb):
+        grads, _ = grad_fn(want, tree_map(lambda a: a[:, i], batched))
+        tree_map(lambda p, g: tops.fused_sgd(p, g.contiguous(), 1e-2),
+                 want, grads)
+    assert losses.shape == (U, nb)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert np.array_equal(bits(a), bits(b))
+    assert not np.array_equal(bits(jax.tree.leaves(got)[1]),
+                              bits(jax.tree.leaves(stack)[1]))
+
+
 # ------------------------------------------------------ dispatch contract
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tops.reset_launches()
@@ -263,6 +337,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tops.gather_combine(x, np.array([1, 2], np.int32),
                         np.array([0.5, 0.5], np.float32), x[0])
     tops.fused_sgd(x.clone(), x, 0.1)
+    tops.fused_sgd_leaves([x.clone(), x[0].clone()], [x, x[0]], 0.1)
     cnt = torch.zeros((4, 33), dtype=torch.int32)
     tops.contention_event(cnt, cnt == 0, cnt, x, x.abs() % 1.0, 5)
     rows = torch.zeros(4, dtype=torch.int32)

@@ -381,3 +381,52 @@ def test_unported_objective_programs_still_raise():
     with pytest.raises(NotImplementedError, match="sparse"):
         THostBackend(pin_torch_loss, pin_user_data(), round_mode="sparse",
                      objective=obj, device="cpu")
+
+
+def _bf16_loss(params, batch):
+    """The pin scenario's loss with bf16 params: the batch meets the
+    weights in their dtype."""
+    x = batch["x"].to(params["w"].dtype)
+    logp = torch.log_softmax((x @ params["w"] + params["b"]).float(), -1)
+    return -logp.gather(-1, batch["y"].long()[:, None]).mean()
+
+
+def _bf16_backend():
+    return THostBackend(_bf16_loss, pin_user_data(), lr=0.05, batch_size=16,
+                        seed=3, round_mode="fused", k_max=2,
+                        objective=ObjectiveSpec(local="feddyn", alpha=0.1,
+                                                aggregator="fedadam",
+                                                server_lr=0.1),
+                        device="cpu")
+
+
+def test_bf16_objective_state_restores_dtype_bits_and_the_next_round():
+    """A bf16 model's m / v / h leave as f32 (numpy has no bf16) and
+    come back bf16 with the live bits, and the round after the restore
+    equals the uninterrupted run's bit for bit."""
+    ids = list(range(PIN_USERS))
+    init = to_torch(pin_init(), "bfloat16")
+    live = _bf16_backend()
+    state = live.init_state(init)
+    state = live.merge(state, live.train_round(state, 0, ids, True), [4, 1],
+                       attempts=[4, 1])
+    snap = live.objective_state()
+    streams = live.client_stream_states()
+    resumed = _bf16_backend()
+    resumed.init_state(init)
+    resumed.restore_objective_state(snap)
+    resumed.restore_client_streams(streams)
+    for part in ("_obj_m", "_obj_v", "_obj_h"):
+        for a, b in zip(jax.tree.leaves(getattr(live, part)),
+                        jax.tree.leaves(getattr(resumed, part))):
+            assert a.dtype == b.dtype == torch.bfloat16
+            assert np.array_equal(bits(a), bits(b))
+    want = live.merge(state, live.train_round(state, 1, ids, True), [2, 6],
+                      attempts=[2, 6, 0])
+    got = resumed.merge(state, resumed.train_round(state, 1, ids, True),
+                        [2, 6], attempts=[2, 6, 0])
+    assert bitwise_equal(got, want)
+    for part in ("_obj_m", "_obj_v", "_obj_h"):
+        assert bitwise_equal(getattr(resumed, part), getattr(live, part))
+        assert all(t.dtype == torch.bfloat16
+                   for t in jax.tree.leaves(getattr(resumed, part)))
