@@ -8,7 +8,7 @@ without CUDA (there is no CPU path here). It
 
   1. names the card (``nvidia-smi`` name and power limit) and the
      toolchain;
-  2. builds the eleven hand-written ``sm_90a`` kernels (five sources)
+  2. builds the ten hand-written ``sm_90a`` kernels (five sources)
      from ``src/repro_torch/kernels/csrc/``;
   3. holds every kernel against its plain PyTorch version on the card —
      f32 and bf16, ragged sizes and every leaf shape the driven paths
@@ -25,14 +25,21 @@ without CUDA (there is no CPU path here). It
      1024 rows of which 2 are live, a K past the shared-memory limit
      refused) bit for bit; the multi-leaf SGD step on lists of aligned
      and unaligned leaves, more than one launch's worth included; the
+     leaf-list Eq. 2 reduction and server step (one launch for every
+     leaf) on the MLP's and the CNN's leaf lists at 10 and 1024 users, a
+     ragged list with skewed operands and a 40-leaf list (two launches),
+     the reduction bit-identical run to run and the server step bit-equal
+     in every kind; the
      three contention passes bit for bit at every (B, M) pool
      shape the contention loop runs on, with forced expiry ties, dead
      lanes and rows with no live lane — and times kernel, plain version
      and, where one exists, the single PyTorch library call (eager and
      from a CUDA graph, like the kernel) — the merges at K = 64 in f32 and
      bf16, a whole MLP SGD step against ``torch._foreach_add_`` and the
-     CNN's permuted-gradient copy; the persistent contention loop at the
-     engine's pools;
+     CNN's permuted-gradient copy; the Eq. 2 reduction and the server
+     step as whole-model calls and on the fc1.w leaf alone, at 10 and
+     1024 users, f32 and bf16, and the server step on a 16 M-element
+     leaf; the persistent contention loop at the engine's pools;
   4. drives the port's main path through its normal entry points:
      ``launch.train.build_paper_engine`` with the paper's defaults (MLP
      784x200x10, 10 users, 2 winners a round, ``priority-distributed``)
@@ -110,8 +117,10 @@ from repro_torch.engine.backends import (aircomp_noise,  # noqa: E402
 from repro_torch.faults import FaultSpec                  # noqa: E402
 from repro_torch.kernels import build as kbuild           # noqa: E402
 from repro_torch.kernels import contention as kcont       # noqa: E402
+from repro_torch.kernels import delta_norm as kdn          # noqa: E402
 from repro_torch.kernels import fused_sgd as kfused        # noqa: E402
 from repro_torch.kernels import ops, ref                  # noqa: E402
+from repro_torch.kernels import server_opt as kso          # noqa: E402
 from repro_torch.launch import train as launch_train      # noqa: E402
 from repro_torch.models.paper_models import get_paper_model  # noqa: E402
 from repro_torch.objectives import ObjectiveSpec          # noqa: E402
@@ -197,6 +206,18 @@ def randn(seed, shape, dtype):
     g = torch.Generator(device="cpu").manual_seed(seed)
     return torch.randn(shape, generator=g, dtype=torch.float32) \
         .to(DEV).to(dtype)
+
+
+def randn_dev(seed, shape, dtype):
+    """``randn`` drawn on the card (for the 1024-user stacks)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=DEV).to(dtype)
+
+
+def model_leaves(model):
+    """The leaf shapes (tree order) of one of the paper's models."""
+    return [tuple(l.shape) for l in tree_leaves(
+        get_paper_model(model)[0](0, device="cpu"))]
 
 
 # ------------------------------------------------------------ comparisons
@@ -556,6 +577,99 @@ def check_sgd_leaves(dtype):
                 f"fused_sgd_leaves {label} leaf {i} {tuple(g.shape)} "
                 f"{str(dtype)[6:]}", g, w, dtype))
     return err, True
+
+
+#: leaf lists beside the models': sizes that are no multiple of 4 or 8,
+#: below 4, one past a warp's span, past one chunk; and more leaves than
+#: one launch takes
+RAGGED_LEAVES = [(1,), (3,), (7,), (2, 5), (513,), (4097,), (3, 129, 5),
+                 (8,)]
+MANY_LEAVES = [(k % 7 + 1, 33 * (k % 5) + 8) for k in range(40)]
+
+
+def check_leaf_lists(dtype):
+    """The two leaf-list kernels against their plain versions, leaf by
+    leaf. ``delta_norm_leaves`` (rtol 1e-5, and two runs bit-identical)
+    on the MLP's and the CNN's stacked leaves at U = 10 and U = 1024, a
+    ragged list with skewed operands and 40 leaves (two launches);
+    ``server_opt_leaves`` bit-equal in every kind on the MLP's and the
+    CNN's leaves, the ragged list skewed and the 40 leaves, the inert
+    settings passing avg's bits through. Both raise on any failure.
+    Returns {kernel: (worst abs error, bit_equal)} and delta_norm's
+    worst relative error."""
+    worst = {"delta_norm": 0.0, "server_opt": 0.0}
+    worst_rel = 0.0
+    tag = str(dtype)[6:]
+    for label, shapes, U, skew in (
+            ("mlp", model_leaves("mlp"), 10, ()),
+            ("mlp", model_leaves("mlp"), 1024, ()),
+            ("cnn", model_leaves("cnn"), 10, ()),
+            ("cnn", model_leaves("cnn"), 1024, ()),
+            ("ragged", RAGGED_LEAVES, 5, (1, 5)),
+            ("40 leaves", MANY_LEAVES, 3, (2, 30))):
+        st = [randn_dev(800 + i, (U,) + sh, dtype)
+              for i, sh in enumerate(shapes)]
+        gl = [randn_dev(900 + i, sh, dtype) for i, sh in enumerate(shapes)]
+        for i in skew:
+            st[i], gl[i] = skewed(st[i]), skewed(gl[i])
+        before = ops.LAUNCHES["delta_norm"]
+        d2, g2 = ops.delta_norm_leaves(st, gl)
+        launches = ops.LAUNCHES["delta_norm"] - before
+        if launches != -(-len(shapes) // kdn.max_leaves()):
+            raise AssertionError(f"delta_norm_leaves {label}: {launches} "
+                                 f"launches for {len(shapes)} leaves")
+        d2b, g2b = ops.delta_norm_leaves(st, gl)
+        if not (same_bits(d2, d2b) and same_bits(g2, g2b)):
+            raise AssertionError(f"delta_norm_leaves {label} U={U} {tag}: "
+                                 "two runs differ bitwise")
+        for l, (x, g) in enumerate(zip(st, gl)):
+            d2r, g2r = ref.delta_norm_stacked_ref(x, g)
+            name = f"delta_norm_leaves {label} U={U} leaf {l} {tag}"
+            for got, want in ((d2[l], d2r), (g2[l], g2r)):
+                e, _ = compare(name, got, want, torch.float32, rel_only=True)
+                worst["delta_norm"] = max(worst["delta_norm"], e)
+                worst_rel = max(worst_rel, float(
+                    ((got - want).abs() / want.abs().clamp(min=1e-30))
+                    .max()))
+        del st, gl
+        torch.cuda.empty_cache()
+    for label, shapes, skew in (("mlp", model_leaves("mlp"), ()),
+                                ("cnn", model_leaves("cnn"), ()),
+                                ("ragged", RAGGED_LEAVES, (1, 5)),
+                                ("40 leaves", MANY_LEAVES, (3, 33))):
+        four = [[randn_dev(1000 + 50 * j + i, sh, dtype)
+                 for i, sh in enumerate(shapes)] for j in range(4)]
+        four[3] = [v.abs() for v in four[3]]
+        for i in skew:
+            for j in range(4):
+                four[j][i] = skewed(four[j][i])
+        settings = [*SERVER_KINDS.values(), [1, 0.0, 0.0, 1.0, 1e-3]]
+        for consts in settings:
+            before = ops.LAUNCHES["server_opt"]
+            got = ops.server_opt_leaves(*four, consts)
+            launches = ops.LAUNCHES["server_opt"] - before
+            if launches != -(-len(shapes) // kso.max_leaves()):
+                raise AssertionError(f"server_opt_leaves {label}: "
+                                     f"{launches} launches for "
+                                     f"{len(shapes)} leaves")
+            inert = consts[0] == 0 or consts[0] == 1 and consts[1] == 0 \
+                and consts[3] == 1
+            for l in range(len(shapes)):
+                want = ref.server_opt_combine_ref(
+                    *(x[l] for x in four), torch.tensor(consts))
+                for part, g, w in zip(("out", "m", "v"),
+                                      (x[l] for x in got), want):
+                    worst["server_opt"] = max(worst["server_opt"], bit_check(
+                        f"server_opt_leaves {label} {consts} leaf {l} "
+                        f"{part} {tag}", g, w, dtype))
+                if inert and not same_bits(got[0][l], four[0][l]):
+                    raise AssertionError(f"server_opt_leaves {consts}: the "
+                                         "inert step did not pass avg's "
+                                         "bits through")
+    # delta_norm within rtol 1e-5, never bit-equal (its own order);
+    # server_opt bit-equal or it raised
+    return ({"delta_norm": (worst["delta_norm"], False),
+             "server_opt": (worst["server_opt"], True)}, worst_rel)
 
 
 def check_robust_split(dtype):
@@ -1060,17 +1174,6 @@ def bench_kernels(U, shape, dtype, reps, K=2):
     res["fused_sgd"]["torch_add_out_of_place_graph_ms"] = graph_ms(
         lambda: torch.add(*nxt()[:2], alpha=-LR))
 
-    def dn_k():
-        s, _, g, *_ = nxt()
-        ops.delta_norm_stacked(s, g)
-
-    def dn_p():
-        s, _, g, *_ = nxt()
-        ref.delta_norm_stacked_ref(s, g)
-
-    record("delta_norm", dn_k, dn_p, None,
-           (U + 1) * n * item + (U + 1) * 4, 5 * U * n + 2 * n, reps)
-
     def gc_k():
         s, _, g, *_ = nxt()
         ops.gather_combine(s, idx_k, a_k, g)
@@ -1175,26 +1278,75 @@ def bench_kernels(U, shape, dtype, reps, K=2):
     record("robust_combine", rob_k, rob_p, rob_l, (K + 2) * n * item,
            (5 * (K - passthrough) + 2 * passthrough) * n,
            max(1, min(reps, 2000 // K)))
+    return res
 
-    # the server step (FedAdam, the kind with the most work) on one leaf:
-    # avg, old, m, v of its own, enough sets to stay out of L2
+
+def bench_delta_norm(U, dtype, reps):
+    """``delta_norm_leaves`` at U users: the MLP's fc1.w leaf alone and
+    the MLP's four stacked leaves in one launch (a round's priority
+    call): kernel eager and from a CUDA graph, the plain version, and the
+    bound — every stack and global read once, (U + 1) floats a leaf
+    written; three operations an element of each of the U + 1 rows (the
+    global's row is its squares). No single PyTorch call computes it: no
+    library yardstick."""
+    item = torch.empty((), dtype=dtype).element_size()
+    out = {}
+    for label, shapes in (("fc1w", [(784, 200)]),
+                          ("mlp", model_leaves("mlp"))):
+        n = sum(int(np.prod(sh)) for sh in shapes)
+        set_bytes = (U + 1) * n * item
+        nxt = rotating(lambda i: (
+            [randn_dev(1200 + 10 * i + l, (U,) + sh, dtype)
+             for l, sh in enumerate(shapes)],
+            [randn_dev(1600 + 10 * i + l, sh, dtype)
+             for l, sh in enumerate(shapes)]),
+            max(2, min(16, int(128e6 // set_bytes) + 1)))
+        row = measure(lambda: ops.delta_norm_leaves(*nxt()),
+                      lambda: ref.delta_norm_leaves_ref(*nxt()), None,
+                      set_bytes + 4 * (U + 1) * len(shapes),
+                      3 * (U + 1) * n, reps, max(1, min(reps, 20)))
+        row.update(leaves=[[U, *sh] for sh in shapes],
+                   share_of_bound=row["bound_ms"] / row["graph_ms"])
+        out[label] = row
+        del nxt
+        torch.cuda.empty_cache()
+    return out
+
+
+def bench_server_opt(dtype, reps):
+    """``server_opt_leaves``, FedAdam (the kind with the most work): the
+    MLP's fc1.w leaf alone, the MLP's four leaves in one launch (an
+    objective merge), and one 16 M-element leaf, where bytes, not the
+    launch, bound it. Operands rotated out of L2; the bound: four
+    leaf-shaped reads and three writes, 13 operations an element. No
+    single PyTorch call computes this law: no library yardstick."""
+    item = torch.empty((), dtype=dtype).element_size()
     adam = SERVER_KINDS[2]
     adam_t = torch.tensor(adam)
-    nxt_so = rotating(lambda i: tuple(
-        randn(600 + 4 * i + j, shape, dtype).abs() if j == 3
-        else randn(600 + 4 * i + j, shape, dtype) for j in range(4)),
-        max(2, min(64, int(160e6 // (4 * n * item)) + 1)))
+    out = {}
+    for label, shapes in (("fc1w", [(784, 200)]),
+                          ("mlp", model_leaves("mlp")),
+                          ("16M", [(1 << 24,)])):
+        n = sum(int(np.prod(sh)) for sh in shapes)
+        nxt = rotating(lambda i: [
+            [randn_dev(2000 + 100 * i + 10 * j + l, sh, dtype).abs()
+             if j == 3 else randn_dev(2000 + 100 * i + 10 * j + l, sh, dtype)
+             for l, sh in enumerate(shapes)] for j in range(4)],
+            max(2, min(64, int(160e6 // (4 * n * item)) + 1)))
 
-    def so_k():
-        ops.server_opt_combine(*nxt_so(), adam)
+        def plain():
+            for leaf in zip(*nxt()):
+                ref.server_opt_combine_ref(*leaf, adam_t)
 
-    def so_p():
-        ref.server_opt_combine_ref(*nxt_so(), adam_t)
-
-    # 4 leaf-shaped reads, 3 writes; FedAdam: 13 operations an element
-    # (no single PyTorch call computes this law: no library yardstick)
-    record("server_opt", so_k, so_p, None, 7 * n * item, 13 * n, reps)
-    return res
+        row = measure(lambda: ops.server_opt_leaves(*nxt(), adam), plain,
+                      None, 7 * n * item, 13 * n, reps,
+                      max(1, min(reps, 20)))
+        row.update(leaves=[list(sh) for sh in shapes],
+                   share_of_bound=row["bound_ms"] / row["graph_ms"])
+        out[label] = row
+        del nxt
+        torch.cuda.empty_cache()
+    return out
 
 
 def bench_sgd_step(U, dtype, reps):
@@ -1365,13 +1517,16 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
     never run.
     ``merges``: the kinds of the run's merges (``run_main_path``); None
     for a run without channel, faults and objective, where every round
-    with winners merges digitally. A merge launches its kernel once per
-    leaf; the robust merge runs ``delta_norm`` and ``robust_combine``
-    once per leaf for each group (fresh, and stale when there is one);
-    the objective merge runs ``gather_combine`` once per leaf and, when
-    the aggregator carries m / v and a weight is nonzero, ``server_opt``
-    once per leaf. Without faults a round merges when it delivered, or
-    when it had attempts and the objective carries h."""
+    with winners merges digitally. A round's priorities are one
+    ``delta_norm`` call; a merge launches its kernel once per leaf; the
+    robust merge makes one ``delta_norm`` call and runs
+    ``robust_combine`` once per leaf for each group (fresh, and stale
+    when there is one); the objective merge runs ``gather_combine`` once
+    per leaf and, when the aggregator carries m / v and a weight is
+    nonzero, makes one ``server_opt`` call. A call of the two leaf-list
+    kernels is one launch for up to ``max_leaves()`` leaves. Without
+    faults a round merges when it delivered, or when it had attempts and
+    the objective carries h."""
     leaves = len(tree_leaves(engine.global_params))
     steps = engine.backend._nb * engine.spec.local_epochs
     needs_h = engine.backend.objective_needs_h()
@@ -1386,16 +1541,17 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
                              f"{hist.winners} / {hist.delivered}")
     kinds = Counter(merges)
     groups = kinds["robust"] + 2 * kinds["robust+stale"]
-    # one SGD launch a local step takes every leaf (up to max_leaves())
+    # one launch a call takes every leaf (up to max_leaves())
     want = {"fused_sgd": -(-leaves // kfused.max_leaves()) * steps * rounds,
-            "delta_norm": leaves * (rounds + groups),
+            "delta_norm": -(-leaves // kdn.max_leaves()) * (rounds + groups),
             "gather_combine": leaves * (kinds["digital"] + kinds["objective"]
                                         + kinds["objective-empty"]),
             "fedavg_combine": 0,
             **{k: 0 for k in CONTENTION}, LOOP_KERNEL: attempts,
             "aircomp_combine": leaves * kinds["aircomp"],
             "robust_combine": leaves * groups,
-            "server_opt": leaves * kinds["objective"] if server else 0}
+            "server_opt": (-(-leaves // kso.max_leaves()) * kinds["objective"]
+                           if server else 0)}
     if engine.spec.contention_backend == "device" and events < rounds:
         raise AssertionError(f"{name}: {events} contention events in "
                              f"{rounds} rounds")
@@ -1442,7 +1598,8 @@ def phase_main_path(model, rounds, check_accuracy):
     emit(f"main_path_{model}", rounds=rounds, seconds=dt,
          first_round_s=round_s[0], median_later_round_s=steady,
          rounds_per_s=1.0 / steady, launches=launches,
-         launches_per_round={"fused_sgd": steps, "delta_norm": leaves,
+         launches_per_round={"fused_sgd": steps,
+                             "delta_norm": launches["delta_norm"] / rounds,
                              "gather_combine": leaves},
          merged_rounds=merged, collisions=hist.collisions,
          accuracy_first=hist.accuracy[0], accuracy_best=max(hist.accuracy),
@@ -1779,7 +1936,8 @@ def phase_main_path_device(rounds=20):
          events=loop["events"], attempts=loop["attempts"],
          pool_shapes=loop["shapes"],
          launches_per_round={"fused_sgd": steps,
-                             "delta_norm": leaves, "gather_combine": leaves,
+                             "delta_norm": launches["delta_norm"] / rounds,
+                             "gather_combine": leaves,
                              LOOP_KERNEL: loop["attempts"] / rounds},
          merged_rounds=merged, collisions=hist.collisions,
          contention_slots=hist.contention_slots,
@@ -1978,6 +2136,9 @@ def main():
         split = check_combine_split(dtype)
         split["robust_combine"] = check_robust_split(dtype)
         split["fused_sgd"] = check_sgd_leaves(dtype)
+        lists, rel = check_leaf_lists(dtype)
+        split.update(lists)
+        dn_rel = max(dn_rel, rel)
         for k, (e, b) in split.items():
             worst[k][key] = max(worst[k][key], e)
             bit_equal[k] = bit_equal[k] and b
@@ -2019,6 +2180,14 @@ def main():
         timed[label] = bench_kernels(U, shape, dtype, reps, K)
         torch.cuda.empty_cache()
     timed["mlp_sgd_step_U10"] = bench_sgd_step(10, torch.float32, reps=200)
+    for U, dtype, reps in ((10, torch.float32, 200),
+                           (10, torch.bfloat16, 200),
+                           (1024, torch.float32, 10),
+                           (1024, torch.bfloat16, 10)):
+        bf = "_bf16" if dtype == torch.bfloat16 else ""
+        timed[f"delta_norm_U{U}{bf}"] = bench_delta_norm(U, dtype, reps)
+    timed["server_opt"] = bench_server_opt(torch.float32, reps=200)
+    timed["server_opt_bf16"] = bench_server_opt(torch.bfloat16, reps=200)
     timed["cnn_grad_copy_U10"] = bench_grad_copy()
     torch.cuda.empty_cache()
     # the contention passes at the paper cell's pool (1, 10), the 1000-
@@ -2107,8 +2276,11 @@ def main():
                "contention pool, 10 users") for k in CONTENTION},
         LOOP_KERNEL: ("contention_loop_1x512", "one attempt at the (1, 512) "
                       "pool of a 1000-user, k = 64 round"),
-        "server_opt": ("mlp_fc1w_U10", "f32 (784, 200): the MLP's fc1.w "
-                       "leaf, FedAdam")}
+        "delta_norm": ("delta_norm_U10", "f32: the MLP's four stacked "
+                       "leaves at 10 users, one launch (a round's "
+                       "priorities)"),
+        "server_opt": ("server_opt", "f32: the MLP's four leaves, FedAdam, "
+                       "one launch (an objective merge)")}
     for name, meta in KERNELS.items():
         integer = name in CONTENTION or name == LOOP_KERNEL
         launches = path_of.get(name, l_mlp)[name]
@@ -2117,7 +2289,8 @@ def main():
         entry, where = timed_at.get(name, (
             "mlp_fc1w_U10", "f32 (10, 784, 200): the MLP's fc1.w leaf, 10 "
             "users"))
-        t = timed[entry] if name == LOOP_KERNEL else timed[entry][name]
+        t = timed[entry] if name == LOOP_KERNEL else timed[entry][
+            "mlp" if name in ("delta_norm", "server_opt") else name]
         record.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches,

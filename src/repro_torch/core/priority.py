@@ -9,8 +9,8 @@ land in [1, 1.2] in practice.
 
 The reduction streams every parameter once per model pair; its inner
 ``||w_k - w||^2, ||w||^2`` pass is the ``delta_norm`` CUDA kernel
-(``repro_torch.kernels``), with the plain PyTorch version for tensors
-on the CPU.
+(``repro_torch.kernels``), ONE launch for every leaf of the model, with
+the plain PyTorch version for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -33,18 +33,24 @@ def _ratio(d2, g2):
     return torch.clamp(ratio, max=1.0)
 
 
-def layer_distance_ratios(local_params, global_params):
-    """Per-leaf relative distances ||w_k,l - w_l|| / ||w_l||.
-
-    Returns a list of scalar f32 tensors, one per leaf (layer); leaves
-    are paired by tree structure.
-    """
+def _leaf_pairs(local_params, global_params):
     local_leaves = tree_leaves(local_params)
     global_leaves = tree_leaves(global_params)
     if len(local_leaves) != len(global_leaves):
         raise ValueError("local and global pytrees differ in leaf count")
-    return [_ratio(*kops.delta_norm(wl, wg))
-            for wl, wg in zip(local_leaves, global_leaves)]
+    return local_leaves, global_leaves
+
+
+def layer_distance_ratios(local_params, global_params):
+    """Per-leaf relative distances ||w_k,l - w_l|| / ||w_l||.
+
+    Returns a list of scalar f32 tensors, one per leaf (layer); leaves
+    are paired by tree structure. One ``delta_norm_leaves`` call.
+    """
+    local_leaves, global_leaves = _leaf_pairs(local_params, global_params)
+    d2, g2 = kops.delta_norm_leaves([w.unsqueeze(0) for w in local_leaves],
+                                    global_leaves)
+    return list(_ratio(d2[:, 0], g2).unbind(0))
 
 
 def _product(ratios, like):
@@ -62,17 +68,15 @@ def model_priority(local_params, global_params):
 
 def stacked_model_priorities(local_stacked, global_params):
     """Eq. (2) over a (S, ...)-stacked pytree of local models — the
-    vectorized twin of ``model_priority``: ONE batched ``delta_norm``
-    per leaf over the whole ``(S, n)`` stack against the ``(n,)``
-    global (no loop over users). Returns (S,) f32."""
-    local_leaves = tree_leaves(local_stacked)
-    global_leaves = tree_leaves(global_params)
-    if len(local_leaves) != len(global_leaves):
-        raise ValueError("local and global pytrees differ in leaf count")
+    vectorized twin of ``model_priority``: ONE ``delta_norm_leaves`` call
+    over every leaf's whole ``(S, n)`` stack against its ``(n,)`` global
+    (no loop over users or leaves), then the per-leaf ratios and their
+    f32 product in leaf order. Returns (S,) f32."""
+    local_leaves, global_leaves = _leaf_pairs(local_stacked, global_params)
     with torch.no_grad():
-        ratios = [_ratio(*kops.delta_norm_stacked(wl, wg))
-                  for wl, wg in zip(local_leaves, global_leaves)]
-        return _product(ratios, ratios[0])
+        d2, g2 = kops.delta_norm_leaves(local_leaves, global_leaves)
+        ratios = _ratio(d2, g2[:, None])
+        return _product(ratios.unbind(0), ratios[0])
 
 
 def contention_window(priority, N: float):

@@ -15,18 +15,19 @@ One implementation so far:
                into the batch axis, every user's local SGD run over the
                stacked ``(U, ...)`` cohort (``fused_sgd`` kernel, one
                launch per step for every leaf), Eq. 2 priorities from the
-               trained stack (``delta_norm`` kernel, one launch per
-               leaf), and ONE Eq. 1 merge a round in delivery order,
-               one launch per leaf, in one of four forms:
+               trained stack (``delta_norm`` kernel, one launch for
+               every leaf), and ONE Eq. 1 merge a round in delivery
+               order, one launch per leaf, in one of four forms:
 
                  * digital (no context): a gather-K reduction
                    (``gather_combine``);
                  * objective (a non-plain ``ObjectiveSpec``): the same
                    reduction, then the FedAvgM / FedAdam server step on
-                   the pseudo-gradient (``server_opt_combine``, skipped
-                   on a merge with no delivered weight), then the FedDyn
-                   h update over the round's attempt winners; the local
-                   step runs the FedProx / FedDyn gradient law
+                   the pseudo-gradient (``server_opt_leaves``, one launch
+                   for every leaf, skipped on a merge with no delivered
+                   weight), then the FedDyn h update over the round's
+                   attempt winners; the local step runs the FedProx /
+                   FedDyn gradient law
                    (``objectives.local.objective_epoch_scan``);
                  * AirComp (``merge_ctx``, the channel layer's
                    over-the-air merge): the same reduction under the
@@ -35,7 +36,8 @@ One implementation so far:
                    (``aircomp_combine``);
                  * robust (``fault_ctx``, the fault layer's guard): the
                    candidates' rows gathered once, their delta norms
-                   (``delta_norm``), then the quarantine / clip / shrink
+                   (``delta_norm``, one launch for every leaf of a group),
+                   then the quarantine / clip / shrink
                    merge of ``faults.robust.robust_merge``
                    (``robust_combine``, once per leaf for the fresh group
                    and once more for a stale group).
@@ -81,7 +83,7 @@ from repro_torch.faults.robust import robust_merge
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.contention import counter_key, counter_uniform53
 from repro_torch.objectives.local import objective_epoch_scan
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -569,8 +571,8 @@ class HostBackend(Backend):
     def _objective_merge(self, state, trained, idx, w, w_host, attempts):
         """Objective twin of ``_fused_merge``: the FedDyn h update over the
         round's ATTEMPT winners, then the shared Eq. 1 average, then the
-        server step on the pseudo-gradient (``server_opt_combine``) when
-        the aggregator carries m/v, then the shared restack.
+        server step on the pseudo-gradient (``server_opt_leaves``, one
+        launch for every leaf) when the aggregator carries m/v, then the shared restack.
 
         The h update ``h_u <- h_u - alpha * (w_u^end - w_glob)`` reads
         only the trained rows of the attempt winners (row = user id on
@@ -601,14 +603,13 @@ class HostBackend(Backend):
                     self._obj_m = tree_map(torch.zeros_like, state)
                     self._obj_v = tree_map(torch.zeros_like, state)
                 if np.any(w_host != 0.0):
-                    consts = obj.server_consts()
-                    out = tree_map(
-                        lambda a, o, m, v: kops.server_opt_combine(
-                            a, o, m, v, consts),
-                        new_glob, state, self._obj_m, self._obj_v)
-                    new_glob = tree_map(lambda r: r[0], out)
-                    self._obj_m = tree_map(lambda r: r[1], out)
-                    self._obj_v = tree_map(lambda r: r[2], out)
+                    outs, ms, vs = kops.server_opt_leaves(
+                        tree_leaves(new_glob), tree_leaves(state),
+                        tree_leaves(self._obj_m), tree_leaves(self._obj_v),
+                        obj.server_consts())
+                    new_glob = tree_unflatten(state, outs)
+                    self._obj_m = tree_unflatten(state, ms)
+                    self._obj_v = tree_unflatten(state, vs)
             new_stack = self._restack(new_glob, trained)
         return new_glob, new_stack
 

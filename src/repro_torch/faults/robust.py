@@ -56,12 +56,12 @@ class FaultMergeContext:
 
 def row_delta_normsq(stack, glob):
     """(K,) f32 ``Σ_leaves ||row_k − g||²`` over a stacked pytree: one
-    ``delta_norm_stacked`` launch per leaf over its (K, ...) rows, the
+    ``delta_norm_leaves`` call over every leaf's (K, ...) rows, the
     per-leaf sums added in leaf order."""
-    tot = None
-    for rows, g in zip(tree_leaves(stack), tree_leaves(glob)):
-        d2, _ = kops.delta_norm_stacked(rows, g)
-        tot = d2 if tot is None else tot + d2
+    d2, _ = kops.delta_norm_leaves(tree_leaves(stack), tree_leaves(glob))
+    tot = d2[0]
+    for leaf_d2 in d2[1:]:
+        tot = tot + leaf_d2
     return tot
 
 

@@ -42,8 +42,9 @@ SIGNATURES = {
         "repro_fused_sgd_leaves": (_P, _P, _P, _I, _F, _I, _P),
     },
     "delta_norm": {
-        "repro_delta_norm_blocks": (_LL,),
-        "repro_delta_norm": (_P, _P, _P, _P, _I, _LL, _I, _P),
+        "repro_delta_norm_max_leaves": (),
+        "repro_delta_norm_leaves": (_P, _P, _P, _I, _I, _P, _P, _LL, _P, _LL,
+                                    _I, _P),
     },
     "combine": {
         "repro_combine_max_k": (),
@@ -63,8 +64,9 @@ SIGNATURES = {
                                   _I, _I, _I, _U64, _P),
     },
     "server_opt": {
-        "repro_server_opt": (_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
-                             _LL, _I, _P),
+        "repro_server_opt_max_leaves": (),
+        "repro_server_opt_leaves": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                    _I, _P),
     },
 }
 

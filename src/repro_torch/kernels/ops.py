@@ -15,13 +15,15 @@ show that a path really went through the kernels.
 
 Kernels, one wrapper each: ``fused_sgd_leaves`` (the local step, every
 leaf in one launch; ``fused_sgd`` is its one-leaf case),
-``delta_norm`` / ``delta_norm_stacked`` (Eq. 2 and the fault guard's
-clip), ``gather_combine`` and ``fedavg_combine`` (Eq. 1),
+``delta_norm_leaves`` (Eq. 2 and the fault guard's clip, every leaf in
+one launch; ``delta_norm`` / ``delta_norm_stacked`` are its one-leaf
+cases), ``gather_combine`` and ``fedavg_combine`` (Eq. 1),
 ``aircomp_combine`` / ``aircomp_combine_weighted`` (the channel layer's
 over-the-air merge, from alphas or from weights formed once a merge),
 ``robust_combine`` (the fault layer's guarded merge),
-``server_opt_combine`` (the objectives layer's FedAvgM / FedAdam server
-step), ``contention_loop`` (a whole CSMA contention attempt, the
+``server_opt_leaves`` (the objectives layer's FedAvgM / FedAdam server
+step, every leaf in one launch; ``server_opt_combine`` is its one-leaf
+case), ``contention_loop`` (a whole CSMA contention attempt, the
 persistent event-loop kernel) and ``contention_event`` (the three
 per-event CSMA passes).
 
@@ -43,13 +45,12 @@ from repro_torch.kernels.contention import (_contend_device,
                                             contention_min_cuda,
                                             contention_transition_cuda,
                                             counter_uniform)
-from repro_torch.kernels.delta_norm import delta_norm_cuda
+from repro_torch.kernels import delta_norm as kdn, server_opt as kso
 from repro_torch.kernels.fedavg import fedavg_cuda
 from repro_torch.kernels.fused_sgd import (fused_sgd_leaves_cuda_,
                                            max_leaves as fused_sgd_max_leaves)
 from repro_torch.kernels.gather import gather_combine_cuda
 from repro_torch.kernels.robust import robust_cuda
-from repro_torch.kernels.server_opt import server_opt_cuda
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"fused_sgd": 0, "delta_norm": 0,
@@ -83,6 +84,29 @@ def _check_idx(idx, S, name):
             raise IndexError(f"{name}: idx outside [0, {S})")
 
 
+def delta_norm_leaves(stacks, globs):
+    """Eq. 2's reduction for every leaf of a model at once: ``stacks[l]``
+    (U, ...) against ``globs[l]`` (...) -> ``(d2 (L, U), g2 (L,))`` f32,
+    ``d2[l, u] = ||stacks[l][u] - globs[l]||^2``, ``g2[l] =
+    ||globs[l]||^2``. One U, dtype and device for the list. On CUDA
+    tensors it is ONE launch for up to ``max_leaves()`` (32) leaves; on
+    CPU tensors the plain version, leaf by leaf."""
+    stacks, globs = list(stacks), list(globs)
+    kdn.check_leaves(stacks, globs)
+    if not stacks[0].is_cuda:
+        return ref.delta_norm_leaves_ref(stacks, globs)
+    step = kdn.max_leaves()
+    parts = []
+    for i in range(0, len(stacks), step):
+        parts.append(kdn.delta_norm_leaves_cuda(stacks[i:i + step],
+                                                globs[i:i + step]))
+        LAUNCHES["delta_norm"] += 1
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([d2 for d2, _ in parts]),
+            torch.cat([g2 for _, g2 in parts]))
+
+
 def delta_norm(w_local, w_global):
     """(||w_local - w_global||^2, ||w_global||^2) as two f32 scalars;
     operands of equal shape (the reference's two-operand entry)."""
@@ -92,19 +116,17 @@ def delta_norm(w_local, w_global):
             f"{tuple(w_global.shape)}); use delta_norm_stacked for a "
             "(U, ...) stack")
     if w_local.is_cuda:
-        d2, g2 = delta_norm_cuda(w_local.unsqueeze(0), w_global)
-        LAUNCHES["delta_norm"] += 1
-        return d2[0], g2
+        d2, g2 = delta_norm_leaves([w_local.unsqueeze(0)], [w_global])
+        return d2[0, 0], g2[0]
     return ref.delta_norm_ref(w_local, w_global)
 
 
 def delta_norm_stacked(stack, w_global):
-    """Eq. 2's reduction for a whole cohort in ONE launch: ``stack``
-    (U, ...) against ``w_global`` (...) -> ``(d2 (U,), g2 ())`` f32."""
+    """``delta_norm_leaves`` of one leaf: ``stack`` (U, ...) against
+    ``w_global`` (...) -> ``(d2 (U,), g2 ())`` f32."""
     if stack.is_cuda:
-        out = delta_norm_cuda(stack, w_global)
-        LAUNCHES["delta_norm"] += 1
-        return out
+        d2, g2 = delta_norm_leaves([stack], [w_global])
+        return d2[0], g2[0]
     return ref.delta_norm_stacked_ref(stack, w_global)
 
 
@@ -213,20 +235,44 @@ def robust_combine(stacked, weights, scales, global_ref):
     return ref.robust_combine_ref(stacked, w, s, global_ref)
 
 
-def server_opt_combine(avg, old, m, v, consts):
+def server_opt_leaves(avgs, olds, ms, vs, consts):
     """The server aggregator step after Eq. 1 (see
-    ``ref.server_opt_combine_ref``): ``(new_global, m', v')`` from the
-    merged average ``avg``, the round-start global ``old`` and the
-    server-opt state ``m``, ``v`` (one shape). ``consts``: the five host
-    values ``[kind, beta1, beta2, server_lr, eps]`` (numpy, a sequence
-    or a CPU tensor) — the kernel takes them by value, so no merge reads
-    a device scalar. Returns fresh tensors."""
+    ``ref.server_opt_combine_ref``) for every leaf of the global:
+    ``(new_globals, m's, v's)``, one list each, from the merged averages
+    ``avgs``, the round-start global ``olds`` and the server-opt state
+    ``ms``, ``vs`` (the four operands of a leaf of one shape; one dtype
+    and device for the list). ``consts``: the five host values ``[kind,
+    beta1, beta2, server_lr, eps]`` (numpy, a sequence or a CPU tensor)
+    — the kernel takes them by value, so no merge reads a device scalar.
+    Returns fresh tensors. On CUDA tensors it is ONE launch for up to
+    ``max_leaves()`` (32) leaves; on CPU tensors the plain version, leaf
+    by leaf."""
+    avgs, olds, ms, vs = (list(x) for x in (avgs, olds, ms, vs))
     c = np.asarray(consts, np.float32)
-    if avg.is_cuda:
-        out = server_opt_cuda(avg, old, m, v, c)
-        LAUNCHES["server_opt"] += 1
+    if c.shape != (5,):
+        raise ValueError(f"server_opt: consts must be (5,), got {c.shape}")
+    kso.check_leaves(avgs, olds, ms, vs)
+    if avgs[0].is_cuda:
+        out = ([], [], [])
+        step = kso.max_leaves()
+        for i in range(0, len(avgs), step):
+            part = kso.server_opt_leaves_cuda(
+                avgs[i:i + step], olds[i:i + step], ms[i:i + step],
+                vs[i:i + step], c)
+            LAUNCHES["server_opt"] += 1
+            for acc, p in zip(out, part):
+                acc.extend(p)
         return out
-    return ref.server_opt_combine_ref(avg, old, m, v, torch.from_numpy(c))
+    ct = torch.from_numpy(c)
+    rows = [ref.server_opt_combine_ref(a, o, m, v, ct)
+            for a, o, m, v in zip(avgs, olds, ms, vs)]
+    return tuple([r[i] for r in rows] for i in range(3))
+
+
+def server_opt_combine(avg, old, m, v, consts):
+    """``server_opt_leaves`` of one leaf: ``(new_global, m', v')``."""
+    outs, nms, nvs = server_opt_leaves([avg], [old], [m], [v], consts)
+    return outs[0], nms[0], nvs[0]
 
 
 def fused_sgd_leaves(params, grads, lr):

@@ -27,6 +27,15 @@ def delta_norm_stacked_ref(stack, w_global):
     return d2, torch.sum(wg * wg)
 
 
+def delta_norm_leaves_ref(stacks, globs):
+    """Every leaf at once: ``stacks[l]`` (U, ...) against ``globs[l]``
+    (...) -> ``(d2 (L, U), g2 (L,))`` f32, ``delta_norm_stacked_ref``
+    leaf by leaf."""
+    d2, g2 = zip(*(delta_norm_stacked_ref(s, g)
+                   for s, g in zip(stacks, globs)))
+    return torch.stack(d2), torch.stack(g2)
+
+
 def _ordered_masked_sum(rows, weights):
     """sum_j w_j * rows[j] in f32, j = 0, 1, ... IN ORDER, each product
     and each addition rounded separately; a zero weight contributes

@@ -1,10 +1,16 @@
 """CUDA kernel binding: the objectives layer's server aggregator step
-(FedAvgM / FedAdam on the pseudo-gradient ``d = old - avg``).
+(FedAvgM / FedAdam on the pseudo-gradient ``d = old - avg``) for every
+leaf of the global.
 
 Counterpart of ``repro/kernels/server_opt.py``; the kernel is
-``csrc/server_opt.cu``. One launch per leaf of the global.
+``csrc/server_opt.cu``. One launch covers up to ``max_leaves()`` leaves;
+their pointers and sizes, and the five constants, go to the kernel by
+value.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -13,29 +19,56 @@ from repro_torch.kernels.build import (check_launch, dtype_code,
                                        launch_stream, library)
 
 
-def server_opt_cuda(avg: torch.Tensor, old: torch.Tensor, m: torch.Tensor,
-                    v: torch.Tensor, consts: np.ndarray):
-    """``avg``, ``old``, ``m``, ``v``: one shape and dtype (f32/bf16),
-    contiguous, on one CUDA device; ``consts``: five host f32 values
-    ``[kind, beta1, beta2, server_lr, eps]``, passed by value. Returns
-    fresh ``(out, m', v')``."""
-    for name, t in (("avg", avg), ("old", old), ("m", m), ("v", v)):
-        if not t.is_cuda or t.device != avg.device:
-            raise ValueError(f"server_opt: {name} is not on {avg.device}")
-        if t.shape != avg.shape or t.dtype != avg.dtype:
-            raise ValueError(
-                f"server_opt: {name} {tuple(t.shape)} {t.dtype} vs avg "
-                f"{tuple(avg.shape)} {avg.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("server_opt: operands must be contiguous")
-    c = np.asarray(consts, np.float32)
-    if c.shape != (5,):
-        raise ValueError(f"server_opt: consts must be (5,), got {c.shape}")
-    code = dtype_code(avg.dtype)
-    out, nm, nv = (torch.empty_like(avg) for _ in range(3))
-    rc = library("server_opt").repro_server_opt(
-        avg.data_ptr(), old.data_ptr(), m.data_ptr(), v.data_ptr(),
-        out.data_ptr(), nm.data_ptr(), nv.data_ptr(), *map(float, c),
-        avg.numel(), code, launch_stream(avg))
+def max_leaves() -> int:
+    """The most leaves one launch takes (a longer list takes more)."""
+    return library("server_opt").repro_server_opt_max_leaves()
+
+
+def check_leaves(avgs: Sequence[torch.Tensor], olds: Sequence[torch.Tensor],
+                 ms: Sequence[torch.Tensor],
+                 vs: Sequence[torch.Tensor]) -> None:
+    """Raise unless the four lists pair up leaf by leaf: equal lengths,
+    at least one leaf, the four operands of a leaf of one shape, one
+    dtype and one device for the list."""
+    if not avgs or not len(avgs) == len(olds) == len(ms) == len(vs):
+        raise ValueError(f"server_opt: {len(avgs)} / {len(olds)} / "
+                         f"{len(ms)} / {len(vs)} leaves (at least one, "
+                         "equal counts)")
+    dev, dt = avgs[0].device, avgs[0].dtype
+    for leaf in zip(avgs, olds, ms, vs):
+        for name, t in zip(("avg", "old", "m", "v"), leaf):
+            if t.shape != leaf[0].shape or t.dtype != dt or t.device != dev:
+                raise ValueError(
+                    f"server_opt: {name} {tuple(t.shape)} {t.dtype} "
+                    f"{t.device} vs avg {tuple(leaf[0].shape)} (the list "
+                    f"is {dt} on {dev})")
+
+
+def server_opt_leaves_cuda(avgs: Sequence[torch.Tensor],
+                           olds: Sequence[torch.Tensor],
+                           ms: Sequence[torch.Tensor],
+                           vs: Sequence[torch.Tensor], consts: np.ndarray):
+    """ONE launch over 1 to ``max_leaves()`` leaves: ``avgs[l]``,
+    ``olds[l]``, ``ms[l]``, ``vs[l]`` of one shape, contiguous, one dtype
+    (f32/bf16) and CUDA device for the list; ``consts``: five host f32
+    values ``[kind, beta1, beta2, server_lr, eps]``, passed by value.
+    Returns fresh ``(outs, m's, v's)``, one list each."""
+    check_leaves(avgs, olds, ms, vs)
+    L, dev = len(avgs), avgs[0].device
+    if L > max_leaves() or dev.type != "cuda":
+        raise ValueError(f"server_opt: {L} leaves on {dev}; one launch "
+                         f"takes 1 to {max_leaves()} CUDA leaves")
+    if not all(t.is_contiguous() for ts in (avgs, olds, ms, vs) for t in ts):
+        raise ValueError("server_opt: operands must be contiguous")
+    c = np.ascontiguousarray(consts, np.float32)
+    outs = [[torch.empty_like(a) for a in avgs] for _ in range(3)]
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * L)(*(t.data_ptr() for t in ts))
+
+    rc = library("server_opt").repro_server_opt_leaves(
+        ptrs(avgs), ptrs(olds), ptrs(ms), ptrs(vs), *map(ptrs, outs),
+        (ctypes.c_longlong * L)(*(a.numel() for a in avgs)), L,
+        c.ctypes.data, dtype_code(avgs[0].dtype), launch_stream(avgs[0]))
     check_launch(rc, "server_opt")
-    return out, nm, nv
+    return tuple(outs)

@@ -28,3 +28,14 @@ def tree_map(fn, tree, *rest):
         return {k: tree_map(fn, tree[k], *(o[k] for o in rest))
                 for k in sorted(tree)}
     return fn(tree, *rest)
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s dict structure holding ``leaves`` (in
+    ``tree_leaves`` order) — the inverse of ``tree_leaves``."""
+    leaves = list(leaves)
+    if len(leaves) != len(tree_leaves(tree)):
+        raise ValueError(f"tree_unflatten: {len(leaves)} leaves for a tree "
+                         f"of {len(tree_leaves(tree))}")
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)

@@ -333,6 +333,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     x = arr_t(_normal(15, (4, 33)))
     tops.delta_norm(x[0], x[1])
     tops.delta_norm_stacked(x, x[0])
+    tops.delta_norm_leaves([x, x[:, :5].contiguous()], [x[0], x[0, :5]])
     tops.fedavg_combine(x, _alphas(16, 4))
     tops.gather_combine(x, np.array([1, 2], np.int32),
                         np.array([0.5, 0.5], np.float32), x[0])
@@ -348,6 +349,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tops.robust_combine(x, _alphas(20, 4), np.ones(4), x[0])
     tops.server_opt_combine(x[0], x[1], x[2], x[3].abs(),
                             [2, 0.9, 0.99, 0.1, 1e-3])
+    tops.server_opt_leaves([x[0], x[1]], [x[1], x[2]], [x[2], x[3]],
+                           [x[3].abs(), x[0].abs()], [2, 0.9, 0.99, 0.1, 1e-3])
     assert tops.LAUNCHES == {"fused_sgd": 0, "delta_norm": 0,
                              "gather_combine": 0, "fedavg_combine": 0,
                              "contention_min": 0, "contention_expiry": 0,
