@@ -29,7 +29,11 @@ without CUDA (there is no CPU path here). It
      leaf) on the MLP's and the CNN's leaf lists at 10 and 1024 users, a
      ragged list with skewed operands and a 40-leaf list (two launches),
      the reduction bit-identical run to run and the server step bit-equal
-     in every kind; the
+     in every kind; the SGD step and the Eq. 2 reduction on the MLP's and
+     the CNN's leaf lists at the stacked, ragged and partial-cohort
+     widths U = 1, 2 and 64, and the gather, AirComp (no ``idx``) and
+     robust merges over (m, ...) stacks of every leaf whose every row is
+     a winner, m = 1, 2, 64; the
      three contention passes bit for bit at every (B, M) pool
      shape the contention loop runs on, with forced expiry ties, dead
      lanes and rows with no live lane — and times kernel, plain version
@@ -63,12 +67,19 @@ without CUDA (there is no CPU path here). It
      objectives layer on the MLP cell, 20 rounds each: FedDyn + FedAvgM
      under the lossy channel (rounds with attempts and no deliveries
      still update h) and FedProx + FedAdam, and FedDyn + FedAvgM at
-     1000 users for 3 rounds — with the launch counts set to zero just
-     before each path and read just after;
+     1000 users for 3 rounds; then the per-round fallback paths on the
+     MLP cell: ``--round-mode stacked`` for 20 rounds,
+     ``random-centralized`` (partial-cohort rounds: only the two winners
+     train, as one stack) for 20, the same at 1000 users and 64 winners
+     for 3, and an uneven cohort (odd users 40 examples short, so nothing
+     stacks: every user trains on its own) for 10 — with the launch counts
+     set to zero just before each path and read just after;
   5. checks the result by the repository's own means: the pinned
      winners of ``tests/winner_pins.json``, the card against the CPU run
      of the same rounds (channel, AirComp with and without receiver
-     noise, fault and active-objective lanes included; the noisy AirComp
+     noise, fault and active-objective lanes included, and the stacked,
+     ragged and ``random-centralized`` lanes, seeds 0 and 1, the stacked
+     one also with the lossy channel, the faults and noisy AirComp; the noisy AirComp
      lane also through the default counter-based noise draw on each
      side), inert
      objectives bit-equal to the plain run on the card,
@@ -108,10 +119,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.channel import ChannelSpec               # noqa: E402
+from repro_torch.core import client as fl_client          # noqa: E402
 from repro_torch.core import server as fl_server          # noqa: E402
 from repro_torch.core.csma import CSMAConfig, CSMASimulator  # noqa: E402
 from repro_torch.engine import (ExperimentSpec, FLHistory,  # noqa: E402
                                 build_host_engine)
+from repro_torch.engine import backends as fl_backends     # noqa: E402
 from repro_torch.engine.backends import (aircomp_noise,  # noqa: E402
                                          compact_weights)
 from repro_torch.faults import FaultSpec                  # noqa: E402
@@ -550,17 +563,28 @@ def check_combine_split(dtype):
     return {k: (v, True) for k, v in err.items()}
 
 
+#: the cohort widths the stacked, ragged and partial-cohort rounds hand the
+#: training kernels: U = 1 (a ragged user, a one-winner round), 2
+#: (random-centralized at k = 2) and 64 (random-centralized at k = 64),
+#: and the merges' row counts S = m there (every row a winner)
+SMALL_U = (1, 2, 64)
+
+
 def check_sgd_leaves(dtype):
     """The multi-leaf SGD step against the plain version leaf by leaf,
     bit for bit: the MLP's four stacked leaves at U = 10 (aligned, one
-    launch), a list of ragged and skewed leaves, and 40 leaves (two
-    launches). Returns (worst error, True)."""
+    launch), the MLP's and the CNN's at U = 1, 2, 64 (``SMALL_U``), a
+    list of ragged and skewed leaves, and 40 leaves (two launches).
+    Returns (worst error, True)."""
     mlp = [(10, 200), (10, 784, 200), (10, 10), (10, 200, 10)]
     ragged = [(3,), (10,), (2, 7), (4, 130), (10, 784, 200), (1,), (4097,)]
     many = [(int(k) % 7 + 1, 33 * (int(k) % 5) + 8) for k in range(40)]
     err = 0.0
-    for label, shapes, skew in (("mlp", mlp, ()), ("ragged", ragged, (1, 4)),
-                                ("40 leaves", many, (5, 17))):
+    for label, shapes, skew in (
+            ("mlp", mlp, ()), ("ragged", ragged, (1, 4)),
+            ("40 leaves", many, (5, 17)),
+            *((f"{m} U={U}", [(U,) + sh for sh in model_leaves(m)], ())
+              for m in ("mlp", "cnn") for U in SMALL_U)):
         ps = [randn(300 + i, sh, dtype) for i, sh in enumerate(shapes)]
         gs = [randn(400 + i, sh, dtype) for i, sh in enumerate(shapes)]
         for i in skew:
@@ -590,8 +614,9 @@ MANY_LEAVES = [(k % 7 + 1, 33 * (k % 5) + 8) for k in range(40)]
 def check_leaf_lists(dtype):
     """The two leaf-list kernels against their plain versions, leaf by
     leaf. ``delta_norm_leaves`` (rtol 1e-5, and two runs bit-identical)
-    on the MLP's and the CNN's stacked leaves at U = 10 and U = 1024, a
-    ragged list with skewed operands and 40 leaves (two launches);
+    on the MLP's and the CNN's stacked leaves at U = 10, U = 1024 and
+    ``SMALL_U``, a ragged list with skewed operands and 40 leaves (two
+    launches);
     ``server_opt_leaves`` bit-equal in every kind on the MLP's and the
     CNN's leaves, the ragged list skewed and the 40 leaves, the inert
     settings passing avg's bits through. Both raise on any failure.
@@ -606,7 +631,9 @@ def check_leaf_lists(dtype):
             ("cnn", model_leaves("cnn"), 10, ()),
             ("cnn", model_leaves("cnn"), 1024, ()),
             ("ragged", RAGGED_LEAVES, 5, (1, 5)),
-            ("40 leaves", MANY_LEAVES, 3, (2, 30))):
+            ("40 leaves", MANY_LEAVES, 3, (2, 30)),
+            *((m, model_leaves(m), U, ()) for m in ("mlp", "cnn")
+              for U in SMALL_U)):
         st = [randn_dev(800 + i, (U,) + sh, dtype)
               for i, sh in enumerate(shapes)]
         gl = [randn_dev(900 + i, sh, dtype) for i, sh in enumerate(shapes)]
@@ -670,6 +697,55 @@ def check_leaf_lists(dtype):
     # server_opt bit-equal or it raised
     return ({"delta_norm": (worst["delta_norm"], False),
              "server_opt": (worst["server_opt"], True)}, worst_rel)
+
+
+
+
+def check_winner_stacks(dtype):
+    """The gather merge of the stacked, ragged and partial-cohort rounds:
+    over (m, ...) stacks of every MLP and CNN leaf whose every row is a
+    winner, m = 1, 2, 64 (``SMALL_U``), ``gather_combine`` (positions in
+    a delivery order, padded to k_pad = max(m, 2) as the k = 2 merge
+    pads a one-winner round), ``aircomp_combine`` with ``idx=None`` and a
+    noise plane, and ``robust_combine``, each bit-equal to its plain
+    version or it raises. Returns {kernel: (worst abs error, True)}."""
+    err = {"gather_combine": 0.0, "aircomp_combine": 0.0,
+           "robust_combine": 0.0}
+    tag = str(dtype)[6:]
+    for model in ("mlp", "cnn"):
+        for m in SMALL_U:
+            seed = 1200 + 10 * m
+            rng = np.random.default_rng(seed)
+            a = rng.uniform(0.1, 1.0, m)
+            a = (a / a.sum()).astype(np.float32)
+            k_pad = max(m, 2)
+            idx = np.zeros(k_pad, np.int32)
+            idx[:m] = rng.permutation(m)
+            w = np.zeros(k_pad, np.float32)
+            w[:m] = a
+            c = rng.uniform(0.3, 1.0, m).astype(np.float32)
+            sc = rng.uniform(0.1, 1.0, m).astype(np.float32)
+            sc[0] = 1.0
+            idx, w, a, c, sc = (torch.from_numpy(v).to(DEV)
+                                for v in (idx, w, a, c, sc))
+            w_air, scale = ops.aircomp_weights(a, c, DEV)
+            for l, sh in enumerate(model_leaves(model)):
+                x = randn_dev(seed + l, (m,) + sh, dtype)
+                g = randn_dev(seed + 100 + l, sh, dtype)
+                noise = randn_dev(seed + 200 + l, sh, torch.float32) * 0.05
+                name = f"m={m} {model} leaf {l} {tag}"
+                for kernel, got, want in (
+                        ("gather_combine", ops.gather_combine(x, idx, w, g),
+                         ref.gather_combine_ref(x, idx, w, g)),
+                        ("aircomp_combine",
+                         ops.aircomp_combine(x, a, c, noise),
+                         ref.aircomp_combine_ref(x, w_air, noise, scale[0])),
+                        ("robust_combine", ops.robust_combine(x, a, sc, g),
+                         ref.robust_combine_ref(x, a, sc, g))):
+                    err[kernel] = max(err[kernel], bit_check(
+                        f"{kernel} {name}", got, want, dtype))
+        torch.cuda.empty_cache()
+    return {k: (v, True) for k, v in err.items()}
 
 
 def check_robust_split(dtype):
@@ -1416,7 +1492,7 @@ def paper_args(*extra):
 
 
 def run_main_path(model, rounds, *extra, split=None, merges=None,
-                  finite=None, h_moved=None, **spec):
+                  finite=None, h_moved=None, engine=None, **spec):
     """The paper's cell (``extra`` appends command-line flags, ``spec``
     replaces spec fields the command line has no flag for: ``channel``,
     ``faults``, ``merge_backend``, ``objective``) through
@@ -1424,23 +1500,35 @@ def run_main_path(model, rounds, *extra, split=None, merges=None,
     (history, engine, seconds, launches, per-round seconds, contention
     events). The engine evaluates after every round, so the clock is read
     inside its eval callback, after a synchronize. A ``split`` dict
-    collects the seconds spent in training and in selection; a ``merges``
+    collects the seconds spent in training (``train_round``; within it
+    the SGD loop over the stack, ``sgd``, and the host's batch draws and
+    gathers, ``batch_epoch``), in selection (``select``) and in the
+    merge (``merge``); a ``merges``
     list the kind of each merge the engine asks for ("digital",
     "aircomp", "robust", "robust+stale", "objective", and
     "objective-empty" for an objective merge with attempts but no
     deliveries); an ``h_moved`` list, for each "objective-empty" merge
     of an h-carrying objective, whether the merge changed the attempt
     winners' FedDyn h rows; a ``finite`` list whether every leaf of the
-    global was finite after each round."""
-    engine = launch_train.build_paper_engine(
-        paper_args("--model", model, "--rounds", str(rounds), *extra),
-        **spec)
+    global was finite after each round. ``engine``, when given, is run
+    instead of the cell the arguments name."""
+    if engine is None:
+        engine = launch_train.build_paper_engine(
+            paper_args("--model", model, "--rounds", str(rounds), *extra),
+            **spec)
     inner, stamps, marks = engine.eval_fn, [], []
+    drawn = (fl_backends, fl_client)
+    batch_epoch = [m.batch_epoch for m in drawn]
     if split is not None:
-        for obj, attr in ((engine.backend, "train_round"),
-                          (engine.strategy, "select")):
-            split[attr] = 0.0
-            setattr(obj, attr, _timed(getattr(obj, attr), split, attr))
+        for obj, attr, key in ((engine.backend, "train_round", "train_round"),
+                               (engine.backend, "_epoch_run", "sgd"),
+                               (engine.strategy, "select", "select"),
+                               (engine.backend, "merge", "merge")):
+            split[key] = 0.0
+            setattr(obj, attr, _timed(getattr(obj, attr), split, key))
+        split["batch_epoch"] = 0.0
+        for m, fn in zip(drawn, batch_epoch):
+            m.batch_epoch = _timed(fn, split, "batch_epoch", sync=False)
     if merges is not None:
         inner_merge = engine.backend.merge
 
@@ -1484,7 +1572,11 @@ def run_main_path(model, rounds, *extra, split=None, merges=None,
     ops.reset_launches()                      # just before the main path
     kcont.reset_loop_stats()
     t0 = time.perf_counter()
-    hist = engine.run()
+    try:
+        hist = engine.run()
+    finally:
+        for m, fn in zip(drawn, batch_epoch):
+            m.batch_epoch = fn
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)             # just after it
@@ -1498,15 +1590,58 @@ def run_main_path(model, rounds, *extra, split=None, merges=None,
     return hist, engine, dt, launches, round_s, loop
 
 
-def _timed(fn, split, key):
+def _timed(fn, split, key, sync=True):
+    """``fn`` adding its seconds to ``split[key]``; with ``sync`` the
+    card's queue is drained before and after (host-only work needs no
+    sync)."""
     def wrapped(*args, **kwargs):
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         split[key] += time.perf_counter() - t0
         return out
     return wrapped
+
+
+def training_launches(engine, hist):
+    """The ``fused_sgd`` and ``delta_norm`` launches a run's training
+    makes, round by round, from the round path each round takes: a fused
+    or stacked round is one SGD launch a local step for the whole stack
+    and one Eq. 2 launch; a ragged round (batch counts differ, or one
+    user) one SGD launch a step for each user and one Eq. 2 launch a
+    user. A round trains every user, or, for a strategy that selects
+    before training, only its winners. Priorities only where the
+    strategy uses them. One launch takes up to ``max_leaves()`` leaves.
+    Returns the two totals and the rounds of each path."""
+    be, spec = engine.backend, engine.spec
+    leaves = len(tree_leaves(engine.global_params))
+    sgd_per = -(-leaves // kfused.max_leaves())
+    dn_per = -(-leaves // kdn.max_leaves()) if \
+        engine.strategy.uses_priority else 0
+    E = spec.local_epochs
+
+    def nb(u):
+        return max(1, be.num_examples(u) // spec.batch_size)
+
+    sgd = dn = 0
+    paths = Counter()
+    for winners in hist.winners:
+        ids = (list(winners) if engine.strategy.trains_before_selection
+               else list(range(be.num_users)))
+        if not ids:
+            continue
+        if be._can_fuse(ids) or be._can_stack(ids):
+            paths["fused" if be._can_fuse(ids) else "stacked"] += 1
+            sgd += sgd_per * nb(ids[0]) * E
+            dn += dn_per
+        else:
+            paths["ragged"] += 1
+            sgd += sgd_per * sum(nb(u) for u in ids) * E
+            dn += dn_per * len(ids)
+    return sgd, dn, dict(paths)
 
 
 def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
@@ -1517,8 +1652,9 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
     never run.
     ``merges``: the kinds of the run's merges (``run_main_path``); None
     for a run without channel, faults and objective, where every round
-    with winners merges digitally. A round's priorities are one
-    ``delta_norm`` call; a merge launches its kernel once per leaf; the
+    with winners merges digitally. Training launches as
+    ``training_launches`` predicts them; a merge launches its kernel
+    once per leaf; the
     robust merge makes one ``delta_norm`` call and runs
     ``robust_combine`` once per leaf for each group (fresh, and stale
     when there is one); the objective merge runs ``gather_combine`` once
@@ -1528,7 +1664,7 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
     faults a round merges when it delivered, or when it had attempts and
     the objective carries h."""
     leaves = len(tree_leaves(engine.global_params))
-    steps = engine.backend._nb * engine.spec.local_epochs
+    sgd, dn, paths = training_launches(engine, hist)
     needs_h = engine.backend.objective_needs_h()
     server = (engine.backend.objective_active()
               and engine.spec.objective.uses_server)
@@ -1542,8 +1678,8 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
     kinds = Counter(merges)
     groups = kinds["robust"] + 2 * kinds["robust+stale"]
     # one launch a call takes every leaf (up to max_leaves())
-    want = {"fused_sgd": -(-leaves // kfused.max_leaves()) * steps * rounds,
-            "delta_norm": -(-leaves // kdn.max_leaves()) * (rounds + groups),
+    want = {"fused_sgd": sgd,
+            "delta_norm": dn + -(-leaves // kdn.max_leaves()) * groups,
             "gather_combine": leaves * (kinds["digital"] + kinds["objective"]
                                         + kinds["objective-empty"]),
             "fedavg_combine": 0,
@@ -1558,7 +1694,8 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, the code "
                              f"predicts {want}")
-    if min(want["fused_sgd"], want["delta_norm"], len(merges)) < 1 \
+    if min(want["fused_sgd"], len(merges)) < 1 \
+            or engine.strategy.uses_priority and want["delta_norm"] < 1 \
             or server and want["server_opt"] < 1:
         raise AssertionError(f"{name}: a kernel of the path never ran")
     if len(hist.winners) != rounds or len(hist.train_loss) != rounds:
@@ -1569,7 +1706,8 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
             raise AssertionError(f"{name}: round {t} has no winners and "
                                  "no collision was recorded")
     prios = np.asarray(hist.priorities)
-    if not (np.isfinite(hist.train_loss).all() and np.isfinite(prios).all()
+    if engine.strategy.uses_priority != (len(prios) == rounds) or not (
+            np.isfinite(hist.train_loss).all() and np.isfinite(prios).all()
             and (prios >= 1.0).all()):
         raise AssertionError(f"{name}: losses / priorities not finite or "
                              "priorities below 1")
@@ -1584,13 +1722,14 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
             raise AssertionError(
                 f"{name}: no learning: accuracy {hist.accuracy}, "
                 f"loss {hist.train_loss}")
-    return leaves, steps, len(merges)
+    return leaves, paths, len(merges)
 
 
 def phase_main_path(model, rounds, check_accuracy):
     hist, engine, dt, launches, round_s, _ = run_main_path(model, rounds)
-    leaves, steps, merged = check_main_path(
+    leaves, _, merged = check_main_path(
         f"main_path_{model}", hist, engine, launches, rounds, check_accuracy)
+    steps = engine.backend._nb * engine.spec.local_epochs
     if launches["fused_sgd"] != steps * rounds:
         raise AssertionError(f"main_path_{model}: {launches['fused_sgd']} "
                              f"SGD launches for {steps * rounds} local steps")
@@ -1748,6 +1887,21 @@ OBJ_INERT = {
     "feddyn+fedavgm-inert": ObjectiveSpec(local="feddyn", alpha=0.0,
                                           aggregator="fedavgm", beta=0.0,
                                           server_lr=1.0)}
+#: the stacked, ragged and partial-cohort lanes of
+#: tests/test_torch_round_modes.py on the pin scenario, seeds 0 and 1:
+#: strategy and spec fields (``round_mode`` among them)
+ROUND_LANES = {
+    "stacked": ("priority-distributed", dict(round_mode="stacked")),
+    "ragged": ("priority-distributed", dict(round_mode="ragged")),
+    "random-centralized": ("random-centralized", {}),
+    "stacked/channel": ("priority-distributed",
+                        dict(round_mode="stacked", channel=PIN_LOSSY)),
+    "stacked/faults": ("priority-distributed",
+                       dict(round_mode="stacked", channel=PIN_LOSSY,
+                            faults=ACTIVE)),
+    "stacked/aircomp-sigma0.05": ("priority-distributed",
+                                  dict(round_mode="stacked", **AIR_NOISY)),
+}
 HISTORY_COUNTS = ("winners", "delivered", "upload_failures", "collisions",
                   "contention_slots", "round_seconds", "round_energy_j",
                   "retries", "dropped_clients", "stale_merges",
@@ -1852,6 +2006,30 @@ def phase_reference_small():
                             retries=gh.retries, stale_merges=gh.stale_merges,
                             quarantined=gh.quarantined_updates)
     lanes["aircomp-sigma0.05-default-noise"] = lane_default_noise()
+    round_lanes = {}
+    for label, (strategy, spec) in ROUND_LANES.items():
+        for seed in (0, 1):
+            tag = f"{label}/seed{seed}"
+            gh, gp = pin_scenario(strategy, seed, "cuda", **spec)
+            ch, cp = pin_scenario(strategy, seed, "cpu", **spec)
+            for f in HISTORY_COUNTS:
+                if getattr(gh, f) != getattr(ch, f):
+                    raise AssertionError(f"reference_small {tag}: {f} "
+                                         "differs between the card and the "
+                                         "CPU")
+            if strategy == "random-centralized" and gh.winners != pins[
+                    f"random-centralized/seed{seed}"]:
+                raise AssertionError(f"reference_small {tag}: winners "
+                                     f"{gh.winners} differ from the pins")
+            for a, b in zip(tree_leaves(gp), tree_leaves(cp)):
+                np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                           rtol=1e-4, atol=1e-6)
+            round_lanes[tag] = dict(
+                winners=gh.winners, stale_merges=gh.stale_merges,
+                upload_failures=gh.upload_failures,
+                max_abs_gap_global=max(float((a.cpu() - b).abs().max())
+                                       for a, b in zip(tree_leaves(gp),
+                                                       tree_leaves(cp))))
     gaps = {}
     for label, obj in OBJ_ACTIVE.items():
         oh, op = pin_scenario("priority-distributed", 0, "cuda", objective=obj)
@@ -1876,10 +2054,13 @@ def phase_reference_small():
                                  "bits on the card")
     emit("reference_small", agree_with_pins=["random-distributed/seed0",
                                              "priority-distributed/seed0",
+                                             "random-centralized/seed0",
+                                             "random-centralized/seed1",
                                              *OBJ_INERT],
          card_equals_cpu=["priority-distributed/seed0", *lanes,
-                          *OBJ_ACTIVE],
-         layer_lanes=lanes, objective_max_abs_gap_card_vs_cpu=gaps,
+                          *OBJ_ACTIVE, *round_lanes],
+         layer_lanes=lanes, round_lanes=round_lanes,
+         objective_max_abs_gap_card_vs_cpu=gaps,
          inert_objectives_bit_equal_to_plain=list(OBJ_INERT),
          tolerance="history counts exact; globals rtol 1e-4 atol 1e-6 "
                    "(the default-noise AirComp lane rtol 1e-5 atol 1e-6); "
@@ -1919,9 +2100,10 @@ def phase_main_path_device(rounds=20):
     for _ in range(2):
         hist, engine, dt, launches, round_s, loop = run_main_path(
             "mlp", rounds, "--contention-backend", "device")
-        leaves, steps, merged = check_main_path(
+        leaves, _, merged = check_main_path(
             "main_path_mlp_device", hist, engine, launches, rounds, True,
             events=loop["events"], attempts=loop["attempts"])
+        steps = engine.backend._nb * engine.spec.local_epochs
         runs.append((hist, [l.clone() for l in
                             tree_leaves(engine.global_params)]))
         del engine
@@ -2030,6 +2212,95 @@ def phase_layer_path(name, rounds, check_accuracy, *extra,
     return launches
 
 
+def uneven_mlp_engine(rounds):
+    """The paper's MLP cell with an uneven cohort, through
+    ``build_host_engine``: the cell ``build_paper_engine`` makes (data,
+    initial weights, loss, evaluation and spec), its odd users then
+    dropping 40 examples — the reference's recipe
+    (``tests/test_engine.py``) — so they hold 17 batches of 32 against
+    the even users' 18 and nothing stacks: the default round mode runs
+    every user on its own (the ragged path, U = 1 launches)."""
+    base = launch_train.build_paper_engine(
+        paper_args("--model", "mlp", "--rounds", str(rounds)))
+    data = [{k: v[: len(v) - 40 * (u % 2)] for k, v in c.data.items()}
+            for u, c in enumerate(base.backend.clients)]
+    return build_host_engine(base.spec, base.state, base.backend._loss_fn,
+                             data, base.eval_fn, device="cuda")
+
+
+def phase_round_path(name, rounds, check_accuracy, path, *extra,
+                     engine=None):
+    """A stacked, ragged or partial-cohort path of the MLP cell: the
+    checks of ``check_main_path`` (training launches predicted round by
+    round from the path each round takes, which must be ``path``), with
+    rounds/s, first-round seconds, the training and selection seconds,
+    the seconds of the SGD loop, of the host's batch draws and of the
+    merge, launches a round per kernel and peak memory (what
+    the path allocated on top of what was live before it, and in
+    all)."""
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    split = {}
+    hist, engine, dt, launches, round_s, _ = run_main_path(
+        "mlp", rounds, *extra, split=split, engine=engine)
+    leaves, paths, merged = check_main_path(name, hist, engine, launches,
+                                            rounds, check_accuracy)
+    if set(paths) != {path}:
+        raise AssertionError(f"{name}: rounds took the paths {paths}, not "
+                             f"{path} alone")
+    steady = statistics.median(round_s[1:])
+    emit(name, rounds=rounds, seconds=dt, first_round_s=round_s[0],
+         median_later_round_s=steady, rounds_per_s=1.0 / steady,
+         round_s=round_s, paths=paths, launches=launches,
+         launches_per_round={k: v / rounds for k, v in launches.items()
+                             if v},
+         train_s=split["train_round"], select_s=split["select"],
+         train_share=split["train_round"] / dt,
+         sgd_s=split["sgd"], host_batch_s=split["batch_epoch"],
+         merge_s=split["merge"],
+         trained_per_round=[len(w) for w in hist.winners]
+         if engine.strategy.trains_before_selection else engine.num_users,
+         batches_per_user=sorted({engine.backend.num_examples(u)
+                                  // engine.spec.batch_size
+                                  for u in range(engine.num_users)}),
+         merged_rounds=merged, collisions=hist.collisions,
+         accuracy_first=hist.accuracy[0], accuracy_last=hist.accuracy[-1],
+         loss_first=hist.train_loss[0], loss_last=hist.train_loss[-1],
+         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20 - base_mb,
+         peak_mem_total_mb=torch.cuda.max_memory_allocated() / 2**20)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_round_paths_in_turns(rounds=8):
+    """The MLP cell on the fused, stacked and ragged round paths and
+    under ``random-centralized`` (a stacked partial-cohort round), in
+    turns (fused, stacked, ragged, random-centralized, then back in
+    reverse), so that the host's drift over the call falls on all four
+    alike: the median later-round seconds of each run, and its seconds a
+    round in training, in the SGD loop within it, in the host's batch
+    draws, in selection and in the merge (``run_main_path``'s split)."""
+    variants = {"fused": ("--round-mode", "fused"),
+                "stacked": ("--round-mode", "stacked"),
+                "ragged": ("--round-mode", "ragged"),
+                "random_centralized": ("--strategy", "random-centralized")}
+    order = ["fused", "stacked", "ragged", "random_centralized",
+             "random_centralized", "ragged", "stacked", "fused"]
+    out = {v: [] for v in variants}
+    splits = {v: [] for v in variants}
+    for v in order:
+        split = {}
+        _, _, _, _, round_s, _ = run_main_path("mlp", rounds, *variants[v],
+                                               split=split)
+        out[v].append(statistics.median(round_s[1:]))
+        splits[v].append({k: t / rounds for k, t in split.items()})
+    emit("round_paths_in_turns", rounds=rounds, order=order,
+         median_later_round_s=out, split_s_per_round=splits,
+         vs_fused={v: statistics.mean(out[v]) / statistics.mean(out["fused"])
+                   for v in variants})
+
+
 def phase_layer_overhead(rounds=10):
     """The MLP cell plain, with the AirComp merge, with the fault layer
     and with FedProx + FedAdam, in turns (plain, AirComp, faults,
@@ -2051,14 +2322,17 @@ def phase_layer_overhead(rounds=10):
                    for v in variants})
 
 
-def phase_profile(model, rounds=4, *extra, label=None, **spec):
+def phase_profile(model, rounds=4, *extra, label=None, engine=None,
+                  **spec):
     """``--profile``: where a steady round's time goes — device time by
     kernel name and the device's busy share, from ``torch.profiler``
-    over the rounds after the first."""
+    over the rounds after the first. ``engine``, when given, is profiled
+    instead of the cell the arguments name."""
     from torch.profiler import ProfilerActivity, profile
-    engine = launch_train.build_paper_engine(
-        paper_args("--model", model, "--rounds", str(rounds), *extra),
-        **spec)
+    if engine is None:
+        engine = launch_train.build_paper_engine(
+            paper_args("--model", model, "--rounds", str(rounds), *extra),
+            **spec)
     engine.run()                               # warm-up
     hist = FLHistory(selections=np.zeros(engine.num_users, np.int64))
     torch.cuda.synchronize()
@@ -2139,6 +2413,8 @@ def main():
         lists, rel = check_leaf_lists(dtype)
         split.update(lists)
         dn_rel = max(dn_rel, rel)
+        for k, v in check_winner_stacks(dtype).items():
+            fold(split, k, v)
         for k, (e, b) in split.items():
             worst[k][key] = max(worst[k][key], e)
             bit_equal[k] = bit_equal[k] and b
@@ -2163,6 +2439,12 @@ def main():
                          "and 1 (beta1 0, server_lr 1) return avg, "
                          "server_lr 0.5 does not, m / v pass through "
                          "where the law keeps them",
+         small_cohort_cases="fused_sgd_leaves and delta_norm_leaves on the "
+                            "MLP's and the CNN's leaf lists at U = 1, 2, 64; "
+                            "gather (positions, k_pad max(m, 2)), AirComp "
+                            "(idx=None, a noise plane) and robust over "
+                            "(m, ...) stacks of every leaf, every row a "
+                            "winner, m = 1, 2, 64; bit-equal but delta_norm",
          contention_cases=[list(c) for c in c_shapes],
          contention_inputs="forced expiry tie, dead lanes, a row with no "
                            "live lane (B > 1), no live lane at all, "
@@ -2255,6 +2537,20 @@ def main():
         "64", "--n-train", "60000", "--round-mode", "fused",
         "--contention-backend", "device", objective=FEDDYN)
 
+    # ---- the stacked, ragged and partial-cohort round paths -------------
+    l_stk = phase_round_path("main_path_mlp_stacked", 20, True, "stacked",
+                             "--round-mode", "stacked")
+    l_rc = phase_round_path("main_path_mlp_random_centralized", 20, True,
+                            "stacked", "--strategy", "random-centralized")
+    l_rc1000 = phase_round_path(
+        "main_path_mlp_U1000_random_centralized", 3, False, "stacked",
+        "--users", "1000", "--k", "64", "--n-train", "60000",
+        "--round-mode", "fused", "--strategy", "random-centralized")
+    l_rag = phase_round_path("main_path_mlp_ragged", 10, True, "ragged",
+                             engine=uneven_mlp_engine(10))
+    phase_round_paths_in_turns()
+
+    t_checks = time.perf_counter() - t_start
     if "--profile" in sys.argv[1:]:
         phase_profile("mlp")
         phase_profile("mlp", 4, "--contention-backend", "device")
@@ -2262,6 +2558,12 @@ def main():
         phase_profile("mlp", 4, label="mlp_faults", channel=LOSSY,
                       faults=ACTIVE)
         phase_profile("mlp", 4, label="mlp_objectives", objective=FEDADAM)
+        phase_profile("mlp", 4, "--round-mode", "stacked",
+                      label="mlp_stacked")
+        phase_profile("mlp", 4, "--strategy", "random-centralized",
+                      label="mlp_random_centralized")
+        phase_profile("mlp", 4, label="mlp_ragged",
+                      engine=uneven_mlp_engine(4))
         phase_profile("cnn", rounds=2)
 
     # ---- the record ---------------------------------------------------
@@ -2309,8 +2611,13 @@ def main():
             launches_U1000_faults=l_u1000f[name],
             launches_fedadam=l_adam[name],
             launches_U1000_feddyn=l_u1000o[name],
+            launches_stacked=l_stk[name],
+            launches_random_centralized=l_rc[name],
+            launches_U1000_random_centralized=l_rc1000[name],
+            launches_ragged=l_rag[name],
             timed_at=where))
-    emit("total", seconds=time.perf_counter() - t_start)
+    emit("total", seconds=time.perf_counter() - t_start,
+         before_profile_s=t_checks)
     print(json.dumps({"kernels": record}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

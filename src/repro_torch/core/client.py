@@ -46,6 +46,24 @@ def sgd_epoch_scan(loss_fn: Callable, lr: float) -> Callable:
     return run
 
 
+def make_local_trainer(loss_fn: Callable, lr: float) -> Callable:
+    """Returns ``train(params, batched) -> (params, mean_loss)`` for ONE
+    user: ``batched`` leaves are ``(num_batches, batch, ...)``, one SGD
+    step per batch. The U = 1 case of ``sgd_epoch_scan``: the local
+    model is a fresh ``(1, ...)`` copy of ``params`` (never a view —
+    the step writes in place), trained and returned without its cohort
+    axis; ``params`` is left untouched."""
+    run = sgd_epoch_scan(loss_fn, lr)
+
+    def train(params, batched):
+        stack = tree_map(lambda p: p.detach().clone().unsqueeze(0), params)
+        stack, losses = run(stack, tree_map(lambda a: a.unsqueeze(0),
+                                            batched))
+        return tree_map(lambda p: p[0], stack), losses[0].mean()
+
+    return train
+
+
 def batch_epoch(rng: np.random.Generator, data, batch_size: int):
     """Shuffle + reshape host data into (nb, bs, ...); drops remainder."""
     n = len(tree_leaves(data)[0])
@@ -60,7 +78,7 @@ class Client:
     """One FL user: local dataset + 1-epoch SGD + Eq. 2 priority.
 
     ``data`` stays host numpy (the per-user permutation stream draws on
-    the host); ``train`` is the U = 1 case of the stacked step."""
+    the host); ``train`` runs ``make_local_trainer`` once an epoch."""
 
     def __init__(self, uid: int, data, loss_fn, *, lr=1e-2, batch_size=32,
                  local_epochs=1, seed=0):
@@ -69,25 +87,24 @@ class Client:
         self.num_examples = len(tree_leaves(data)[0])
         self.batch_size = batch_size
         self.local_epochs = local_epochs
-        self._epoch_run = sgd_epoch_scan(loss_fn, lr)
+        self._trainer = make_local_trainer(loss_fn, lr)
         # per-user stream spawned from the experiment seed (core.rngs):
         # independent across users AND across experiment seeds
         self._rng = client_rng(seed, uid)
 
     def train(self, global_params) -> Tuple:
-        """Step 2: returns (local_params, mean_loss). ``global_params``
-        is left untouched (the local model starts from a copy)."""
-        stack = tree_map(lambda p: p.detach().clone().unsqueeze(0),
-                         global_params)
-        device = tree_leaves(stack)[0].device
+        """Step 2: returns (local_params, mean_loss) — the mean over the
+        last epoch's batches. ``global_params`` is left untouched (each
+        epoch trains a fresh copy of the model it starts from)."""
+        params = global_params
+        device = tree_leaves(params)[0].device
         loss = torch.zeros((), device=device)
         for _ in range(self.local_epochs):
             batched = tree_map(
-                lambda a: torch.from_numpy(a).unsqueeze(0).to(device),
+                lambda a: torch.from_numpy(a).to(device),
                 batch_epoch(self._rng, self.data, self.batch_size))
-            stack, losses = self._epoch_run(stack, batched)
-            loss = losses[0].mean()
-        return tree_map(lambda p: p[0], stack), loss
+            params, loss = self._trainer(params, batched)
+        return params, loss
 
     def priority(self, local_params, global_params) -> float:
         """Step 3: Eq. 2."""

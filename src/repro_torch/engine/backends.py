@@ -10,14 +10,18 @@ the engine:
 
 One implementation so far:
 
-  HostBackend  the paper's simulation, fused round path only: ONE
-               device-resident step per round — ``local_epochs`` folded
-               into the batch axis, every user's local SGD run over the
-               stacked ``(U, ...)`` cohort (``fused_sgd`` kernel, one
-               launch per step for every leaf), Eq. 2 priorities from the
-               trained stack (``delta_norm`` kernel, one launch for
-               every leaf), and ONE Eq. 1 merge a round in delivery
-               order, one launch per leaf, in one of four forms:
+  HostBackend  the paper's simulation. Three round paths, the fastest
+               that applies wins:
+
+               fused    (default) ONE device-resident step per round —
+                        ``local_epochs`` folded into the batch axis,
+                        every user's local SGD run over the stacked
+                        ``(U, ...)`` cohort (``fused_sgd`` kernel, one
+                        launch per step for every leaf), Eq. 2
+                        priorities from the trained stack (``delta_norm``
+                        kernel, one launch for every leaf), and ONE Eq. 1
+                        merge a round in delivery order, one launch per
+                        leaf, in one of four forms:
 
                  * digital (no context): a gather-K reduction
                    (``gather_combine``);
@@ -42,17 +46,39 @@ One implementation so far:
                    (``robust_combine``, once per leaf for the fresh group
                    and once more for a stale group).
 
-               The trained stack is overwritten IN PLACE with the
-               merged global and stays on the device for the next round
-               (the reference donates the buffer; this is the same
-               saving said directly). Requires a rectangular cohort
-               (equal per-user example counts) and a full-cohort round.
+                        The trained stack is overwritten IN PLACE with
+                        the merged global and stays on the device for the
+                        next round (the reference donates the buffer;
+                        this is the same saving said directly). Requires
+                        a rectangular cohort (equal per-user example
+                        counts) and a full-cohort round.
+               stacked  per-epoch training of the ``(S, ...)`` stack of
+                        the round's S = ``len(train_ids)`` users (the same
+                        ``sgd_epoch_scan``, one ``fused_sgd`` launch a
+                        step), one ``delta_norm`` launch for the round's
+                        priorities, and a gather merge over the winners'
+                        rows. Used for partial-cohort rounds
+                        (``trains_before_selection`` strategies) and when
+                        asked for; needs every trained user to have the
+                        same batch count.
+               ragged   per-user training (``Client.train``: U = 1
+                        launches), one ``delta_norm`` launch a user, and
+                        the gather merge over the stacked winners — when
+                        batch counts differ and nothing stacks, for a
+                        one-user round, or when asked for.
 
-               The reference's other round paths (``stacked``,
-               ``ragged``, ``sparse``) with their gather-path AirComp and
-               robust merges and their objective programs, its sweep
-               path (objective lanes included) and cohort sharding are
-               not ported yet; asking for one raises
+               The gather merge (stacked / ragged handles) has the fused
+               merge's four forms: digital ``gather_combine`` (on a
+               stacked handle straight out of the trained stack at the
+               winners' rows, bit-equal to the reference's restack),
+               AirComp ``aircomp_combine`` over the stacked winners, and
+               the robust merge over the stacked winners (also the
+               stale-only round with no fresh winner). Objectives run in
+               the fused round only, as in the reference.
+
+               The reference's ``sparse`` round path with its objective
+               programs, its sweep path (objective lanes included) and
+               cohort sharding are not ported yet; asking for one raises
                ``NotImplementedError`` naming it. Nothing downgrades
                silently.
 
@@ -74,9 +100,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.client import Client, sgd_epoch_scan
+from repro_torch.core.client import Client, batch_epoch, sgd_epoch_scan
 from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.core.priority import stacked_model_priorities
+from repro_torch.core.priority import (model_priority,
+                                       stacked_model_priorities)
 from repro_torch.device import resolve_device
 from repro_torch.engine.types import TrainResult
 from repro_torch.faults.robust import robust_merge
@@ -225,12 +252,14 @@ class Backend:
 
 
 class HostBackend(Backend):
-    """Paper-scale simulation over host data, fused round path (see the
-    module docstring).
+    """Paper-scale simulation over host data (see the module docstring
+    for the fused / stacked / ragged round paths).
 
-    ``round_mode``: ``None`` or ``"fused"``; the reference's
-    ``"stacked"``, ``"ragged"`` and ``"sparse"`` raise
-    ``NotImplementedError``.
+    ``round_mode``: ``"fused"`` (the default), ``"stacked"`` or
+    ``"ragged"``; the reference's ``"sparse"`` raises
+    ``NotImplementedError``. ``None`` follows the reference's legacy
+    ``prefer_vmap`` flag: ``"fused"`` when it is true, else
+    ``"ragged"``; an explicit ``round_mode`` overrides the flag.
     ``k_max``: the round's winner budget (the spec's ``k_per_round``) —
     the compact merge pad width.
     ``device``: where the cohort lives. ``None`` is the CUDA device and
@@ -239,21 +268,29 @@ class HostBackend(Backend):
 
     def __init__(self, loss_fn, user_data: Sequence, *, lr: float = 1e-2,
                  batch_size: int = 32, local_epochs: int = 1, seed: int = 0,
-                 num_classes: int = 10,
+                 prefer_vmap: bool = True, num_classes: int = 10,
                  round_mode: Optional[str] = None, mesh=None,
                  k_max: Optional[int] = None, objective=None, device=None):
         if round_mode is None:
-            round_mode = "fused"
+            round_mode = "fused" if prefer_vmap else "ragged"
         if round_mode not in ("fused", "stacked", "ragged", "sparse"):
             raise ValueError(f"unknown round_mode {round_mode!r}")
-        if round_mode != "fused":
+        if round_mode == "sparse":
             raise NotImplementedError(
-                f"round_mode={round_mode!r} is not ported yet: only the "
-                "fused round path is (pass round_mode='fused')")
+                "round_mode='sparse' is not ported yet: the fused, "
+                "stacked and ragged round paths are")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: sharding the cohort over devices is not ported yet")
         self._objective = objective
+        obj_on = objective is not None and not objective.is_plain
+        if obj_on and round_mode in ("stacked", "ragged"):
+            raise ValueError(
+                "non-plain objectives run in the fused round only; "
+                f"round_mode={round_mode!r} is the per-round fallback path")
+        # "stacked" / "fused" stack what they can, "ragged" never
+        self._mode = round_mode
+        self._prefer_vmap = round_mode != "ragged"
         self.device = resolve_device(device)
         self.num_users = len(user_data)
         self.heterogeneity = label_heterogeneity(user_data, num_classes)
@@ -271,14 +308,16 @@ class HostBackend(Backend):
         self._k_max = int(k_max) if k_max else None
         self._epoch_run = sgd_epoch_scan(loss_fn, lr)
 
+        # a cohort that is not rectangular runs its rounds on the stacked
+        # or ragged path
         ns = {c.num_examples for c in self.clients}
         self._rect = (len(ns) == 1
                       and batch_size <= self.clients[0].num_examples)
-        if not self._rect:
-            raise NotImplementedError(
-                "uneven cohort (per-user example counts differ, or fall "
-                "below batch_size): it needs round_mode='ragged', which "
-                "is not ported yet")
+        if obj_on and not self._rect:
+            raise ValueError(
+                "non-plain objectives need a rectangular cohort (equal "
+                "per-user example counts >= batch_size): the objective "
+                "gradient law runs in the fused round only")
         self._xstack = None        # (U, n, ...) user data, on the device
         # AirComp noise: ``(key, leaf_index, shape, device) -> N(0, 1)``
         # plane; tests swap in the reference's threefry planes here
@@ -306,8 +345,16 @@ class HostBackend(Backend):
     def num_examples(self, u):
         return self.clients[u].num_examples
 
+    def _can_stack(self, train_ids) -> bool:
+        if not self._prefer_vmap or len(train_ids) < 2:
+            return False
+        nbs = {max(1, self.clients[u].num_examples // self._batch_size)
+               for u in train_ids}
+        return len(nbs) == 1
+
     def _can_fuse(self, train_ids) -> bool:
-        return self._rect and len(train_ids) == self.num_users
+        return (self._mode == "fused" and self._rect
+                and len(train_ids) == self.num_users)
 
     # ------------------------------------------------ objectives helpers
     def objective_active(self) -> bool:
@@ -378,12 +425,13 @@ class HostBackend(Backend):
                 np.stack([np.asarray(x) for x in xs])).to(self.device),
             *[c.data for c in self.clients])
 
-    def _bcast(self, state):
-        """A fresh contiguous (U, ...) stack of the global — never a
-        view of ``state``, which training must not overwrite."""
-        U = self.num_users
+    def _bcast(self, state, rows: Optional[int] = None):
+        """A fresh contiguous (rows, ...) stack of the global (``rows``
+        defaults to the cohort size) — never a view of ``state``, which
+        training must not overwrite."""
+        S = self.num_users if rows is None else rows
         return tree_map(
-            lambda p: p.unsqueeze(0).expand((U,) + tuple(p.shape))
+            lambda p: p.unsqueeze(0).expand((S,) + tuple(p.shape))
             .contiguous(), state)
 
     def _fused_merge(self, trained, idx, w, old_glob):
@@ -539,27 +587,81 @@ class HostBackend(Backend):
             priorities=priorities,
             local_handle={"fused_stack": trained})
 
+    def _train_round_stacked(self, state, train_ids, need_priority):
+        """The round's S = ``len(train_ids)`` users trained as one
+        ``(S, ...)`` stack, epoch by epoch: each epoch draws
+        ``batch_epoch`` from every client's own stream in ``train_ids``
+        order (the fused path's ``_draw_big`` draws, so the paths pick
+        the same winners) and runs ``sgd_epoch_scan`` over it; then ONE
+        ``stacked_model_priorities`` call. Losses: the mean over the last
+        epoch's batches, per user."""
+        stack = self._bcast(state, len(train_ids))
+        for _ in range(self._local_epochs):
+            per_user = [batch_epoch(self.clients[u]._rng,
+                                    self.clients[u].data, self._batch_size)
+                        for u in train_ids]
+            batched = tree_map(
+                lambda *xs: torch.from_numpy(np.stack(xs)).to(self.device),
+                *per_user)
+            stack, losses = self._epoch_run(stack, batched)
+        loss_vec = losses.mean(dim=1).cpu().numpy()
+        priorities = np.ones(self.num_users)
+        if need_priority:
+            prios = stacked_model_priorities(stack, state).cpu().numpy()
+            priorities[train_ids] = prios
+        return TrainResult(
+            losses={u: float(loss_vec[i]) for i, u in enumerate(train_ids)},
+            priorities=priorities,
+            local_handle={"stacked": stack,
+                          "index": {u: i for i, u in enumerate(train_ids)}})
+
+    def _train_round_ragged(self, state, train_ids, need_priority):
+        """Per-user training (``Client.train``, U = 1 launches) and one
+        ``model_priority`` call a user."""
+        priorities = np.ones(self.num_users)
+        locals_, losses = {}, {}
+        for u in train_ids:
+            locals_[u], loss = self.clients[u].train(state)
+            losses[u] = float(loss)
+            if need_priority:
+                priorities[u] = float(model_priority(locals_[u], state))
+        return TrainResult(losses=losses, priorities=priorities,
+                           local_handle=locals_)
+
     # ------------------------------------------------------------------
     def train_round(self, state, t, train_ids, need_priority):
         if not train_ids:
             return TrainResult(losses={},
                                priorities=np.ones(self.num_users),
                                local_handle={})
-        if not self._can_fuse(train_ids):
-            if self.objective_active():
-                raise RuntimeError(
-                    "non-plain objective on an unfused round (partial "
-                    "cohort?): objectives run in the fused round only")
-            raise NotImplementedError(
-                "partial-cohort round: it needs round_mode='stacked' / "
-                "'ragged', which are not ported yet")
-        return self._train_round_fused(state, need_priority)
+        if self._can_fuse(train_ids):
+            return self._train_round_fused(state, need_priority)
+        if self.objective_active():
+            raise RuntimeError(
+                "non-plain objective on an unfused round (partial "
+                "cohort?): objectives run in the fused round only")
+        if self._can_stack(train_ids):
+            return self._train_round_stacked(state, train_ids,
+                                             need_priority)
+        return self._train_round_ragged(state, train_ids, need_priority)
+
+    @staticmethod
+    def _local(handle, u):
+        """User u's trained params on a stacked or ragged handle (a view
+        of the handle's tensors)."""
+        if "stacked" in handle:
+            i = handle["index"][u]
+            return tree_map(lambda p: p[i], handle["stacked"])
+        return handle[u]
 
     def extract_local(self, train_result, u):
         """User u's trained params as freshly materialized tensors, safe
-        to hold across the merge (which overwrites the trained stack)."""
-        stack = train_result.local_handle["fused_stack"]
-        return tree_map(lambda p: p[u].clone(), stack)
+        to hold across the merge (which overwrites the fused handle's
+        trained stack) — the fault layer's straggler capture."""
+        handle = train_result.local_handle
+        if "fused_stack" in handle:
+            return tree_map(lambda p: p[u].clone(), handle["fused_stack"])
+        return tree_map(lambda p: p.clone(), self._local(handle, u))
 
     def _k_pad(self, m: int) -> int:
         """Compact merge width: ``k_max`` when set (so every round's
@@ -615,21 +717,24 @@ class HostBackend(Backend):
 
     def merge(self, state, train_result, winners, merge_ctx=None,
               fault_ctx=None, attempts=None):
-        """Eq. 1 over ``winners`` (delivery order) on the fused train
-        handle: the robust merge when ``fault_ctx`` is given, else the
-        AirComp merge when ``merge_ctx`` is, else the objective merge
-        when a non-plain objective is active, else the digital one.
-        ``attempts`` (the round's attempt winners) feed the FedDyn h
-        update. The old global ``state`` is only read; the trained stack
-        becomes the new resident stack."""
+        """Eq. 1 over ``winners`` (delivery order): the robust merge
+        when ``fault_ctx`` is given, else the AirComp merge when
+        ``merge_ctx`` is, else the objective merge when a non-plain
+        objective is active, else the digital one. ``attempts`` (the
+        round's attempt winners) feed the FedDyn h update. The old global
+        ``state`` is only read. On the fused handle the trained stack
+        becomes the new resident stack; a stacked or ragged handle takes
+        the gather merge (``_gather_merge``)."""
         handle = train_result.local_handle
-        trained = handle.get("fused_stack") \
-            if isinstance(handle, dict) else None
+        winners = [int(u) for u in winners]
+        if "fused_stack" not in handle:
+            return self._gather_merge(state, handle, winners, merge_ctx,
+                                      fault_ctx)
+        trained = handle["fused_stack"]
         if trained is None:
             raise ValueError(
                 "merge needs the fused train handle of this round (each "
                 "handle merges once: its stack is overwritten)")
-        winners = [int(u) for u in winners]
         k_pad = self._k_pad(len(winners))
         if winners and max(winners) >= self.num_users:
             raise IndexError(f"winner id {max(winners)} out of range")
@@ -660,6 +765,90 @@ class HostBackend(Backend):
         self._resident = new_stack       # stays on device for round t+1
         self._resident_key = new_glob
         return new_glob
+
+    # ------------------------------- gather merge (stacked / ragged)
+    def _gather_merge(self, state, handle, winners, merge_ctx, fault_ctx):
+        """Eq. 1 on a stacked or ragged handle. The digital merge is one
+        ``gather_combine`` a leaf: on a stacked handle straight out of
+        the trained stack at the winners' row positions (no stacked
+        copy; the same rows in the same delivery order as the
+        reference's restack, so the same bits), on a ragged one over the
+        stacked winners. The new global is fresh; no resident stack
+        mirrors it, so the one of an earlier fused round is dropped."""
+        self._resident = self._resident_key = None
+        if fault_ctx is not None:
+            return self._gather_merge_faults(state, handle, winners,
+                                             fault_ctx)
+        sizes = [self.clients[u].num_examples for u in winners]
+        if merge_ctx is not None:
+            return self._gather_merge_air(handle, sizes, winners, merge_ctx)
+        if "stacked" in handle:
+            trained = handle["stacked"]
+            pos = [handle["index"][u] for u in winners]
+        else:
+            trained = self._stack_winners(handle, winners)
+            pos = list(range(len(winners)))
+        idx, w = compact_weights(self._k_pad(len(winners)), pos, sizes)
+        with torch.no_grad():
+            return self._average(trained, torch.from_numpy(idx).to(
+                self.device), torch.from_numpy(w).to(self.device), state)
+
+    def _stack_winners(self, handle, winners):
+        """The winners' trained params as one (m, ...) stack, in
+        delivery order."""
+        if "stacked" in handle:
+            rows = torch.as_tensor([handle["index"][u] for u in winners],
+                                   dtype=torch.int64, device=self.device)
+            return tree_map(lambda l: torch.index_select(l, 0, rows),
+                            handle["stacked"])
+        return tree_map(lambda *ls: torch.stack(ls),
+                        *[handle[u] for u in winners])
+
+    def _gather_merge_faults(self, state, handle, winners, ctx):
+        """Robust merge over the stacked winners of a stacked or ragged
+        handle (their fault-context weights and corruption factors),
+        plus the stale group; also the stale-only round, where there is
+        no fresh winner (``robust_merge`` takes ``trained=None``).
+        Writes ``ctx.n_quarantined`` — one host sync a merge."""
+        trained = weights = corrupt = stale = stale_w = None
+        with torch.no_grad():
+            if winners:
+                trained = self._stack_winners(handle, winners)
+                weights = np.asarray(ctx.weights, np.float32)[winners]
+                corrupt = np.asarray(ctx.corrupt, np.float32)[winners]
+            if ctx.stale:
+                stale = tree_map(lambda *ls: torch.stack(ls),
+                                 *[p for p, _ in ctx.stale])
+                stale_w = np.asarray([w_ for _, w_ in ctx.stale], np.float32)
+            glob, nq = robust_merge(
+                trained, weights, corrupt, state, stale, stale_w,
+                quarantine=bool(ctx.quarantine),
+                clip_norm=float(ctx.clip_norm))
+        ctx.n_quarantined = int(nq)
+        return glob
+
+    def _gather_merge_air(self, handle, sizes, winners, merge_ctx):
+        """AirComp over the stacked winners: alphas normalised over the
+        winners, their power-control coefficients, and per leaf
+        ``aircomp_combine`` with no ``idx`` and the noise plane
+        ``sigma * self._noise_draw(key, i, shape, device)`` (none at
+        ``sigma == 0``, which gives the bits of a zero plane)."""
+        dev = self.device
+        s = np.asarray(sizes, np.float64)
+        alphas = torch.from_numpy((s / s.sum()).astype(np.float32)).to(dev)
+        coeffs = torch.from_numpy(
+            np.asarray(merge_ctx.coeffs, np.float32)[winners]).to(dev)
+        sigma = float(merge_ctx.noise_sigma)
+        sig = torch.tensor(sigma, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            stacked = self._stack_winners(handle, winners)
+            merged = [
+                kops.aircomp_combine(
+                    leaf, alphas, coeffs,
+                    sig * self._noise_draw(merge_ctx.key, i, leaf.shape[1:],
+                                           dev) if sigma != 0.0 else None)
+                for i, leaf in enumerate(tree_leaves(stacked))]
+        return tree_unflatten(stacked, merged)
 
     # ---- checkpoint hooks --------------------------------------------
     def client_stream_states(self):

@@ -6,7 +6,10 @@ One round, regardless of strategy or backend:
      per round and passed through (mask + SelectionContext.counter_values);
      with a channel, block fading is redrawn first;
   2. train everyone (Step 2) and compute Eq. 2 priorities (Step 3);
-  3. strategy.select over the SelectionContext (Step 4/5 contention);
+  3. strategy.select over the SelectionContext (Step 4/5 contention) —
+     a strategy that selects before training (``random-centralized``)
+     selects first, with unit priorities, and only its winners train
+     (a partial-cohort round);
   4. the channel's PER gate and the fault pipeline (crashes, outages,
      HARQ retries, stragglers, corruption) turn the contention winners
      (upload attempts) into the merge candidates;
@@ -25,9 +28,9 @@ Backend contract.
 This is the per-round loop of the reference engine, channel, fault and
 objectives layers included; its stream draws come in the reference's
 order, so every count of the history equals the reference's. Its sweep
-path (``run_sweep``, the E = 1 delegation of ``run``), checkpoint/resume
-and strategies that select before training are not ported yet: each
-raises ``NotImplementedError`` naming what is missing. The reference
+path (``run_sweep``, the E = 1 delegation of ``run``) and
+checkpoint/resume are not ported yet: each raises
+``NotImplementedError`` naming what is missing. The reference
 pins the sweep lane and the per-round loop to the same winners and
 globals, so this loop is the sequential reference of both.
 """
@@ -116,11 +119,6 @@ class FLEngine:
                     "non-plain objectives need the full-cohort fused "
                     "round; trains_before_selection strategy "
                     f"{spec.strategy!r} runs partial-cohort rounds")
-        if self.strategy.trains_before_selection:
-            raise NotImplementedError(
-                f"strategy {spec.strategy!r} selects before training "
-                "(partial-cohort rounds): it needs the stacked round "
-                "path, which is not ported yet")
         self._rng = engine_rng(spec.seed)
         # channel and fault streams are further spawn children of the
         # spec seed: building them never perturbs the streams above
@@ -205,11 +203,20 @@ class FLEngine:
         if not participating.any():      # degenerate threshold: reset mask
             participating = np.ones(self.num_users, bool)
 
-        train_ids = list(range(self.num_users))
-        tr = self.backend.train_round(
-            self.state, t, train_ids, need_priority=strat.uses_priority)
-        sel = strat.select(self._context(
-            tr.priorities, participating, t, shares))
+        if strat.trains_before_selection:
+            sel = strat.select(self._context(
+                np.ones(self.num_users), participating, t, shares))
+            train_ids = list(sel.winners)
+            tr = self.backend.train_round(
+                self.state, t, train_ids,
+                need_priority=strat.uses_priority)
+        else:
+            train_ids = list(range(self.num_users))
+            tr = self.backend.train_round(
+                self.state, t, train_ids,
+                need_priority=strat.uses_priority)
+            sel = strat.select(self._context(
+                tr.priorities, participating, t, shares))
 
         # contention winners are upload ATTEMPTS; the channel (when
         # enabled) gates which of them reach the Eq. 1 merge. Counters /
@@ -320,21 +327,24 @@ SPARSE_AUTO_RATIO = 8
 
 def build_host_engine(spec: ExperimentSpec, init_params, loss_fn,
                       user_data, eval_fn=None, *,
-                      round_mode: str = None, mesh=None,
-                      device=None) -> FLEngine:
+                      prefer_vmap: bool = True, round_mode: str = None,
+                      mesh=None, device=None) -> FLEngine:
     """Convenience: spec + host data -> engine over HostBackend.
 
     ``round_mode`` (argument, else ``spec.round_mode``) picks the
-    backend round path; only ``"fused"`` is ported. When BOTH are None
-    the reference auto-selects ``"sparse"`` for a rectangular cohort
-    with ``k_per_round * SPARSE_AUTO_RATIO <= num_users``; the port
+    backend round path: ``"fused"``, ``"stacked"`` or ``"ragged"``
+    (``"sparse"`` is not ported). When BOTH are None the backend runs
+    the dense default (``"fused"``, or ``"ragged"`` without
+    ``prefer_vmap``), except that the reference auto-selects
+    ``"sparse"`` for a rectangular cohort with ``k_per_round *
+    SPARSE_AUTO_RATIO <= num_users`` under ``prefer_vmap``; the port
     raises there instead of quietly running another path — pass
     ``round_mode="fused"`` to run such a cohort dense. ``device=None``
     is the CUDA device (raises without one); ``"cpu"`` runs on the CPU.
     """
     from repro_torch.engine.backends import HostBackend
     mode = round_mode if round_mode is not None else spec.round_mode
-    if mode is None:
+    if mode is None and prefer_vmap:
         ns = {len(tree_leaves(d)[0]) for d in user_data}
         rect = len(ns) == 1 and spec.batch_size <= next(iter(ns))
         if (rect and spec.k_per_round * SPARSE_AUTO_RATIO
@@ -349,6 +359,7 @@ def build_host_engine(spec: ExperimentSpec, init_params, loss_fn,
     backend = HostBackend(
         loss_fn, user_data, lr=spec.lr, batch_size=spec.batch_size,
         local_epochs=spec.local_epochs, seed=spec.seed,
-        round_mode=mode, mesh=mesh, k_max=spec.k_per_round,
+        prefer_vmap=prefer_vmap, round_mode=mode, mesh=mesh,
+        k_max=spec.k_per_round,
         objective=spec.objective, device=device)
     return FLEngine(spec, backend, init_params, eval_fn)

@@ -13,6 +13,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --users 1000 --k 64 \
       --n-train 60000 --round-mode fused --contention-backend device
 
+  # the per-round fallback paths: the stacked cohort, or user by user
+  PYTHONPATH=src python -m repro_torch.launch.train --round-mode stacked
+  PYTHONPATH=src python -m repro_torch.launch.train --round-mode ragged
+
 ``--arch`` (the LLM finetune), ``--sweep-seeds`` above 1 and ``--ckpt``
 belong to parts of the reference that are not ported yet and raise
 ``NotImplementedError``.
@@ -108,8 +112,9 @@ def make_parser() -> argparse.ArgumentParser:
                          "loop on --device")
     ap.add_argument("--round-mode", default=None,
                     choices=["fused", "stacked", "ragged", "sparse"],
-                    help="backend round path; only 'fused' is ported "
-                         "(name it explicitly above 15 users at k=2)")
+                    help="backend round path: 'fused' (the default), "
+                         "'stacked' or 'ragged'; 'sparse' is not ported "
+                         "(name 'fused' explicitly above 15 users at k=2)")
     ap.add_argument("--n-train", type=int, default=6000)
     ap.add_argument("--n-test", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)

@@ -33,7 +33,8 @@ from repro_torch.channel import ChannelModel, ChannelSpec
 from repro_torch.kernels import ops as tops, ref as tref
 
 from torch_port_util import (LOSSY, SEEDS, arr_j, arr_t, assert_runs_agree,
-                             bits, bitwise_equal, f32, run_pair, run_port)
+                             bits, bitwise_equal, f32, run_pair, run_port,
+                             threefry_noise)
 
 SHAPES = [(127,), (2, 129, 5), (784, 200)]
 DTYPES = ["float32", "bfloat16"]
@@ -189,16 +190,6 @@ def test_channel_model_equals_the_reference_exactly(fading, kw):
 
 
 # ------------------------------------------------- (c) engine end to end
-def threefry_noise(key, leaf_index, shape, device):
-    """The reference's noise plane of one leaf (before the sigma scale):
-    ``normal(fold_in(fold_in(PRNGKey(entropy), t), leaf_index))``."""
-    entropy, t = key
-    k = jax.random.fold_in(jax.random.fold_in(
-        jax.random.PRNGKey(entropy), t), leaf_index)
-    plane = np.array(jax.random.normal(k, tuple(shape), jnp.float32))
-    return torch.from_numpy(plane).to(device)
-
-
 def _channel(**kw):
     return (JChannelSpec(**kw), ChannelSpec(**kw))
 

@@ -204,7 +204,7 @@ def _build(spec=None, **kw):
                                   **kw)
 
 
-@pytest.mark.parametrize("mode", ["stacked", "ragged", "sparse"])
+@pytest.mark.parametrize("mode", ["sparse"])
 def test_unported_round_modes_raise(mode):
     with pytest.raises(NotImplementedError, match=mode):
         _build(round_mode=mode)
@@ -223,14 +223,6 @@ def test_sparse_auto_selection_raises_and_names_the_way_out():
     eng = teng.build_host_engine(_spec(), to_torch(_init()), _torch_loss,
                                  data, device="cpu", round_mode="fused")
     assert len(eng.run().winners) == 1
-
-
-@pytest.mark.parametrize("kw,what", [
-    (dict(strategy="random-centralized"), "random-centralized"),
-])
-def test_unported_spec_options_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        _build(_spec(**kw))
 
 
 @pytest.mark.parametrize("obj", [
@@ -257,10 +249,13 @@ def test_unported_faults_mesh_objective_and_uneven_cohort_raise():
     assert THostBackend(_torch_loss, _user_data(), device="cpu",
                         objective=teng.ObjectiveSpec(aggregator="fedavgm")
                         ).objective_active()
+    # an uneven cohort builds and runs its rounds user by user
     uneven = _user_data()
     uneven[3] = {k: v[:40] for k, v in uneven[3].items()}
-    with pytest.raises(NotImplementedError, match="ragged"):
-        THostBackend(_torch_loss, uneven, device="cpu")
+    backend = THostBackend(_torch_loss, uneven, device="cpu")
+    assert not backend._rect and not backend._can_stack(list(range(8)))
+    hist = teng.FLEngine(_spec(), backend, to_torch(_init())).run()
+    assert len(hist.winners) == 1 and hist.uploads_total >= 1
     # a plain objective is the untouched path, not an unported one
     _build(_spec(objective=teng.ObjectiveSpec()))
 
@@ -276,8 +271,11 @@ def test_unported_run_options_and_merge_contexts_raise():
     assert eng.backend.objective_active() is False
     assert eng.backend.objective_needs_h() is False
     tr = eng.backend.train_round(eng.state, 0, list(range(NUM_USERS)), True)
-    with pytest.raises(NotImplementedError, match="partial-cohort"):
-        eng.backend.train_round(eng.state, 0, [0, 1], True)
+    # a partial-cohort round trains its users as one stack
+    part = eng.backend.train_round(eng.state, 0, [0, 1], True)
+    assert "stacked" in part.local_handle and list(part.losses) == [0, 1]
+    assert (part.priorities[[0, 1]] > 1.0).all()
+    assert (part.priorities[2:] == 1.0).all()
     empty = eng.backend.train_round(eng.state, 0, [], True)
     assert empty.losses == {} and empty.local_handle == {}
 

@@ -136,6 +136,17 @@ HISTORY_COUNTS = ("winners", "delivered", "upload_failures", "collisions",
                   "dropped_clients", "stale_merges", "quarantined_updates")
 
 
+def threefry_noise(key, leaf_index, shape, device):
+    """The reference's AirComp noise plane of one leaf (before the sigma
+    scale), for the port's ``HostBackend._noise_draw`` hook:
+    ``normal(fold_in(fold_in(PRNGKey(entropy), t), leaf_index))``."""
+    entropy, t = key
+    k = jax.random.fold_in(jax.random.fold_in(
+        jax.random.PRNGKey(entropy), t), leaf_index)
+    plane = np.array(jax.random.normal(k, tuple(shape), jnp.float32))
+    return torch.from_numpy(plane).to(device)
+
+
 def run_pair(spec_kw, rounds=4, noise_draw=None):
     """The JAX engine's ``run()`` and the port's on the pin scenario,
     with the same spec built from each package's own classes: a value
