@@ -49,7 +49,10 @@ without CUDA (there is no CPU path here). It
      784x200x10, 10 users, 2 winners a round, ``priority-distributed``)
      for 20 rounds, the full-width CNN for 3 rounds, and after each the
      ``core.server`` merges and the backend's own merge on a freshly
-     trained stack, held against the plain version; then device CSMA
+     trained stack, held against the plain version; the MLP cell through
+     ``FLEngine.run`` (on the fused path the E = 1 case of the sweep loop
+     below) and through the per-round loop (``FLEngine.run_round``), in
+     turns, each with its launches predicted; then device CSMA
      contention (``--contention-backend device``): the persistent loop
      kernel (one launch a pool attempt) against the plain Python loop
      with the same counter draws — every field and per-row events, the
@@ -67,13 +70,26 @@ without CUDA (there is no CPU path here). It
      objectives layer on the MLP cell, 20 rounds each: FedDyn + FedAvgM
      under the lossy channel (rounds with attempts and no deliveries
      still update h) and FedProx + FedAdam, and FedDyn + FedAvgM at
-     1000 users for 3 rounds; then the per-round fallback paths on the
+     1000 users for 3 rounds; the AirComp, fault and objective forms of
+     the fused merge through the per-round loop, 10 rounds each; then
+     the per-round fallback paths on the
      MLP cell: ``--round-mode stacked`` for 20 rounds,
      ``random-centralized`` (partial-cohort rounds: only the two winners
      train, as one stack) for 20, the same at 1000 users and 64 winners
      for 3, and an uneven cohort (odd users 40 examples short, so nothing
-     stacks: every user trains on its own) for 10 — with the launch counts
-     set to zero just before each path and read just after;
+     stacks: every user trains on its own) for 10; then the sweep path
+     (``FLEngine.run_sweep``; ``FLEngine.run`` on the fused path above is
+     its E = 1 case): the Fig. 3 grid (the four paper strategies x seeds 0
+     and 1, 8 lanes, 20 rounds) against the 8 sequential runs of its
+     cells and against itself with its overlap off, and 4 seeds of the 1000-user cell with device contention
+     against their 4 sequential runs, in turns, each with its launches a
+     round predicted exactly; the layers as sweep lanes (five objectives
+     and a plain lane under the lossy channel, AirComp at three SNR
+     points, the active faults over three seeds); checkpoint / resume
+     (``tools/kill_resume_smoke_torch.py`` on the card, a checkpointed
+     fused and stacked run of the MLP cell resumed by fresh engines) —
+     with the launch counts set to zero just before each path and read
+     just after;
   5. checks the result by the repository's own means: the pinned
      winners of ``tests/winner_pins.json``, the card against the CPU run
      of the same rounds (channel, AirComp with and without receiver
@@ -81,7 +97,12 @@ without CUDA (there is no CPU path here). It
      ragged and ``random-centralized`` lanes, seeds 0 and 1, the stacked
      one also with the lossy channel, the faults and noisy AirComp; the noisy AirComp
      lane also through the default counter-based noise draw on each
-     side), inert
+     side; a 4-strategy sweep over seeds 0 and 1, whose lanes also equal
+     the pins; the fused lanes through the per-round loop, whose winners
+     also equal ``run``'s; and the layer sweeps), the sweep lanes against their
+     sequential runs on the card (winners equal, losses and priorities
+     within rtol 1e-5), every resumed run bit-equal to the uninterrupted
+     one, inert
      objectives bit-equal to the plain run on the card,
      run-to-run bit-equality on the card (a noisy AirComp run and a
      FedAdam run included),
@@ -90,9 +111,11 @@ without CUDA (there is no CPU path here). It
      contention invariants and numpy parity of
      ``tests/test_contention_device.py``.
 
-``--profile`` adds a ``torch.profiler`` pass over a few warm rounds
-(device time by kernel, the device's idle share); the default run does
-not depend on the profiler.
+``--profile`` adds ``torch.profiler`` passes over a few rounds of each
+path through ``FLEngine.run`` after a warm-up run, the MLP cell's
+per-round loop and the Fig. 3 sweep (device time and launches by kernel,
+the device's idle share); the default run does not depend on the
+profiler.
 
 Every phase prints one JSON line; any failed check raises. The line
 before the last two is the per-kernel record, then the card's name and
@@ -100,12 +123,18 @@ power limit, then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
+import importlib.util
+import io
 import json
 import os
 import statistics
 from collections import Counter
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -119,11 +148,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.channel import ChannelSpec               # noqa: E402
+from repro_torch.checkpoint import load_fl_checkpoint     # noqa: E402
 from repro_torch.core import client as fl_client          # noqa: E402
 from repro_torch.core import server as fl_server          # noqa: E402
 from repro_torch.core.csma import CSMAConfig, CSMASimulator  # noqa: E402
 from repro_torch.engine import (ExperimentSpec, FLHistory,  # noqa: E402
-                                build_host_engine)
+                                PAPER_STRATEGIES, SweepSpec,
+                                build_host_engine, get_strategy_class)
 from repro_torch.engine import backends as fl_backends     # noqa: E402
 from repro_torch.engine.backends import (aircomp_noise,  # noqa: E402
                                          compact_weights)
@@ -211,8 +242,13 @@ BIG = ref.CONTENTION_BIG
 SLOT_S = 20e-6
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def randn(seed, shape, dtype):
@@ -1491,16 +1527,42 @@ def paper_args(*extra):
     return launch_train.make_parser().parse_args(["--device", "cuda", *extra])
 
 
+def paper_engine(model, rounds, *extra, **spec):
+    """The paper's cell through ``launch.train.build_paper_engine``
+    (``extra``: command-line flags; ``spec``: spec fields the command line
+    has no flag for: ``channel``, ``faults``, ``merge_backend``,
+    ``objective``)."""
+    return launch_train.build_paper_engine(
+        paper_args("--model", model, "--rounds", str(rounds), *extra),
+        **spec)
+
+
+def round_loop(engine):
+    """``engine``'s rounds through the per-round loop a caller drives with
+    ``FLEngine.run_round`` — the loop ``run`` takes where it does not
+    delegate to the sweep loop — evaluating as ``run`` does. Returns the
+    history."""
+    spec = engine.spec
+    hist = FLHistory(selections=np.zeros(engine.num_users, np.int64))
+    for t in range(spec.rounds):
+        engine.run_round(t, hist)
+        if engine.eval_fn is not None and (
+                t % spec.eval_every == 0 or t == spec.rounds - 1):
+            hist.accuracy.append(float(engine.eval_fn(engine.global_params)))
+            hist.eval_round.append(t)
+    return hist
+
+
 def run_main_path(model, rounds, *extra, split=None, merges=None,
-                  finite=None, h_moved=None, engine=None, **spec):
-    """The paper's cell (``extra`` appends command-line flags, ``spec``
-    replaces spec fields the command line has no flag for: ``channel``,
-    ``faults``, ``merge_backend``, ``objective``) through
-    ``launch.train.build_paper_engine`` and ``FLEngine.run``; returns
-    (history, engine, seconds, launches, per-round seconds, contention
-    events). The engine evaluates after every round, so the clock is read
-    inside its eval callback, after a synchronize. A ``split`` dict
-    collects the seconds spent in training (``train_round``; within it
+                  finite=None, h_moved=None, engine=None, loop="run",
+                  **spec):
+    """The paper's cell (``paper_engine``) through ``FLEngine.run`` — for
+    a fused cell the E = 1 sweep loop it delegates to — or, with
+    ``loop="run_round"``, through the per-round loop (``round_loop``);
+    returns (history, engine, seconds, launches, per-round seconds,
+    contention events). The engine evaluates after every round, so the
+    clock is read inside its eval callback, after a synchronize
+    (``lane_round_s``). A ``split`` dict collects the seconds spent in training (``train_round``; within it
     the SGD loop over the stack, ``sgd``, and the host's batch draws and
     gathers, ``batch_epoch``), in selection (``select``) and in the
     merge (``merge``); a ``merges``
@@ -1513,23 +1575,32 @@ def run_main_path(model, rounds, *extra, split=None, merges=None,
     global was finite after each round. ``engine``, when given, is run
     instead of the cell the arguments name."""
     if engine is None:
-        engine = launch_train.build_paper_engine(
-            paper_args("--model", model, "--rounds", str(rounds), *extra),
-            **spec)
+        engine = paper_engine(model, rounds, *extra, **spec)
     inner, stamps, marks = engine.eval_fn, [], []
     drawn = (fl_backends, fl_client)
     batch_epoch = [m.batch_epoch for m in drawn]
+    # a fused run is the E = 1 case of the sweep loop (FLEngine._delegates):
+    # its training, selection and merges go through the sweep's methods
+    delegated = loop == "run" and engine._delegates()
     if split is not None:
-        for obj, attr, key in ((engine.backend, "train_round", "train_round"),
-                               (engine.backend, "_epoch_run", "sgd"),
-                               (engine.strategy, "select", "select"),
-                               (engine.backend, "merge", "merge")):
+        be = engine.backend
+        spied = ((be, "sweep_train", "train_round"),
+                 (be, "_epoch_run", "sgd"),
+                 (engine, "_select_lanes", "select"),
+                 (be, "sweep_merge", "merge"),
+                 (be, "sweep_merge_faults", "merge")) if delegated else (
+            (be, "train_round", "train_round"), (be, "_epoch_run", "sgd"),
+            (engine.strategy, "select", "select"), (be, "merge", "merge"))
+        for obj, attr, key in spied:
             split[key] = 0.0
             setattr(obj, attr, _timed(getattr(obj, attr), split, key))
         split["batch_epoch"] = 0.0
         for m, fn in zip(drawn, batch_epoch):
             m.batch_epoch = _timed(fn, split, "batch_epoch", sync=False)
-    if merges is not None:
+    if merges is not None and delegated:
+        engine._dispatch_sweep_merge = sweep_merge_spy(
+            engine._dispatch_sweep_merge, merges, h_moved)
+    elif merges is not None:
         inner_merge = engine.backend.merge
 
         be = engine.backend
@@ -1573,21 +1644,79 @@ def run_main_path(model, rounds, *extra, split=None, merges=None,
     kcont.reset_loop_stats()
     t0 = time.perf_counter()
     try:
-        hist = engine.run()
+        hist = engine.run() if loop == "run" else round_loop(engine)
     finally:
         for m, fn in zip(drawn, batch_epoch):
             m.batch_epoch = fn
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)             # just after it
-    loop = dict(kcont.LOOP, shapes=sorted(kcont.LOOP["shapes"]))
+    cont = dict(kcont.LOOP, shapes=sorted(kcont.LOOP["shapes"]))
     # contention events and pool attempts of each round, read at the
     # round's eval
     for key in ("events", "attempts"):
-        loop["round_" + key] = np.diff(
+        cont["round_" + key] = np.diff(
             [0, *[m[key] for m in marks]]).tolist()
+    return hist, engine, dt, launches, lane_round_s(t0, stamps, delegated), \
+        cont
+
+
+def lane_round_s(t0, stamps, lanes_loop):
+    """Per-round seconds from the stamps taken at each round's first
+    evaluation. In the sweep loop (``lanes_loop``) a round's evaluation
+    comes after the next round's training was queued, so its stamp waits
+    for that training too: interval t holds round t + 1's training and
+    the last one none. The last is dropped there (with three rounds or
+    more), so every interval after the first is one round's work."""
     round_s = np.diff([t0, *stamps]).tolist()
-    return hist, engine, dt, launches, round_s, loop
+    return round_s[:-1] if lanes_loop and len(round_s) > 2 else round_s
+
+
+def lane_merge_kind(lane, merged, stale, attempts, guarded):
+    """The kind of merge a sweep lane's round runs (None: no merge — the
+    lane keeps its global), by the rule of a sequential run: the robust
+    merge where the fault guard is on and the lane has candidates or a
+    stale group; else AirComp, objective or digital where it delivered;
+    an h-carrying objective also merges a round of attempts alone."""
+    obj = lane.spec.objective
+    active = obj is not None and not obj.is_plain
+    if guarded:
+        return ("robust+stale" if stale else "robust") \
+            if merged or stale else None
+    if merged:
+        return ("aircomp" if lane.spec.merge_backend == "aircomp"
+                else "objective" if active else "digital")
+    return "objective-empty" if active and obj.uses_h and attempts else None
+
+
+def sweep_merge_spy(dispatch, merges, h_moved, merge_lanes=None):
+    """``FLEngine._dispatch_sweep_merge`` recording each lane's merge kind
+    into ``merges`` (and the lane into ``merge_lanes``, when given) and,
+    for an "objective-empty" merge of an h-carrying objective, whether it
+    moved the attempt winners' rows of the lane's FedDyn h (into
+    ``h_moved``, when given)."""
+    def spy(lanes, st, tr, merged_all, rfs, stales, lead_faults, k_pad, t,
+            attempts=None):
+        guarded = lead_faults is not None and lead_faults.merge_guarded
+        watch = []
+        for e, lane in enumerate(lanes):
+            kind = lane_merge_kind(lane, merged_all[e], stales[e],
+                                   attempts[0][e], guarded)
+            if kind is not None:
+                merges.append(kind)
+                if merge_lanes is not None:
+                    merge_lanes.append(e)
+            if kind == "objective-empty" and h_moved is not None:
+                rows = torch.as_tensor(attempts[0][e], device=DEV)
+                watch.append((e, rows, [h[e][rows].clone()
+                                        for h in tree_leaves(st.h)]))
+        out = dispatch(lanes, st, tr, merged_all, rfs, stales, lead_faults,
+                       k_pad, t, attempts=attempts)
+        for e, rows, before in watch:
+            h_moved.append(all(not torch.equal(b, h[e][rows]) for b, h in
+                               zip(before, tree_leaves(st.h))))
+        return out
+    return spy
 
 
 def _timed(fn, split, key, sync=True):
@@ -1811,10 +1940,21 @@ def phase_server_path(engine, model):
 
 # ------------------------------------------------- correctness of results
 def pin_scenario(strategy, seed, device, rounds=4, noise_draw=None,
-                 **spec):
+                 loop="run", **spec):
     """The scenario of ``tools/check_winner_pins.py``: 8 users, a 16 -> 4
     linear model, 4 rounds; ``spec`` adds spec fields, ``noise_draw``
-    replaces the backend's AirComp noise draw."""
+    replaces the backend's AirComp noise draw. Run through
+    ``FLEngine.run``, or with ``loop="run_round"`` through the per-round
+    loop (``round_loop``). Returns the run's history and final global."""
+    engine = pin_engine(strategy, seed, device, rounds, **spec)
+    if noise_draw is not None:
+        engine.backend._noise_draw = noise_draw
+    hist = engine.run() if loop == "run" else round_loop(engine)
+    return hist, engine.global_params
+
+
+def pin_engine(strategy, seed, device, rounds=4, **spec):
+    """The pin scenario's engine (see ``pin_scenario``)."""
     rng = np.random.default_rng(7)
     user_data = []
     for u in range(8):
@@ -1833,11 +1973,74 @@ def pin_scenario(strategy, seed, device, rounds=4, noise_draw=None,
               "b": torch.zeros(4, device=device)}
     spec = ExperimentSpec(rounds=rounds, strategy=strategy, seed=seed,
                           **spec)
-    engine = build_host_engine(spec, params, loss_fn, user_data,
-                               device=device)
-    if noise_draw is not None:
-        engine.backend._noise_draw = noise_draw
-    return engine.run(), engine.global_params
+    return build_host_engine(spec, params, loss_fn, user_data, device=device)
+
+
+def pin_sweep_lanes(pins):
+    """The four paper strategies x seeds 0 and 1 as ONE sweep on the pin
+    scenario, on the card and on the CPU: every lane's winners equal the
+    pins, and the card's history counts the CPU's."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        engine = pin_engine("priority-distributed", 0, device)
+        sweep = SweepSpec.grid(engine.spec, strategy=list(PAPER_STRATEGIES),
+                               seed=[0, 1])
+        runs[device] = engine.run_sweep(sweep)
+    gaps = []
+    for label, g, c in zip(sweep.labels, runs["cuda"], runs["cpu"]):
+        key = label.replace("strategy=", "").replace(",seed=", "/seed")
+        if g.winners != pins[key]:
+            raise AssertionError(f"reference_small sweep lane {key}: winners "
+                                 f"{g.winners} differ from the pins")
+        for f in HISTORY_COUNTS:
+            if getattr(g, f) != getattr(c, f):
+                raise AssertionError(f"reference_small sweep lane {key}: {f} "
+                                     "differs between the card and the CPU")
+    for a, b in zip(tree_leaves(runs["cuda"].final_globals),
+                    tree_leaves(runs["cpu"].final_globals)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-6)
+        gaps.append(float((a.cpu() - b).abs().max()))
+    return dict(lanes=sweep.labels, max_abs_gap_global=max(gaps))
+
+
+def pin_round_loop_lanes():
+    """The fused lanes of ``reference_small`` (plain, ``LAYER_LANES``,
+    ``OBJ_ACTIVE``; seed 0) through the per-round loop (``round_loop``:
+    ``HostBackend.merge`` in its digital, AirComp, robust and objective
+    forms), where ``run`` takes the E = 1 sweep loop: the card's run equals
+    the CPU's in every history count, globals within rtol 1e-4 / atol
+    1e-6, and chooses the winners the card's ``run`` chooses."""
+    cells = {"plain": ("priority-distributed", {}), **LAYER_LANES,
+             **{f"objective/{k}": ("priority-distributed",
+                                   dict(objective=o))
+                for k, o in OBJ_ACTIVE.items()}}
+    out = {}
+    for label, (strategy, spec) in cells.items():
+        gh, gp = pin_scenario(strategy, 0, "cuda", loop="run_round", **spec)
+        ch, cp = pin_scenario(strategy, 0, "cpu", loop="run_round", **spec)
+        dh, _ = pin_scenario(strategy, 0, "cuda", **spec)
+        for f in HISTORY_COUNTS:
+            if getattr(gh, f) != getattr(ch, f):
+                raise AssertionError(f"reference_small run_round/{label}: "
+                                     f"{f} differs between the card and "
+                                     "the CPU")
+        if gh.winners != dh.winners:
+            raise AssertionError(f"reference_small run_round/{label}: the "
+                                 "per-round loop and run's sweep loop chose "
+                                 f"differently on the card: {gh.winners} "
+                                 f"vs {dh.winners}")
+        for a, b in zip(tree_leaves(gp), tree_leaves(cp)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-4, atol=1e-6)
+        out[label] = dict(
+            winners=gh.winners, upload_failures=gh.upload_failures,
+            stale_merges=gh.stale_merges,
+            quarantined=gh.quarantined_updates,
+            max_abs_gap_global=max(float((a.cpu() - b).abs().max())
+                                   for a, b in zip(tree_leaves(gp),
+                                                   tree_leaves(cp))))
+    return out
 
 
 def cpu_noise(key, leaf_index, shape, device):
@@ -2052,13 +2255,19 @@ def phase_reference_small():
             raise AssertionError(f"reference_small inert objective {label}: "
                                  "not the plain lane's winners and global "
                                  "bits on the card")
+    sweep_lanes = pin_sweep_lanes(pins)
+    loop_lanes = pin_round_loop_lanes()
     emit("reference_small", agree_with_pins=["random-distributed/seed0",
                                              "priority-distributed/seed0",
                                              "random-centralized/seed0",
                                              "random-centralized/seed1",
-                                             *OBJ_INERT],
+                                             *OBJ_INERT,
+                                             *sweep_lanes["lanes"]],
+         sweep_lanes=sweep_lanes,
          card_equals_cpu=["priority-distributed/seed0", *lanes,
-                          *OBJ_ACTIVE, *round_lanes],
+                          *OBJ_ACTIVE, *round_lanes,
+                          *(f"run_round/{k}" for k in loop_lanes)],
+         run_round_lanes=loop_lanes,
          layer_lanes=lanes, round_lanes=round_lanes,
          objective_max_abs_gap_card_vs_cpu=gaps,
          inert_objectives_bit_equal_to_plain=list(OBJ_INERT),
@@ -2162,9 +2371,10 @@ def phase_main_path_u1000(rounds=3):
 
 
 def phase_layer_path(name, rounds, check_accuracy, *extra,
-                     attempt_only=False, **spec):
+                     attempt_only=False, loop="run", **spec):
     """A channel / fault / objective path of the MLP cell (``spec``: the
-    layers' spec fields; ``extra``: command-line flags): the checks of
+    layers' spec fields; ``extra``: command-line flags; ``loop``: as
+    ``run_main_path`` takes it): the checks of
     ``check_main_path`` with the launches predicted from the kinds of the
     run's merges, and a finite global after every round. With an
     h-carrying objective, every merge of a round with attempts but no
@@ -2173,11 +2383,11 @@ def phase_layer_path(name, rounds, check_accuracy, *extra,
     torch.cuda.reset_peak_memory_stats()
     base_mb = torch.cuda.memory_allocated() / 2**20
     merges, finite, h_moved = [], [], []
-    hist, engine, dt, launches, round_s, loop = run_main_path(
+    hist, engine, dt, launches, round_s, cont = run_main_path(
         "mlp", rounds, *extra, merges=merges, finite=finite,
-        h_moved=h_moved, **spec)
+        h_moved=h_moved, loop=loop, **spec)
     check_main_path(name, hist, engine, launches, rounds, check_accuracy,
-                    events=loop["events"], attempts=loop["attempts"],
+                    events=cont["events"], attempts=cont["attempts"],
                     merges=merges)
     if len(finite) != rounds or not all(finite):
         raise AssertionError(f"{name}: the global was not finite after "
@@ -2188,10 +2398,11 @@ def phase_layer_path(name, rounds, check_accuracy, *extra,
     steady = statistics.median(round_s[1:])
     emit(name, rounds=rounds, seconds=dt, first_round_s=round_s[0],
          median_later_round_s=steady, rounds_per_s=1.0 / steady,
-         round_s=round_s, launches=launches, merges=dict(Counter(merges)),
-         events=loop["events"], attempts=loop["attempts"],
-         round_events=loop["round_events"],
-         round_attempts=loop["round_attempts"],
+         round_s=round_s, loop=loop, launches=launches,
+         merges=dict(Counter(merges)),
+         events=cont["events"], attempts=cont["attempts"],
+         round_events=cont["round_events"],
+         round_attempts=cont["round_attempts"],
          uploads_total=hist.uploads_total,
          delivered=sum(len(d) for d in hist.delivered),
          upload_failures=hist.upload_failures, retries=hist.retries,
@@ -2220,8 +2431,7 @@ def uneven_mlp_engine(rounds):
     (``tests/test_engine.py``) — so they hold 17 batches of 32 against
     the even users' 18 and nothing stacks: the default round mode runs
     every user on its own (the ragged path, U = 1 launches)."""
-    base = launch_train.build_paper_engine(
-        paper_args("--model", "mlp", "--rounds", str(rounds)))
+    base = paper_engine("mlp", rounds)
     data = [{k: v[: len(v) - 40 * (u % 2)] for k, v in c.data.items()}
             for u, c in enumerate(base.backend.clients)]
     return build_host_engine(base.spec, base.state, base.backend._loss_fn,
@@ -2273,7 +2483,7 @@ def phase_round_path(name, rounds, check_accuracy, path, *extra,
     return launches
 
 
-def phase_round_paths_in_turns(rounds=8):
+def phase_round_paths_in_turns(rounds=5):
     """The MLP cell on the fused, stacked and ragged round paths and
     under ``random-centralized`` (a stacked partial-cohort round), in
     turns (fused, stacked, ragged, random-centralized, then back in
@@ -2301,7 +2511,75 @@ def phase_round_paths_in_turns(rounds=8):
                    for v in variants})
 
 
-def phase_layer_overhead(rounds=10):
+def phase_loops_in_turns(rounds=20):
+    """The MLP cell through ``FLEngine.run`` (the E = 1 sweep loop it
+    delegates to) and through the per-round loop (``round_loop``), in
+    turns (run, run_round, run_round, run), so that the host's drift over
+    the call falls on both alike. Every run is held to ``check_main_path``
+    (launch predictions and learning); the two loops' winners must be
+    equal, their losses and priorities within rtol 1e-5. Emits the seconds
+    a round of each: the whole run over its rounds (evaluation included,
+    as a user's run has it) and the median later round (read as
+    ``lane_round_s`` reads each loop's stamps)."""
+    order = ["run", "run_round", "run_round", "run"]
+    per_s = {k: [] for k in order[:2]}
+    steady = {k: [] for k in order[:2]}
+    hists, globs, launches = {}, {}, {}
+    for loop in order:
+        hist, engine, dt, l, round_s, _ = run_main_path("mlp", rounds,
+                                                        loop=loop)
+        check_main_path(f"main_path_mlp_loops_in_turns/{loop}", hist,
+                        engine, l, rounds, True)
+        per_s[loop].append(dt / rounds)
+        steady[loop].append(statistics.median(round_s[1:]))
+        if loop not in hists:
+            hists[loop], launches[loop] = hist, l
+            globs[loop] = [x.clone() for x in
+                           tree_leaves(engine.global_params)]
+        del engine
+    a, b = hists["run"], hists["run_round"]
+    gap = max(float(np.max(np.abs(np.asarray(x) / np.asarray(y) - 1.0)))
+              for x, y in ((a.priorities, b.priorities),
+                           (a.train_loss, b.train_loss)))
+    emit("main_path_mlp_loops_in_turns", rounds=rounds, order=order,
+         seconds_per_round=per_s, median_later_round_s=steady,
+         run_vs_run_round=statistics.mean(per_s["run"])
+         / statistics.mean(per_s["run_round"]),
+         launches_per_round={k: per_round(v, rounds)
+                             for k, v in launches.items()},
+         winners_equal=a.winners == b.winners,
+         max_rel_gap_losses_priorities=gap,
+         final_global_bit_equal=all(torch.equal(x, y) for x, y in zip(
+             globs["run"], globs["run_round"])))
+    if a.winners != b.winners or gap >= 1e-5 \
+            or launches["run"] != launches["run_round"]:
+        raise AssertionError(
+            "main_path_mlp_loops_in_turns: run and the per-round loop "
+            f"differ: winners equal {a.winners == b.winners}, largest "
+            f"relative gap {gap:.3e}, launches {launches}")
+    return launches["run_round"]
+
+
+def phase_run_round_layers(rounds=10):
+    """The AirComp, fault and objective forms of the fused MLP cell
+    through the per-round loop (``round_loop``; ``run`` takes the E = 1
+    sweep loop for them): ``HostBackend.merge``'s AirComp, robust and
+    objective merges, each run held to ``check_main_path``'s launch
+    predictions from its merge kinds (``phase_layer_path``). Returns the
+    launches of the four runs together."""
+    total = Counter()
+    for name, spec in (("aircomp", AIRCOMP),
+                       ("faults", dict(channel=LOSSY, faults=ACTIVE)),
+                       ("fedprox_fedadam", dict(objective=FEDADAM)),
+                       ("feddyn_fedavgm", dict(channel=LOSSIER,
+                                               objective=FEDDYN))):
+        total.update(phase_layer_path(f"main_path_mlp_run_round_{name}",
+                                      rounds, False, loop="run_round",
+                                      **spec))
+    return dict(total)
+
+
+def phase_layer_overhead(rounds=6):
     """The MLP cell plain, with the AirComp merge, with the fault layer
     and with FedProx + FedAdam, in turns (plain, AirComp, faults,
     objectives, objectives, faults, AirComp, plain), so that the host's
@@ -2322,27 +2600,362 @@ def phase_layer_overhead(rounds=10):
                    for v in variants})
 
 
-def phase_profile(model, rounds=4, *extra, label=None, engine=None,
-                  **spec):
-    """``--profile``: where a steady round's time goes — device time by
-    kernel name and the device's busy share, from ``torch.profiler``
-    over the rounds after the first. ``engine``, when given, is profiled
-    instead of the cell the arguments name."""
-    from torch.profiler import ProfilerActivity, profile
-    if engine is None:
-        engine = launch_train.build_paper_engine(
-            paper_args("--model", model, "--rounds", str(rounds), *extra),
-            **spec)
-    engine.run()                               # warm-up
-    hist = FLHistory(selections=np.zeros(engine.num_users, np.int64))
+# ------------------------------------------------------------ the sweep
+def cell_engine(base, spec, device="cuda", init=None):
+    """An engine for ``spec`` over ``base``'s cohort — its data, initial
+    weights (never written; ``init`` replaces them), loss, evaluation and
+    round mode: the cell one lane of a sweep over ``base`` runs, as a
+    sequential run. On ``device="cpu"`` it evaluates nothing."""
+    be = base.backend
+    return build_host_engine(
+        spec, base.state if init is None else init, be._loss_fn,
+        [c.data for c in be.clients],
+        base.eval_fn if device == "cuda" else None,
+        round_mode=be._mode, device=device)
+
+
+def timed(engine, call):
+    """``call(engine)`` (a ``run`` or ``run_sweep``) with the launch
+    counts and contention statistics set to 0 just before it and read
+    just after; every round stamped at its first evaluation, after a
+    synchronize (``lane_round_s``). Returns (result, seconds, launches,
+    per-round seconds, contention attempts)."""
+    E = [0]
+    inner, stamps, calls = engine.eval_fn, [], [0]
+
+    def timed_eval(params):
+        if calls[0] % max(E[0], 1) == 0:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        calls[0] += 1
+        return inner(params)
+
+    def spy_lanes(lanes, **kw):
+        E[0] = len(lanes)
+        return run_lanes(lanes, **kw)
+    run_lanes = engine._run_lanes
+    engine._run_lanes = spy_lanes
+    engine.eval_fn = timed_eval
     torch.cuda.synchronize()
+    ops.reset_launches()                      # just before the path
+    kcont.reset_loop_stats()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for t in range(rounds):
-            engine.run_round(t, hist)
+    try:
+        out = call(engine)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        engine.eval_fn, engine._run_lanes = inner, run_lanes
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)             # just after it
+    return (out, dt, launches, lane_round_s(t0, stamps, E[0] > 0),
+            kcont.LOOP["attempts"])
+
+
+def sweep_expected(engine, res, merges, merge_lanes, attempts=0):
+    """The launches a sweep makes, from its shape and the kinds of its
+    lanes' merges: ``fused_sgd`` one a local step for every lane, Eq. 2
+    one ``delta_norm_leaves`` call over the E x L leaf list a round; per
+    merge of a lane, one launch a leaf of its merge kernel (gather,
+    AirComp, robust once per group, with one ``delta_norm`` call a group)
+    and, for an objective merge with a nonzero weight whose aggregator
+    carries m / v, one ``server_opt`` call; one ``contention_loop`` launch
+    a pool attempt. A call of a leaf-list kernel takes up to
+    ``max_leaves()`` leaves."""
+    be = engine.backend
+    L = len(tree_leaves(engine.global_params))
+    E, R = len(res), len(res[0].winners)
+    prio = any(get_strategy_class(sp.strategy).uses_priority
+               for sp in res.specs)
+    kinds = Counter(merges)
+    groups = kinds["robust"] + 2 * kinds["robust+stale"]
+    server = sum(1 for k, e in zip(merges, merge_lanes)
+                 if k == "objective" and res.specs[e].objective.uses_server)
+    per = -(-L // kdn.max_leaves())
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update(
+        fused_sgd=-(-L // kfused.max_leaves()) * be._nb
+        * engine.spec.local_epochs * R,
+        delta_norm=(-(-E * L // kdn.max_leaves()) * R if prio else 0)
+        + per * groups,
+        gather_combine=L * (kinds["digital"] + kinds["objective"]
+                            + kinds["objective-empty"]),
+        aircomp_combine=L * kinds["aircomp"],
+        robust_combine=L * groups,
+        server_opt=-(-L // kso.max_leaves()) * server)
+    want[LOOP_KERNEL] = attempts
+    return want
+
+
+def run_checked_sweep(name, engine, sweep):
+    """``engine.run_sweep(sweep)`` with every lane's merges recorded, its
+    launches held against ``sweep_expected`` exactly and a finite global
+    in every lane. Returns (result, seconds, launches, per-round seconds,
+    merge kinds)."""
+    merges, lanes = [], []
+    engine._dispatch_sweep_merge = sweep_merge_spy(
+        engine._dispatch_sweep_merge, merges, None, lanes)
+    res, dt, launches, round_s, attempts = timed(
+        engine, lambda e: e.run_sweep(sweep))
+    del engine._dispatch_sweep_merge
+    want = sweep_expected(engine, res, merges, lanes, attempts)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, the code "
+                             f"predicts {want}")
+    if min(want["fused_sgd"], len(merges)) < 1:
+        raise AssertionError(f"{name}: a kernel of the path never ran")
+    for e in range(len(res)):
+        if len(res[e].winners) != sweep.specs[0].rounds or not all(
+                torch.isfinite(l).all()
+                for l in tree_leaves(res.lane_params(e))):
+            raise AssertionError(f"{name}: lane {e} is short or not finite")
+    return res, dt, launches, round_s, dict(Counter(merges))
+
+
+def per_round(launches, rounds):
+    return {k: v / rounds for k, v in launches.items() if v}
+
+
+def same_sweep(a, b):
+    """Two sweep results hold the same bits: every lane's history and
+    every final global."""
+    return all(x.winners == y.winners and x.train_loss == y.train_loss
+               and x.priorities == y.priorities and x.accuracy == y.accuracy
+               for x, y in zip(a, b)) and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a.final_globals),
+                                          tree_leaves(b.final_globals)))
+
+
+def sweep_in_turns(name, base, sweep, check_lanes, overlap_pair=False):
+    """The sweep (checked by ``run_checked_sweep``) and its cells as
+    sequential ``FLEngine.run`` calls over the same cohort, in turns:
+    sweep, sequential, sequential, sweep. With ``check_lanes`` every lane's
+    winners must equal its sequential run's, losses and priorities within
+    rtol 1e-5 (not for a strategy that trains before it selects: its
+    sweep lane trains the whole cohort). With ``overlap_pair`` the sweep
+    also runs with its overlap off, inside the two sweeps (sweep, sweep
+    without overlap, sequential, sequential, sweep without overlap,
+    sweep), and must give the bits of the overlapped sweep. Emits the
+    steady round, lane-rounds per second of each, launches a round and
+    peak memory."""
+    E, R = len(sweep), sweep.specs[0].rounds
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    res, dt, launches, round_s, kinds = run_checked_sweep(
+        name, cell_engine(base, sweep.specs[0]), sweep)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    sweep_steady, sweep_wall = [statistics.median(round_s[1:])], [dt]
+    seq_steady, seq_wall, seq_hists = [], [], []
+    off_steady, off_wall, off_same = [], [], []
+
+    def overlap_off():
+        out, t, _, r_s, _ = timed(
+            cell_engine(base, sweep.specs[0]),
+            lambda e: e.run_sweep(sweep, overlap=False))
+        off_steady.append(statistics.median(r_s[1:]))
+        off_wall.append(t)
+        off_same.append(same_sweep(out, res))
+    if overlap_pair:
+        overlap_off()
+    for turn in range(2):
+        steadies, wall = [], 0.0
+        for spec in sweep.specs:
+            hist, t, _, r_s, _ = timed(cell_engine(base, spec),
+                                       lambda e: e.run())
+            steadies.append(statistics.median(r_s[1:]))
+            wall += t
+            if turn == 0:
+                seq_hists.append(hist)
+        seq_steady.append(statistics.mean(steadies))
+        seq_wall.append(wall)
+    if overlap_pair:
+        overlap_off()
+    _, dt2, _, round_s2, _ = timed(cell_engine(base, sweep.specs[0]),
+                                   lambda e: e.run_sweep(sweep))
+    sweep_steady.append(statistics.median(round_s2[1:]))
+    sweep_wall.append(dt2)
+    gaps, equal = [], []
+    for e, (got, want) in enumerate(zip(res, seq_hists)):
+        equal.append(got.winners == want.winners)
+        if not get_strategy_class(sweep.specs[e].strategy) \
+                .trains_before_selection:
+            gaps.append(max(
+                float(np.max(np.abs(np.asarray(got.priorities)
+                                    / np.asarray(want.priorities) - 1.0)))
+                if got.priorities else 0.0,
+                float(np.max(np.abs(np.asarray(got.train_loss)
+                                    / np.asarray(want.train_loss) - 1.0)))))
+    lane_rps = [E / t for t in sweep_steady]
+    seq_rps = [1.0 / t for t in seq_steady]
+    fields = dict(
+        lanes=E, rounds=R, labels=sweep.labels, order=[
+            "sweep", "sequential", "sequential", "sweep"],
+        sweep_seconds=sweep_wall, sequential_seconds=seq_wall,
+        sweep_round_ms=[1e3 * t for t in sweep_steady],
+        sequential_round_ms=[1e3 * t for t in seq_steady],
+        lane_rounds_per_s=lane_rps, sequential_lane_rounds_per_s=seq_rps,
+        speedup=statistics.mean(lane_rps) / statistics.mean(seq_rps),
+        whole_run_speedup=statistics.mean(seq_wall)
+        / statistics.mean(sweep_wall),
+        first_round_s=round_s[0], launches=launches,
+        launches_per_round=per_round(launches, R), merges=kinds,
+        lanes_equal_sequential=equal,
+        max_rel_gap_losses_priorities=max(gaps, default=0.0),
+        accuracy_last=[h.accuracy[-1] for h in res],
+        peak_mem_mb=peak - base_mb, peak_mem_total_mb=peak)
+    if overlap_pair:
+        fields.update(
+            order=["sweep", "sweep_overlap_off", "sequential",
+                   "sequential", "sweep_overlap_off", "sweep"],
+            overlap_off_seconds=off_wall,
+            overlap_off_round_ms=[1e3 * t for t in off_steady],
+            overlap_off_lane_rounds_per_s=[E / t for t in off_steady],
+            overlap_gain=statistics.mean(off_steady)
+            / statistics.mean(sweep_steady),
+            overlap_gain_whole_run=statistics.mean(off_wall)
+            / statistics.mean(sweep_wall),
+            overlap_off_bit_equal=off_same)
+    emit(name, **fields)
+    if not all(off_same):
+        raise AssertionError(f"{name}: the sweep without overlap is not "
+                             f"the overlapped sweep's bits: {off_same}")
+    if check_lanes and not (all(equal) and max(gaps, default=0.0) < 1e-5):
+        raise AssertionError(
+            f"{name}: sweep lanes differ from their sequential runs on the "
+            f"card: winners equal {equal}, largest relative gap of losses "
+            f"and priorities {max(gaps, default=0.0):.3e}")
+    return launches
+
+
+def phase_sweep_paper_fig3(rounds=20):
+    """Fig. 3 as one ``run_sweep``: the four paper strategies x seeds 0
+    and 1, the MLP cell (non-IID shards, 10 users), against the eight
+    sequential runs of the same cells on the card, and against itself
+    with its overlap off."""
+    base = paper_engine("mlp", rounds)
+    sweep = SweepSpec.grid(base.spec, strategy=list(PAPER_STRATEGIES),
+                           seed=[0, 1])
+    return sweep_in_turns("sweep_paper_fig3", base, sweep, True,
+                          overlap_pair=True)
+
+
+def phase_sweep_mlp_u1000(rounds=3):
+    """Four seeds of the 1000-user, k = 64 MLP cell with device
+    contention as one sweep, against the four sequential runs. The lanes
+    contend in one batched device call, whose collision redraws come from
+    the lead lane's counter: equal to the sequential runs in distribution
+    only, so their winners are reported, not required."""
+    base = launch_train.build_paper_engine(paper_args(
+        "--model", "mlp", "--rounds", str(rounds), "--users", "1000",
+        "--k", "64", "--n-train", "60000", "--round-mode", "fused",
+        "--contention-backend", "device"))
+    sweep = SweepSpec.grid(base.spec, seed=[0, 1, 2, 3])
+    launches = sweep_in_turns("sweep_mlp_U1000", base, sweep, False)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def layer_sweeps(spec):
+    """The layers' sweeps of ``sweep_layers`` over the cell ``spec``."""
+    rep = dataclasses.replace
+    return {
+        "objectives": [rep(spec, channel=LOSSY, objective=o)
+                       for o in (None, *OBJ_ACTIVE.values())],
+        "aircomp": [rep(spec, merge_backend="aircomp", channel=ChannelSpec(
+            fading="rayleigh", aircomp_sigma=0.01, aircomp_gain_floor=0.1,
+            tx_power_dbm=tx)) for tx in (10.0, 20.0, 30.0)],
+        "faults": [rep(spec, seed=s, channel=LOSSY, faults=ACTIVE)
+                   for s in (0, 1, 2)]}
+
+
+def phase_sweep_layers(rounds=4):
+    """The layers as sweep lanes on the MLP cell: the five active
+    objectives and a plain lane under the lossy channel, the AirComp
+    merge at three SNR points (transmit power 10 / 20 / 30 dBm, receiver
+    noise), the active faults under the lossy channel over three seeds.
+    Each sweep on the card (launches held against ``sweep_expected``) and
+    on the CPU: every history count of every lane equal."""
+    base = paper_engine("mlp", rounds)
+    init_cpu = tree_map(lambda p: p.cpu(), base.state)
+    out, total = {}, Counter()
+    for name, specs in layer_sweeps(base.spec).items():
+        sweep = SweepSpec(specs=specs)
+        res, dt, launches, round_s, kinds = run_checked_sweep(
+            f"sweep_layers/{name}", cell_engine(base, specs[0]), sweep)
+        total.update(launches)
+        cpu = cell_engine(base, specs[0], "cpu", init_cpu).run_sweep(sweep)
+        for e, (g, c) in enumerate(zip(res, cpu)):
+            for f in HISTORY_COUNTS:
+                if getattr(g, f) != getattr(c, f):
+                    raise AssertionError(
+                        f"sweep_layers/{name} lane {e}: {f} differs between "
+                        "the card and the CPU")
+        gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree_leaves(res.final_globals), tree_leaves(cpu.final_globals)))
+        out[name] = dict(
+            lanes=len(specs), seconds=dt, round_ms=[1e3 * t for t in round_s],
+            launches_per_round=per_round(launches, rounds), merges=kinds,
+            upload_failures=[h.upload_failures for h in res],
+            stale_merges=[h.stale_merges for h in res],
+            quarantined=[h.quarantined_updates for h in res],
+            max_abs_gap_global_card_vs_cpu=gap)
+    emit("sweep_layers", rounds=rounds, sweeps=out,
+         card_equals_cpu="every history count of every lane")
+    return dict(total)
+
+
+def phase_kill_resume(rounds=4):
+    """Checkpoint / resume on the card: ``tools/kill_resume_smoke_torch.py``
+    (its ``main``, in this process; a child a scenario killed after its
+    first checkpoint, resumed, bit-identical; both scenarios), then the
+    MLP cell run with checkpoints every two rounds and resumed by a fresh
+    engine: the fused run (its E = 1 sweep writes the sweep payload) and
+    the stacked run (the per-round "run" payload), each resumed run
+    bit-identical to the uninterrupted one."""
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "kill_resume_smoke_torch",
+        os.path.join(ROOT, "tools", "kill_resume_smoke_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = tool.main(["--device", "cuda"])    # its children: processes
+    if rc != 0:
+        raise AssertionError("kill_resume: the tool failed:\n"
+                             + said.getvalue())
+    tool_s = time.perf_counter() - t0
+    paths = {}
+    for label, extra in (("fused", ()), ("stacked",
+                                         ("--round-mode", "stacked"))):
+        args = paper_args("--model", "mlp", "--rounds", str(rounds), *extra)
+        ref = launch_train.build_paper_engine(args)
+        want = ref.run()
+        with tempfile.TemporaryDirectory() as d:
+            first = launch_train.build_paper_engine(args)
+            h1 = first.run(checkpoint_dir=d, checkpoint_every=2)
+            kind = load_fl_checkpoint(d)["kind"]
+            again = launch_train.build_paper_engine(args)
+            h2 = again.run(checkpoint_dir=d)
+        for h, e, what in ((h1, first, "checkpointed"), (h2, again,
+                                                         "resumed")):
+            if h.winners != want.winners or h.train_loss != want.train_loss \
+                    or not all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves(e.global_params),
+                        tree_leaves(ref.global_params))):
+                raise AssertionError(f"kill_resume {label}: the {what} run "
+                                     "is not the uninterrupted run's bits")
+        paths[label] = dict(payload=kind, winners=want.winners)
+    if [paths[k]["payload"] for k in ("fused", "stacked")] != ["sweep",
+                                                               "run"]:
+        raise AssertionError(f"kill_resume: payload kinds {paths}")
+    emit("kill_resume", tool=said.getvalue().strip().splitlines(),
+         tool_seconds=tool_s, rounds=rounds, paths=paths,
+         bit_identical=True, seconds=time.perf_counter() - t0)
+
+
+def profile_report(label, prof, wall_ms, rounds):
+    """Device time by kernel name and the device's busy share, from a
+    ``torch.profiler`` window of ``wall_ms``."""
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
@@ -2354,17 +2967,57 @@ def phase_profile(model, rounds=4, *extra, label=None, engine=None,
                or "delta_norm" in r[0] or "combine_kernel" in r[0]
                or "robust_kernel" in r[0] or "server_opt" in r[0]
                or "contention_cu" in r[0] or "loop_kernel" in r[0])
-    label = label or model + ("_device" if extra else "")
     emit(f"profile_{label}", rounds=rounds, wall_ms=wall_ms,
          device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
          port_kernels_ms=ours, port_kernels_share_of_busy=ours / busy_ms,
          device_kernels=len(rows),
          launches=sum(r[2] for r in rows),
          top=[dict(name=k[:90], ms=ms, count=c) for k, ms, c in rows[:12]],
+         # every device kernel's launches in the window, by name
+         launch_counts={k[:90]: c for k, _, c in rows},
          host_top=[dict(name=e.key[:60], self_cpu_ms=e.self_cpu_time_total
                         / 1e3, count=e.count)
                    for e in sorted(prof.key_averages(),
                                    key=lambda e: -e.self_cpu_time_total)[:10]])
+
+
+def profiled(label, engine, call, rounds):
+    """``call(engine)`` under ``torch.profiler``, with no evaluation and
+    the cohort's data already on the card (set-up, not a round), then
+    ``profile_report``."""
+    from torch.profiler import ProfilerActivity, profile
+    engine.eval_fn = None
+    if engine.backend.sweep_capable():
+        engine.backend._ensure_xstack()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call(engine)
+        torch.cuda.synchronize()
+    profile_report(label, prof, (time.perf_counter() - t0) * 1e3, rounds)
+
+
+def phase_profile_sweep(rounds=6):
+    """``--profile``: the Fig. 3 sweep (8 lanes) under ``torch.profiler``,
+    after a warm-up sweep: its device idle share."""
+    base = paper_engine("mlp", rounds)
+    sweep = SweepSpec.grid(base.spec, strategy=list(PAPER_STRATEGIES),
+                           seed=[0, 1])
+    base.run_sweep(sweep)                      # warm-up
+    profiled("sweep_paper_fig3", base, lambda e: e.run_sweep(sweep), rounds)
+
+
+def phase_profile(label, make, loop="run", rounds=4):
+    """``--profile``: where a run's time goes — device time by kernel name
+    and the device's busy share, from ``torch.profiler`` over the rounds
+    of a fresh engine (``make()``, ``rounds`` rounds), after a warm-up run
+    of another: through ``FLEngine.run`` (for a fused cell, the E = 1
+    sweep loop it delegates to) or, with ``loop="run_round"``, through
+    the per-round loop (``round_loop``)."""
+    make().run()                               # warm-up
+    profiled(label, make(),
+             round_loop if loop == "run_round" else lambda e: e.run(), rounds)
 
 
 # -------------------------------------------------------------------- run
@@ -2497,6 +3150,7 @@ def main():
     torch.cuda.empty_cache()
     phase_reference_small()
     phase_determinism()
+    l_loop = phase_loops_in_turns()
 
     # ---- device contention --------------------------------------------
     ran, l_passes = phase_contention_kernel_loop_agree()
@@ -2536,6 +3190,8 @@ def main():
         "main_path_mlp_U1000_feddyn", 3, False, "--users", "1000", "--k",
         "64", "--n-train", "60000", "--round-mode", "fused",
         "--contention-backend", "device", objective=FEDDYN)
+    # the layers' merges through the per-round loop (run takes the sweep's)
+    l_loop_layers = phase_run_round_layers()
 
     # ---- the stacked, ragged and partial-cohort round paths -------------
     l_stk = phase_round_path("main_path_mlp_stacked", 20, True, "stacked",
@@ -2550,21 +3206,33 @@ def main():
                              engine=uneven_mlp_engine(10))
     phase_round_paths_in_turns()
 
+    # ---- the sweep path and checkpoint / resume -------------------------
+    l_fig3 = phase_sweep_paper_fig3()
+    torch.cuda.empty_cache()
+    l_su = phase_sweep_mlp_u1000()
+    l_slay = phase_sweep_layers()
+    phase_kill_resume()
+
     t_checks = time.perf_counter() - t_start
     if "--profile" in sys.argv[1:]:
-        phase_profile("mlp")
-        phase_profile("mlp", 4, "--contention-backend", "device")
-        phase_profile("mlp", 4, label="mlp_aircomp", **AIRCOMP)
-        phase_profile("mlp", 4, label="mlp_faults", channel=LOSSY,
-                      faults=ACTIVE)
-        phase_profile("mlp", 4, label="mlp_objectives", objective=FEDADAM)
-        phase_profile("mlp", 4, "--round-mode", "stacked",
-                      label="mlp_stacked")
-        phase_profile("mlp", 4, "--strategy", "random-centralized",
-                      label="mlp_random_centralized")
-        phase_profile("mlp", 4, label="mlp_ragged",
-                      engine=uneven_mlp_engine(4))
-        phase_profile("cnn", rounds=2)
+        mlp = functools.partial(paper_engine, "mlp", 4)
+        phase_profile("mlp", mlp)
+        phase_profile("mlp_run_round", mlp, loop="run_round")
+        phase_profile("mlp_device", functools.partial(
+            mlp, "--contention-backend", "device"))
+        phase_profile("mlp_aircomp", functools.partial(mlp, **AIRCOMP))
+        phase_profile("mlp_faults", functools.partial(
+            mlp, channel=LOSSY, faults=ACTIVE))
+        phase_profile("mlp_objectives", functools.partial(
+            mlp, objective=FEDADAM))
+        phase_profile("mlp_stacked", functools.partial(
+            mlp, "--round-mode", "stacked"))
+        phase_profile("mlp_random_centralized", functools.partial(
+            mlp, "--strategy", "random-centralized"))
+        phase_profile("mlp_ragged", lambda: uneven_mlp_engine(4))
+        phase_profile("cnn", functools.partial(paper_engine, "cnn", 2),
+                      rounds=2)
+        phase_profile_sweep()
 
     # ---- the record ---------------------------------------------------
     # the three passes left the main path (the loop kernel fuses them):
@@ -2615,6 +3283,11 @@ def main():
             launches_random_centralized=l_rc[name],
             launches_U1000_random_centralized=l_rc1000[name],
             launches_ragged=l_rag[name],
+            launches_run_round=l_loop[name],
+            launches_run_round_layers=l_loop_layers.get(name, 0),
+            launches_sweep=l_fig3[name],
+            launches_sweep_U1000=l_su[name],
+            launches_sweep_layers=l_slay.get(name, 0),
             timed_at=where))
     emit("total", seconds=time.perf_counter() - t_start,
          before_profile_s=t_checks)

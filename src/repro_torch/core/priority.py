@@ -75,8 +75,16 @@ def stacked_model_priorities(local_stacked, global_params):
     local_leaves, global_leaves = _leaf_pairs(local_stacked, global_params)
     with torch.no_grad():
         d2, g2 = kops.delta_norm_leaves(local_leaves, global_leaves)
-        ratios = _ratio(d2, g2[:, None])
-        return _product(ratios.unbind(0), ratios[0])
+        return priority_product(d2, g2[:, None])
+
+
+def priority_product(d2, g2):
+    """Eq. (2) from ``delta_norm_leaves`` sums: ``d2`` (..., L, S) and
+    ``g2`` (..., L, 1) -> (..., S) f32, each leaf's clamped ratio, then
+    their product in leaf order (a sweep's lanes ride the leading
+    axes)."""
+    ratios = _ratio(d2, g2)
+    return _product(ratios.unbind(-2), ratios.select(-2, 0))
 
 
 def contention_window(priority, N: float):

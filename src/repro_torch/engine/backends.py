@@ -11,7 +11,7 @@ the engine:
 One implementation so far:
 
   HostBackend  the paper's simulation. Three round paths, the fastest
-               that applies wins:
+               that applies wins, and the sweep over the first:
 
                fused    (default) ONE device-resident step per round —
                         ``local_epochs`` folded into the batch axis,
@@ -76,11 +76,21 @@ One implementation so far:
                stale-only round with no fresh winner). Objectives run in
                the fused round only, as in the reference.
 
+               sweep    (``sweep_*``) E independent experiments over the
+                        fused path's cohort: the (E, U, ...) stack trains
+                        as E * U rows of the same loop (one ``fused_sgd``
+                        launch a step for every lane, each lane's
+                        objective law on its own rows), Eq. 2 for every
+                        lane in one ``delta_norm`` call over the E x L
+                        leaf list, then each lane's merge through the
+                        fused merges above, on its (U, ...) view of the
+                        stack. ``FLEngine.run`` on the fused path is its
+                        E = 1 case.
+
                The reference's ``sparse`` round path with its objective
-               programs, its sweep path (objective lanes included) and
-               cohort sharding are not ported yet; asking for one raises
-               ``NotImplementedError`` naming it. Nothing downgrades
-               silently.
+               programs and cohort sharding are not ported yet; asking
+               for one raises ``NotImplementedError`` naming it. Nothing
+               downgrades silently.
 
 Epoch batching stays on the host with each client's own rng stream, so
 fixed seeds give the reference's winner sequences. Contention stays on
@@ -95,21 +105,24 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.client import Client, batch_epoch, sgd_epoch_scan
 from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.core.priority import (model_priority,
+from repro_torch.core.priority import (model_priority, priority_product,
                                        stacked_model_priorities)
+from repro_torch.core.rngs import client_rng
 from repro_torch.device import resolve_device
 from repro_torch.engine.types import TrainResult
 from repro_torch.faults.robust import robust_merge
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.contention import counter_key, counter_uniform53
 from repro_torch.objectives.local import objective_epoch_scan
+from repro_torch.objectives.server import build_objective_table
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,6 +202,51 @@ def aircomp_noise(key, leaf_index: int, shape, device) -> torch.Tensor:
                           math.prod(shape), device)
     z = torch.sqrt(-2.0 * torch.log(u[0])) * torch.cos((2.0 * math.pi) * u[1])
     return z.to(torch.float32).reshape(shape)
+
+
+@dataclass
+class SweepState:
+    """Device + host state of one in-flight sweep of E lanes.
+
+    ``glob`` holds the E lanes' globals (one pytree a lane, fresh
+    tensors that never alias ``stack``); ``stack`` is the ``(E, U, ...)``
+    cohort, every user row of lane e equal to ``glob[e]`` at round start
+    — the device-resident stack the merge leaves, or None while a train
+    call owns it. ``rngs[e][u]`` is lane e / user u's epoch-permutation
+    stream, seeded from the LANE's spec seed (``client_rng``), so each
+    lane draws the batches a sequential run of that spec would.
+
+    ``obj`` is the sweep's ``ObjectiveTable`` (None: every lane plain
+    FedAvg); ``m`` / ``v`` the lanes' server moments (one pytree a lane)
+    and ``h`` the ``(E, U, ...)`` FedDyn state, all on the device.
+    """
+    num_lanes: int
+    glob: List[Any]
+    stack: Any
+    rngs: List[List[np.random.Generator]]
+    obj: Any = None
+    m: Optional[List[Any]] = None
+    v: Optional[List[Any]] = None
+    h: Any = None
+
+
+@dataclass
+class SweepTrainResult:
+    """One sweep training pass, as device tensors: the trained ``(E, U,
+    ...)`` stack (the merge overwrites it) and the ``(E, U)`` f32
+    priorities and losses — the only values the engine reads on the host
+    each round (``read``)."""
+    trained: Any
+    losses: Any
+    priorities: Any
+
+    def read(self):
+        """``(priorities, losses)`` as (E, U) float64 host arrays, in ONE
+        copy: the round's one sync. Read before anything else is queued
+        (a later copy would wait for it)."""
+        both = torch.stack((self.priorities, self.losses.float()))
+        prios, losses = both.cpu().numpy().astype(np.float64)
+        return prios, losses
 
 
 class Backend:
@@ -325,7 +383,7 @@ class HostBackend(Backend):
         self._resident = None      # device-resident merged cohort stack
         self._resident_key = None  # the global-state object it mirrors
         # ---- objectives state (lazy, on the device) -------------------
-        self._obj_run = None          # objective_epoch_scan closure
+        self._obj_runs = {}           # use_h -> objective_epoch_scan
         self._obj_m = None            # server-opt first moment (~ glob)
         self._obj_v = None            # server-opt second moment
         self._obj_h = None            # (U, ...) per-user FedDyn h-state
@@ -364,11 +422,12 @@ class HostBackend(Backend):
     def objective_needs_h(self) -> bool:
         return self.objective_active() and self._objective.uses_h
 
-    def _ensure_obj_run(self):
-        if self._obj_run is None:
-            self._obj_run = objective_epoch_scan(
-                self._loss_fn, self._lr, self._objective.uses_h)
-        return self._obj_run
+    def _obj_run(self, use_h: bool):
+        """The ``objective_epoch_scan`` closure, with or without h."""
+        if use_h not in self._obj_runs:
+            self._obj_runs[use_h] = objective_epoch_scan(
+                self._loss_fn, self._lr, use_h)
+        return self._obj_runs[use_h]
 
     def _ensure_obj_h(self, state):
         """(U, ...) FedDyn h tensors on the device, zero-initialised on
@@ -393,24 +452,38 @@ class HostBackend(Backend):
 
     def restore_objective_state(self, state) -> None:
         """Inverse of ``objective_state``: each leaf back on the device in
-        the dtype of the global's leaf it belongs to (``init_state``
-        records them), so a bf16 model's m / v / h come back bf16 — the
-        widening to f32 was exact, and so is the cast back. Before any
-        ``init_state`` the leaves keep the snapshot's dtype."""
+        the dtype of the global's leaf it belongs to (``to_device``), so a
+        bf16 model's m / v / h come back bf16 — the widening to f32 was
+        exact, and so is the cast back."""
         if state is None:
             return
-        dtypes = self._param_dtypes
+        self._obj_m = self.to_device(state.get("m"))
+        self._obj_v = self.to_device(state.get("v"))
+        self._obj_h = self.to_device(state.get("h"))
 
-        def dev(x):
-            if x is None:
-                return None
-            if dtypes is None:
-                return params_from_numpy(x, device=self.device)
-            return tree_map(lambda a, dt: params_from_numpy(
-                a, device=self.device, dtype=dt), x, dtypes)
-        self._obj_m = dev(state.get("m"))
-        self._obj_v = dev(state.get("v"))
-        self._obj_h = dev(state.get("h"))
+    def to_device(self, tree):
+        """A host numpy tree of the global's structure (a global, m / v,
+        an (E, ...) or (U, ...) stack of them) as tensors on this
+        backend's device, each leaf in the dtype of the global's leaf
+        that ``init_state`` recorded (the snapshot's dtype before any
+        ``init_state``). None stays None."""
+        if tree is None:
+            return None
+        if self._param_dtypes is None:
+            return params_from_numpy(tree, device=self.device)
+        return tree_map(lambda a, dt: params_from_numpy(
+            a, device=self.device, dtype=dt), tree, self._param_dtypes)
+
+    def adopt_sweep_objective(self, st) -> None:
+        """E = 1 delegation continuity: after ``run()`` went through the
+        sweep path, lane 0's m / v / h become this backend's, so a later
+        per-round round or checkpoint picks up the same state."""
+        if st.obj is None:
+            return
+        self._obj_m = st.m[0] if st.m is not None else None
+        self._obj_v = st.v[0] if st.v is not None else None
+        self._obj_h = (None if st.h is None
+                       else tree_map(lambda x: x[0], st.h))
 
     # ------------------------------------------------- fused round path
     def _ensure_xstack(self):
@@ -439,13 +512,12 @@ class HostBackend(Backend):
         rows out of the trained stack, reduce them under the compact
         weights in delivery order, keep ``old_glob`` when no weight is
         nonzero. ``old_glob`` is only read — on round 0 it may still be
-        the caller's init_params. The new global is a fresh tensor per
-        leaf; the trained stack's buffer is then overwritten with its
-        broadcast and becomes next round's resident stack."""
+        the caller's init_params. Returns the new global, a fresh tensor
+        per leaf; the caller then overwrites the trained stack's buffer
+        with its broadcast (``_restack``; a sweep, ``_end_sweep_merge``),
+        and that buffer becomes next round's resident stack."""
         with torch.no_grad():
-            new_glob = self._average(trained, idx, w, old_glob)
-            new_stack = self._restack(new_glob, trained)
-        return new_glob, new_stack
+            return self._average(trained, idx, w, old_glob)
 
     @staticmethod
     def _average(trained, idx, w, old_glob):
@@ -457,8 +529,10 @@ class HostBackend(Backend):
     def _restack(new_glob, trained):
         """Overwrite the trained stack's buffer with the broadcast of the
         new global; it becomes next round's resident stack."""
-        return tree_map(lambda g, l: l.copy_(g.unsqueeze(0).expand_as(l)),
-                        new_glob, trained)
+        with torch.no_grad():
+            return tree_map(
+                lambda g, l: l.copy_(g.unsqueeze(0).expand_as(l)),
+                new_glob, trained)
 
     def _fused_merge_air(self, trained, idx, alphas, coeffs, sigma, key):
         """AirComp twin of ``_fused_merge``: per leaf, the noisy
@@ -467,8 +541,8 @@ class HostBackend(Backend):
         power-control coefficients, with a receiver-noise plane
         ``sigma * N(0, 1)`` drawn on the device (none at ``sigma == 0``,
         which gives the bits of a zero plane). The weights and the
-        rescale are formed once a merge, on the device. Same residency
-        contract as the digital merge."""
+        rescale are formed once a merge, on the device. Returns the new
+        global, as the digital merge does."""
         leaves = tree_leaves(trained)
         sig = torch.tensor(sigma, dtype=torch.float32, device=self.device)
         with torch.no_grad():
@@ -476,11 +550,9 @@ class HostBackend(Backend):
             noise = iter([
                 sig * self._noise_draw(key, i, l.shape[1:], self.device)
                 if sigma != 0.0 else None for i, l in enumerate(leaves)])
-            new_glob = tree_map(
+            return tree_map(
                 lambda l: kops.aircomp_combine_weighted(
                     l, w, scale, next(noise), idx=idx), trained)
-            new_stack = self._restack(new_glob, trained)
-        return new_glob, new_stack
 
     def _merge_fused_faults(self, state, trained, idx, winners, ctx):
         """Robust-guard twin of ``_fused_merge``: compact the dense (U,)
@@ -489,8 +561,8 @@ class HostBackend(Backend):
         = the passthrough branch), gather their rows ONCE (both the
         delta norms and the combine read them), stack the stale group,
         and run ``robust_merge``. ``state`` (the old global, the guard's
-        delta reference) is only read. Writes ``ctx.n_quarantined`` —
-        one host sync a merge."""
+        delta reference) is only read. Returns the new global; writes
+        ``ctx.n_quarantined`` — one host sync a merge."""
         m = len(winners)
         k_pad = idx.shape[0]
         w = np.zeros(k_pad, np.float32)
@@ -503,33 +575,49 @@ class HostBackend(Backend):
             rows_idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
             rows = tree_map(lambda l: torch.index_select(l, 0, rows_idx),
                             trained)
-            stale = stale_w = None
-            if ctx.stale:
-                stale = tree_map(lambda *ls: torch.stack(ls),
-                                 *[p for p, _ in ctx.stale])
-                stale_w = np.asarray([w_ for _, w_ in ctx.stale], np.float32)
+            stale, stale_w = self._stale_group(ctx.stale, state)
             new_glob, nq = robust_merge(
                 rows, w, c, state, stale, stale_w,
                 quarantine=bool(ctx.quarantine),
                 clip_norm=float(ctx.clip_norm))
-            new_stack = self._restack(new_glob, trained)
         ctx.n_quarantined = int(nq)
-        return new_glob, new_stack
+        return new_glob
 
-    def _draw_big(self):
-        """(U, ep*take) epoch-permutation index matrix for ONE round:
-        every client draws one permutation per local epoch from ITS OWN
-        rng stream, on the host, client by client and epoch by epoch,
-        laid out with each user's epochs concatenated."""
-        U, bs, nb, E = (self.num_users, self._batch_size, self._nb,
-                        self._local_epochs)
+    @staticmethod
+    def _stale_group(stale, like):
+        """The ``(params, weight)`` stale entries as one (M, ...) stack on
+        the device of ``like`` (the old global) and in its leaf dtypes —
+        an entry restored from a checkpoint is host numpy — and their
+        (M,) f32 weights; ``(None, None)`` when there is none."""
+        if not stale:
+            return None, None
+        stack = tree_map(
+            lambda g, *ls: torch.stack([torch.as_tensor(x).to(
+                device=g.device, dtype=g.dtype) for x in ls]),
+            like, *[p for p, _ in stale])
+        return stack, np.asarray([w for _, w in stale], np.float32)
+
+    def _draw_perms(self, rngs):
+        """(E, U, ep*take) epoch-permutation index tensor for ONE round
+        of E lanes, ``rngs[e][u]`` lane e / user u's stream: one
+        permutation per (lane, local epoch, user), drawn on the host in
+        that order, each user's epochs laid out one after the other. A
+        single run is the one lane of its clients' own streams."""
+        E, U = len(rngs), self.num_users
+        bs, nb, ep = self._batch_size, self._nb, self._local_epochs
         n = self.clients[0].num_examples
         take = nb * bs
-        perms = np.empty((E, U, take), np.int64)
+        perms = np.empty((E, ep, U, take), np.int64)
         for e in range(E):
-            for c in self.clients:
-                perms[e, c.uid] = c._rng.permutation(n)[:take]
-        return perms.transpose(1, 0, 2).reshape(U, E * take)
+            for k in range(ep):
+                for u in range(U):
+                    perms[e, k, u] = rngs[e][u].permutation(n)[:take]
+        return perms.transpose(0, 2, 1, 3).reshape(E, U, ep * take)
+
+    def _draw_big(self):
+        """(U, ep*take) index matrix of one round of this backend's own
+        clients (``_draw_perms`` of their streams, one lane)."""
+        return self._draw_perms([[c._rng for c in self.clients]])[0]
 
     def _gather_rows(self, rows, big_rows):
         """(R, ep*nb, bs, ...) round batches for the data rows ``rows``
@@ -548,8 +636,7 @@ class HostBackend(Backend):
 
     def _fused_batches(self):
         """(U, E*nb, bs, ...) full-cohort round batches."""
-        big = self._draw_big()
-        return self._gather_rows(np.arange(self.num_users), big)
+        return self._gather_rows(np.arange(self.num_users), self._draw_big())
 
     def _train_round_fused(self, state, need_priority) -> TrainResult:
         self._ensure_xstack()
@@ -569,7 +656,7 @@ class HostBackend(Backend):
         if self.objective_active():
             extra = ((self._ensure_obj_h(state),)
                      if self._objective.uses_h else ())
-            trained, losses = self._ensure_obj_run()(
+            trained, losses = self._obj_run(self._objective.uses_h)(
                 stack, self._fused_batches(), state,
                 self._objective.prox_coeff, *extra)
         else:
@@ -670,50 +757,44 @@ class HostBackend(Backend):
             return self._k_max
         return max(m, 1)
 
-    def _objective_merge(self, state, trained, idx, w, w_host, attempts):
-        """Objective twin of ``_fused_merge``: the FedDyn h update over the
-        round's ATTEMPT winners, then the shared Eq. 1 average, then the
-        server step on the pseudo-gradient (``server_opt_leaves``, one
-        launch for every leaf) when the aggregator carries m/v, then the shared restack.
+    def _objective_merge(self, obj, state, trained, idx, w, w_host,
+                         attempts, m, v, h):
+        """Objective twin of ``_fused_merge`` for the objective ``obj``
+        with its server moments ``m`` / ``v`` (None, or pytrees like
+        ``state``) and FedDyn state ``h`` ((U, ...) or None): the h update
+        over the round's ATTEMPT winners, then the shared Eq. 1 average,
+        then the server step on the pseudo-gradient (``server_opt_leaves``,
+        one launch for every leaf) when the aggregator carries m / v.
+        Returns ``(new_glob, m', v')``.
 
         The h update ``h_u <- h_u - alpha * (w_u^end - w_glob)`` reads
         only the trained rows of the attempt winners (row = user id on
         the fused handle) and ``state``, so it runs first, before the
-        stack is overwritten; it writes each user's row once (the winners
-        are distinct: an indexed write, no float atomics); ``alpha == 0``
-        skips it, so h stays bitwise. A merge whose weights are all zero
-        (attempts but no deliveries: only an h-carrying objective
-        dispatches one) skips the server step on the host — the global is
-        the average, which is the old global's bits, and m / v stay as
-        they were, bitwise. m, v and h are device-resident; the new
-        global and moments are fresh tensors."""
-        obj = self._objective
+        stack is overwritten; it writes each user's row of ``h`` in place
+        once (the winners are distinct: an indexed write, no float
+        atomics); ``alpha == 0`` skips it, so h stays bitwise. A merge
+        whose weights are all zero (attempts but no deliveries: only an
+        h-carrying objective dispatches one) skips the server step on the
+        host — the global is the average, which is the old global's bits,
+        and m / v stay as they were, bitwise. The new global and moments
+        are fresh tensors."""
         with torch.no_grad():
-            if obj.uses_h:
-                h = self._ensure_obj_h(state)
-                att = [int(u) for u in (attempts or [])]
-                if att and obj.alpha_coeff != 0.0:
-                    rows = torch.as_tensor(att, dtype=torch.int64,
-                                           device=self.device)
-                    neg_alpha = -float(np.float32(obj.alpha_coeff))
-                    for hh, l, g in zip(tree_leaves(h), tree_leaves(trained),
-                                        tree_leaves(state)):
-                        hh[rows] = hh[rows] + neg_alpha * (l[rows] - g)
+            att = [int(u) for u in (attempts or [])]
+            if obj.uses_h and att and obj.alpha_coeff != 0.0:
+                rows = torch.as_tensor(att, dtype=torch.int64,
+                                       device=self.device)
+                neg_alpha = -float(np.float32(obj.alpha_coeff))
+                for hh, l, g in zip(tree_leaves(h), tree_leaves(trained),
+                                    tree_leaves(state)):
+                    hh[rows] = hh[rows] + neg_alpha * (l[rows] - g)
             new_glob = self._average(trained, idx, w, state)
-            if obj.uses_server:
-                if self._obj_m is None:
-                    self._obj_m = tree_map(torch.zeros_like, state)
-                    self._obj_v = tree_map(torch.zeros_like, state)
-                if np.any(w_host != 0.0):
-                    outs, ms, vs = kops.server_opt_leaves(
-                        tree_leaves(new_glob), tree_leaves(state),
-                        tree_leaves(self._obj_m), tree_leaves(self._obj_v),
-                        obj.server_consts())
-                    new_glob = tree_unflatten(state, outs)
-                    self._obj_m = tree_unflatten(state, ms)
-                    self._obj_v = tree_unflatten(state, vs)
-            new_stack = self._restack(new_glob, trained)
-        return new_glob, new_stack
+            if obj.uses_server and np.any(w_host != 0.0):
+                outs, ms, vs = kops.server_opt_leaves(
+                    tree_leaves(new_glob), tree_leaves(state),
+                    tree_leaves(m), tree_leaves(v), obj.server_consts())
+                new_glob = tree_unflatten(state, outs)
+                m, v = tree_unflatten(state, ms), tree_unflatten(state, vs)
+        return new_glob, m, v
 
     def merge(self, state, train_result, winners, merge_ctx=None,
               fault_ctx=None, attempts=None):
@@ -741,28 +822,35 @@ class HostBackend(Backend):
         idx, w = compact_weights(
             k_pad, winners, [self.clients[u].num_examples for u in winners])
         if fault_ctx is not None:
-            new_glob, new_stack = self._merge_fused_faults(
+            new_glob = self._merge_fused_faults(
                 state, trained, idx, winners, fault_ctx)
         else:
             # one upload of the host-assembled (k_pad,) vectors per merge
             idx_d = torch.from_numpy(idx).to(self.device)
             w_d = torch.from_numpy(w).to(self.device)
             if merge_ctx is None and self.objective_active():
-                new_glob, new_stack = self._objective_merge(
-                    state, trained, idx_d, w_d, w, attempts)
+                obj = self._objective
+                if obj.uses_server and self._obj_m is None:
+                    self._obj_m = tree_map(torch.zeros_like, state)
+                    self._obj_v = tree_map(torch.zeros_like, state)
+                h = self._ensure_obj_h(state) if obj.uses_h else None
+                new_glob, self._obj_m, self._obj_v = \
+                    self._objective_merge(obj, state, trained, idx_d, w_d,
+                                          w, attempts, self._obj_m,
+                                          self._obj_v, h)
             elif merge_ctx is None:
-                new_glob, new_stack = self._fused_merge(trained, idx_d, w_d,
-                                                        state)
+                new_glob = self._fused_merge(trained, idx_d, w_d, state)
             else:
                 # row index = user id here; the pad slots take user 0's
                 # coefficient, which their zero alpha masks
                 coeffs = np.asarray(merge_ctx.coeffs, np.float32)[idx]
-                new_glob, new_stack = self._fused_merge_air(
+                new_glob = self._fused_merge_air(
                     trained, idx_d, w_d,
                     torch.from_numpy(coeffs).to(self.device),
                     float(merge_ctx.noise_sigma), merge_ctx.key)
         handle["fused_stack"] = None     # buffer reused as the new stack
-        self._resident = new_stack       # stays on device for round t+1
+        # stays on device for round t+1
+        self._resident = self._restack(new_glob, trained)
         self._resident_key = new_glob
         return new_glob
 
@@ -810,16 +898,13 @@ class HostBackend(Backend):
         plus the stale group; also the stale-only round, where there is
         no fresh winner (``robust_merge`` takes ``trained=None``).
         Writes ``ctx.n_quarantined`` — one host sync a merge."""
-        trained = weights = corrupt = stale = stale_w = None
+        trained = weights = corrupt = None
         with torch.no_grad():
             if winners:
                 trained = self._stack_winners(handle, winners)
                 weights = np.asarray(ctx.weights, np.float32)[winners]
                 corrupt = np.asarray(ctx.corrupt, np.float32)[winners]
-            if ctx.stale:
-                stale = tree_map(lambda *ls: torch.stack(ls),
-                                 *[p for p, _ in ctx.stale])
-                stale_w = np.asarray([w_ for _, w_ in ctx.stale], np.float32)
+            stale, stale_w = self._stale_group(ctx.stale, state)
             glob, nq = robust_merge(
                 trained, weights, corrupt, state, stale, stale_w,
                 quarantine=bool(ctx.quarantine),
@@ -860,3 +945,269 @@ class HostBackend(Backend):
             return
         for c, s in zip(self.clients, states):
             c._rng.bit_generator.state = s
+
+    # -------------------------------------------------- sweep round path
+    # E independent experiments share every round's training: the
+    # (E, U, ...) stack trains as E * U rows of the fused round's loop
+    # (one ``fused_sgd`` launch a local step for every lane), and the
+    # lanes' Eq. 2 priorities are one ``delta_norm_leaves`` call over the
+    # E x L leaf list. The merge runs lane by lane through the fused
+    # round's own merges, on each lane's (U, ...) view of the stack; one
+    # broadcast copy a leaf then restacks every lane at once.
+    def sweep_capable(self) -> bool:
+        """Sweeps need the fused full-cohort shape: fused mode and a
+        rectangular cohort (equal per-user example counts)."""
+        return self._mode == "fused" and self._rect
+
+    def _lane_stack(self, globs):
+        """A fresh contiguous (E, U, ...) stack, lane e's rows all equal
+        to ``globs[e]``."""
+        U = self.num_users
+        return tree_map(
+            lambda *ls: torch.stack(ls).unsqueeze(1).expand(
+                (len(ls), U) + tuple(ls[0].shape)).contiguous(), *globs)
+
+    def _new_sweep(self, globs, seeds, objectives, stream_states=None,
+                   objective_state=None) -> SweepState:
+        if not self.sweep_capable():
+            raise ValueError(
+                "sweep needs round_mode='fused' and a rectangular "
+                "cohort (equal per-user example counts)")
+        self._ensure_xstack()
+        rngs = [[client_rng(s, u) for u in range(self.num_users)]
+                for s in seeds]
+        for lane, states in zip(rngs, stream_states or []):
+            for gen, gs in zip(lane, states):
+                gen.bit_generator.state = gs
+        st = SweepState(num_lanes=len(seeds), glob=list(globs),
+                        stack=self._lane_stack(globs), rngs=rngs)
+        table = build_objective_table(objectives or [])
+        if table is not None:
+            st.obj = table
+            saved = objective_state or {}
+            E, U = st.num_lanes, self.num_users
+
+            def lanes(key):
+                x = saved.get(key)
+                if x is None:
+                    return [tree_map(torch.zeros_like, g) for g in globs]
+                return [self.to_device(tree_map(lambda a: a[e], x))
+                        for e in range(E)]
+            if table.use_srv:
+                st.m, st.v = lanes("m"), lanes("v")
+            if table.use_h:
+                st.h = (self.to_device(saved["h"]) if saved.get("h")
+                        is not None else tree_map(
+                            lambda g: torch.zeros((E, U) + tuple(g.shape),
+                                                  dtype=g.dtype,
+                                                  device=self.device),
+                            globs[0]))
+        return st
+
+    def sweep_init(self, init_params, seeds: Sequence[int],
+                   objectives=None) -> SweepState:
+        """Fresh sweep state: every lane starts from ``init_params``
+        (shared: nothing writes into a global) with its own client
+        streams, ``client_rng(seeds[e], u)`` — the streams a backend
+        seeded with that spec's seed would own, which is what makes the
+        lanes batch-draw-identical to sequential runs. ``objectives[e]``
+        is lane e's ObjectiveSpec (None = plain); an all-plain sweep
+        carries no objective state."""
+        glob = self.init_state(init_params)
+        return self._new_sweep([glob] * len(seeds), seeds, objectives)
+
+    def sweep_restore(self, glob, stream_states, seeds: Sequence[int],
+                      objectives=None, objective_state=None) -> SweepState:
+        """Rebuild a ``SweepState`` from a checkpoint payload: ``glob``
+        the host (E, ...) stack of the lanes' globals, ``stream_states``
+        the matching ``sweep_stream_states`` snapshot, ``seeds`` the lane
+        seeds (stream identity only — the restored positions override the
+        origin), ``objective_state`` the ``sweep_objective_state``
+        snapshot. Every leaf comes back in the global's dtype."""
+        E = len(seeds)
+        globs = [self.to_device(tree_map(lambda a: a[e], glob))
+                 for e in range(E)]
+        return self._new_sweep(globs, seeds, objectives, stream_states,
+                               objective_state)
+
+    def sweep_batches(self, st: SweepState):
+        """(E * U, ep*nb, bs, ...) round batches, lane-major: the data
+        stays on the device (``_ensure_xstack``) and only the (E, U,
+        ep*take) index tensor is uploaded."""
+        E, U = st.num_lanes, self.num_users
+        big = self._draw_perms(st.rngs).reshape(E * U, -1)
+        return self._gather_rows(np.tile(np.arange(U), E), big)
+
+    def sweep_train(self, st: SweepState, batched,
+                    need_priority: bool) -> SweepTrainResult:
+        """ONE training pass for all E lanes: the (E, U, ...) stack, seen
+        as E * U rows, runs the fused round's loop in place (an objective
+        sweep: the per-lane law of ``objective_epoch_scan``, each lane's
+        rows anchored to its own global); then the lanes' Eq. 2
+        priorities. Returns device tensors: no host sync here."""
+        E, U = st.num_lanes, self.num_users
+        stack, st.stack = st.stack, None
+        rows = tree_map(lambda p: p.view((E * U,) + tuple(p.shape[2:])),
+                        stack)
+        if st.obj is not None:
+            run = self._obj_run(st.obj.use_h)
+            anchors = tree_map(lambda *ls: torch.stack(ls), *st.glob)
+            extra = ((tree_map(lambda x: x.view((E * U,)
+                                                + tuple(x.shape[2:])),
+                               st.h),) if st.obj.use_h else ())
+            _, losses = run(rows, batched, anchors, st.obj.prox, *extra)
+        else:
+            _, losses = self._epoch_run(rows, batched)
+        loss_u = losses[:, -self._nb:].mean(dim=1).view(E, U)
+        if need_priority:
+            prios = self._sweep_priorities(stack, st.glob)
+        else:
+            prios = torch.ones((E, U), dtype=torch.float32,
+                               device=self.device)
+        return SweepTrainResult(trained=stack, losses=loss_u,
+                                priorities=prios)
+
+    @staticmethod
+    def _sweep_priorities(trained, globs):
+        """(E, U) f32 Eq. 2 priorities: ONE ``delta_norm_leaves`` call
+        over the E x L list (lane e's (U, ...) view of every leaf against
+        ``globs[e]``), then each lane's ratio product in leaf order."""
+        E = len(globs)
+        leaves = tree_leaves(trained)
+        L = len(leaves)
+        with torch.no_grad():
+            d2, g2 = kops.delta_norm_leaves(
+                [l[e] for e in range(E) for l in leaves],
+                [g for e in range(E) for g in tree_leaves(globs[e])])
+            return priority_product(d2.view(E, L, -1), g2.view(E, L, 1))
+
+    def _lane(self, trained, e):
+        """Lane e's (U, ...) view of the (E, U, ...) trained stack."""
+        return tree_map(lambda p: p[e], trained)
+
+    @staticmethod
+    def _end_sweep_merge(st, trained, new_glob):
+        """Every lane's rows of the trained buffer take its new global (a
+        lane that did not merge, its old one): one broadcast copy a leaf
+        over the whole (E, U, ...) stack. The buffer becomes the resident
+        stack."""
+        with torch.no_grad():
+            for l, *gs in zip(tree_leaves(trained),
+                              *map(tree_leaves, new_glob)):
+                src = gs[0][None] if len(gs) == 1 else torch.stack(gs)
+                l.copy_(src.unsqueeze(1).expand_as(l))
+        st.glob, st.stack = new_glob, trained
+
+    def sweep_merge(self, st: SweepState, tr: SweepTrainResult,
+                    idx: np.ndarray, w: np.ndarray, merge_ctx=None,
+                    uids=None, attempts=None) -> None:
+        """Eq. 1 for every lane, lane by lane on its view of the trained
+        stack, through the fused round's digital, AirComp or objective
+        merge: ``idx`` / ``w`` (E, k_pad) row indices (user ids) and
+        compact weights, zero-padded; ``merge_ctx`` the sweep's AirComp
+        inputs ((E, U) coefficients, (E,) sigmas, one ``(entropy, t)``
+        noise key a lane); ``uids`` the (E, k_pad) user ids behind the
+        slots (for the coefficient gather); ``attempts`` the per-lane
+        attempt winners ``(uids, positions)`` for the FedDyn h update. A
+        lane merges where a sequential run would: a nonzero weight, or
+        attempts under an h-carrying objective; any other lane keeps its
+        global — the reference's all-zero-weight guard, decided on the
+        host, so its kernels are not launched. The trained buffer
+        becomes the resident stack."""
+        trained, tr.trained = tr.trained, None
+        dev = self.device
+        idx_d = torch.from_numpy(np.ascontiguousarray(idx)).to(dev)
+        w_d = torch.from_numpy(np.ascontiguousarray(w)).to(dev)
+        new_glob = []
+        for e in range(st.num_lanes):
+            lane, glob = self._lane(trained, e), st.glob[e]
+            obj = st.obj.specs[e] if st.obj is not None else None
+            att = attempts[0][e] if attempts is not None else []
+            go = bool(np.any(w[e] != 0.0)) or (
+                merge_ctx is None and obj is not None and obj.uses_h
+                and len(att) > 0)
+            if not go:
+                new_glob.append(glob)
+            elif merge_ctx is not None:
+                coeffs = np.asarray(merge_ctx.coeffs[e], np.float32)[
+                    np.asarray(uids[e], np.int64)]
+                new_glob.append(self._fused_merge_air(
+                    lane, idx_d[e], w_d[e], torch.from_numpy(coeffs).to(dev),
+                    float(merge_ctx.noise_sigma[e]), merge_ctx.key[e]))
+            elif obj is not None and not obj.is_plain:
+                h = (None if st.h is None
+                     else tree_map(lambda x: x[e], st.h))
+                m = st.m[e] if st.m is not None else None
+                v = st.v[e] if st.v is not None else None
+                g, m, v = self._objective_merge(
+                    obj, glob, lane, idx_d[e], w_d[e], w[e], att, m, v, h)
+                if st.m is not None:
+                    st.m[e], st.v[e] = m, v
+                new_glob.append(g)
+            else:
+                new_glob.append(self._fused_merge(lane, idx_d[e], w_d[e],
+                                                  glob))
+        self._end_sweep_merge(st, trained, new_glob)
+
+    def sweep_merge_faults(self, st: SweepState, tr: SweepTrainResult,
+                           idx: np.ndarray, merged_all, ctxs) -> np.ndarray:
+        """The robust merge for every lane, lane by lane through the fused
+        round's ``_merge_fused_faults``: ``idx`` (E, k_pad) row indices,
+        ``merged_all[e]`` lane e's merge candidates (delivery order),
+        ``ctxs[e]`` its ``FaultMergeContext`` (dense weights and
+        corruption, its own stale group). A lane with no candidate and
+        no stale entry keeps its global, as a sequential run's round
+        without a merge does. Returns the (E,) quarantine counts."""
+        trained, tr.trained = tr.trained, None
+        new_glob = []
+        nq = np.zeros(st.num_lanes, np.int64)
+        for e, (cand, ctx) in enumerate(zip(merged_all, ctxs)):
+            if not (cand or ctx.stale):
+                new_glob.append(st.glob[e])
+                continue
+            new_glob.append(self._merge_fused_faults(
+                st.glob[e], self._lane(trained, e), idx[e], cand, ctx))
+            nq[e] = ctx.n_quarantined
+        self._end_sweep_merge(st, trained, new_glob)
+        return nq
+
+    def sweep_extract(self, tr: SweepTrainResult, e: int, u: int):
+        """Lane e / user u's trained params as freshly materialized
+        tensors, safe to hold across the merge that overwrites the
+        trained stack — the stale-upload capture."""
+        return tree_map(lambda p: p[e, u].clone(), tr.trained)
+
+    def sweep_global(self, st: SweepState, e: int):
+        """Lane e's current global params."""
+        return st.glob[e]
+
+    def sweep_globals(self, st: SweepState):
+        """Every lane's global as one (E, ...) stacked pytree (fresh)."""
+        return tree_map(lambda *ls: torch.stack(ls), *st.glob)
+
+    def sweep_stream_states(self, st: SweepState):
+        """Per-lane / per-user batch-stream snapshots. The engine takes
+        this BEFORE drawing the next round's batches, so a resumed run
+        replays the exact permutations the uninterrupted run drew."""
+        return [[copy.deepcopy(g.bit_generator.state) for g in lane]
+                for lane in st.rngs]
+
+    def sweep_objective_state(self, st: SweepState):
+        """Checkpoint form of a sweep's objective state: host numpy (E,
+        ...) m / v and (E, U, ...) h (None for a piece the sweep does not
+        carry), or None for an all-plain sweep."""
+        if st.obj is None:
+            return None
+
+        def stacked(x):
+            return None if x is None else params_to_numpy(
+                tree_map(lambda *ls: torch.stack(ls), *x))
+        return {"m": stacked(st.m), "v": stacked(st.v),
+                "h": None if st.h is None else params_to_numpy(st.h)}
+
+    def sweep_adopt_streams(self, st: SweepState, e: int) -> None:
+        """Adopt lane e's batch rng streams as the clients' own: after an
+        E = 1 delegated ``run`` the advanced generators go back, so
+        continuing per round draws where a pure per-round run would."""
+        for u, c in enumerate(self.clients):
+            c._rng = st.rngs[e][u]

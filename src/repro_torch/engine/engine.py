@@ -21,36 +21,115 @@ One round, regardless of strategy or backend:
      and airtime stats, the channel's airtime / energy and the fault
      counters.
 
+**Sweeps**: ``run_sweep`` runs E independent experiment cells through
+one training pass a round — the (E, U, ...) stack trained as E * U rows —
+with every lane's host selection in one grouped call
+(``select_grouped``). The round loop is a small pipeline: CUDA launches
+return at once, so while the card trains round t the host pre-draws round
+t+1's batches; only the (E, U) priorities and losses are read back each
+round, and the next train call is queued before the host settles round
+t's bookkeeping. ``run`` on a sweep-capable backend is the E = 1 case of
+the same loop.
+
+Sweep lanes are faithful to sequential runs: each lane owns its strategy
+instance (its contention rng), its engine rng, its fairness counter row
+and its per-user batch streams, all seeded from the lane's spec, so the
+winner sequences equal E separate per-round runs winner for winner. One
+documented exception: ``trains_before_selection`` lanes train the full
+cohort inside the sweep (selection still gates the merge), so their loss
+traces cover all users, not just the pre-selected winners.
+
+With ``checkpoint_dir`` both loops persist their whole host and device
+state (``checkpoint.fl_state``) and resume from it bit for bit.
+
 There is deliberately no strategy-name branching here: behaviour
 differences ride entirely on the Strategy capability flags and the
 Backend contract.
-
-This is the per-round loop of the reference engine, channel, fault and
-objectives layers included; its stream draws come in the reference's
-order, so every count of the history equals the reference's. Its sweep
-path (``run_sweep``, the E = 1 delegation of ``run``) and
-checkpoint/resume are not ported yet: each raises
-``NotImplementedError`` naming what is missing. The reference
-pins the sweep lane and the per-round loop to the same winners and
-globals, so this loop is the sequential reference of both.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+import time
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
 from repro_torch.channel.model import ChannelModel, MergeContext
-from repro_torch.core.counter import FairnessCounter
+from repro_torch.checkpoint.fl_state import (generator_state,
+                                             load_fl_checkpoint,
+                                             restore_generator,
+                                             run_fingerprint,
+                                             save_fl_checkpoint)
+from repro_torch.convert import params_to_numpy
+from repro_torch.core.counter import FairnessCounter, SweepFairnessCounter
 from repro_torch.core.rngs import (channel_noise_entropy, engine_rng,
                                    strategy_seed)
-from repro_torch.engine.backends import Backend
-from repro_torch.engine.registry import create_strategy
-from repro_torch.engine.spec import ExperimentSpec
-from repro_torch.engine.types import FLHistory, SelectionContext
+from repro_torch.engine.backends import Backend, compact_weights
+from repro_torch.engine.registry import create_strategy, select_grouped
+from repro_torch.engine.spec import ExperimentSpec, SweepSpec
+from repro_torch.engine.types import (FLHistory, SelectionContext,
+                                      SweepResult)
 from repro_torch.faults.injectors import FaultInjector
 from repro_torch.faults.robust import FaultMergeContext, fault_alphas
 from repro_torch.tree import tree_leaves
+
+
+class _Lane:
+    """Host-side state of ONE experiment cell inside a (possibly E = 1)
+    sweep: spec, strategy instance, engine rng, channel model, fault
+    injector, history. The fairness counter lives outside (one
+    ``SweepFairnessCounter`` row per lane). A device-contention strategy
+    runs its loop on ``device``, where the cohort lives. ``FLEngine``
+    builds one for its own spec and takes its streams from it."""
+
+    __slots__ = ("spec", "strategy", "rng", "channel", "faults", "history")
+
+    def __init__(self, spec: ExperimentSpec, num_users: int, *,
+                 device=None):
+        self.spec = spec
+        # engine rng and strategy/simulator rng are INDEPENDENT spawn
+        # children of the spec seed (core.rngs)
+        self.strategy = create_strategy(
+            spec.strategy, csma_config=spec.csma,
+            seed=strategy_seed(spec.seed),
+            contention_backend=spec.contention_backend,
+            **spec.strategy_options)
+        sim = getattr(self.strategy, "_sim", None)
+        if sim is not None:
+            sim.device = device
+        self.rng = engine_rng(spec.seed)
+        # channel and fault streams are further spawn children of the
+        # spec seed: building them never perturbs the streams above
+        self.channel = (ChannelModel(spec.channel, num_users, spec.seed)
+                        if spec.channel is not None else None)
+        self.faults = (FaultInjector(spec.faults, spec.seed,
+                                     cw_base=spec.cw_base,
+                                     tx_slots=spec.csma.tx_slots)
+                       if spec.faults is not None else None)
+        self.history = FLHistory(
+            selections=np.zeros(num_users, np.int64))
+
+    def state(self):
+        """The lane's host streams in checkpoint form (the keys both
+        payloads use)."""
+        return {
+            "engine_rng": generator_state(self.rng),
+            "strategy": (self.strategy._sim.state_dict()
+                         if hasattr(self.strategy, "_sim") else None),
+            "channel": (self.channel.state_dict()
+                        if self.channel is not None else None),
+            "faults": (self.faults.state_dict()
+                       if self.faults is not None else None),
+        }
+
+    def load_state(self, d) -> None:
+        """Restore what ``state`` saved."""
+        restore_generator(self.rng, d["engine_rng"])
+        if d["strategy"] is not None:
+            self.strategy._sim.load_state_dict(d["strategy"])
+        if self.channel is not None and d["channel"] is not None:
+            self.channel.load_state_dict(d["channel"])
+        if self.faults is not None and d["faults"] is not None:
+            self.faults.load_state_dict(d["faults"])
 
 
 def _gate_round(channel, attempted):
@@ -59,6 +138,52 @@ def _gate_round(channel, attempted):
         return list(attempted), 0
     delivered = channel.gate(attempted)
     return delivered, len(attempted) - len(delivered)
+
+
+def _uploads(channel, faults, winners, extract, num_examples):
+    """One lane's round of uploads: the channel's PER gate, then, with
+    faults on, the fault pipeline (crashes, outages, HARQ retries,
+    stragglers, corruption). Stragglers' trained params are captured
+    (``extract(u)``) BEFORE the merge overwrites the trained stack.
+    Returns ``(delivered, failures, rf, stale_in, merged_now)``: the
+    arrivals, the losses that survived every retry, the fault round (or
+    None), last round's stale uploads and this round's merge
+    candidates."""
+    if faults is not None:
+        faults.begin_round()                 # burst-outage process
+    delivered, failures = _gate_round(channel, winners)
+    if faults is None:
+        return delivered, failures, None, [], delivered
+    rf = faults.process_uploads(
+        winners, delivered, channel.per if channel is not None else None)
+    stale_in = faults.pop_stale()
+    for u in rf.stragglers:
+        faults.push_stale(u, extract(u), num_examples(u))
+    return rf.arrived, len(rf.failed), rf, stale_in, rf.merged_now
+
+
+def _record_round(history, spec, channel, sel, winners, delivered,
+                  failures, rf, stale_in):
+    """Append one round's selection, delivery, contention, fault and
+    time / energy accounting to ``history`` (the caller adds priorities
+    and losses)."""
+    if winners:
+        history.uploads_total += len(winners)
+        for u in winners:
+            history.selections[u] += 1
+    history.winners.append(winners)
+    history.delivered.append(delivered)
+    history.upload_failures += failures
+    history.collisions += sel.collisions
+    retry_slots = rf.retry_slots if rf is not None else 0
+    history.contention_slots += sel.elapsed_slots + retry_slots
+    if rf is not None:
+        history.retries += rf.retries
+        history.dropped_clients += len(rf.crashed)
+        history.stale_merges += len(stale_in)
+    _record_time(history, spec, channel, sel.elapsed_slots, winners,
+                 retry_slots=retry_slots,
+                 retry_uploads=rf.retry_uploads if rf is not None else ())
 
 
 def _record_time(history, spec, channel, elapsed_slots, attempted,
@@ -95,17 +220,11 @@ class FLEngine:
         self.num_users = backend.num_users
         self.counter = FairnessCounter(self.num_users,
                                        spec.counter_threshold)
-        # engine rng and strategy/simulator rng are INDEPENDENT spawn
-        # children of the spec seed (core.rngs)
-        self.strategy = create_strategy(
-            spec.strategy, csma_config=spec.csma,
-            seed=strategy_seed(spec.seed),
-            contention_backend=spec.contention_backend,
-            **spec.strategy_options)
-        sim = getattr(self.strategy, "_sim", None)
-        if sim is not None:
-            # device contention runs where the cohort lives
-            sim.device = backend.device
+        # the engine's strategy, rng, channel and faults are those of
+        # one lane of its spec: ``run``'s E = 1 sweep runs that lane
+        self._lane = _Lane(spec, self.num_users, device=backend.device)
+        self.strategy, self._rng = self._lane.strategy, self._lane.rng
+        self.channel, self.faults = self._lane.channel, self._lane.faults
         obj = spec.objective
         if obj is not None and not obj.is_plain:
             if not backend.objective_active():
@@ -119,17 +238,11 @@ class FLEngine:
                     "non-plain objectives need the full-cohort fused "
                     "round; trains_before_selection strategy "
                     f"{spec.strategy!r} runs partial-cohort rounds")
-        self._rng = engine_rng(spec.seed)
-        # channel and fault streams are further spawn children of the
-        # spec seed: building them never perturbs the streams above
-        self.channel = (ChannelModel(spec.channel, self.num_users,
-                                     spec.seed)
-                        if spec.channel is not None else None)
-        self.faults = (FaultInjector(spec.faults, spec.seed,
-                                     cw_base=spec.cw_base,
-                                     tx_slots=spec.csma.tx_slots)
-                       if spec.faults is not None else None)
+        self._init_params = init_params
         self.state = backend.init_state(init_params)
+        # the state a run starts from: ``run`` delegates to the sweep loop
+        # only while ``self.state`` is still this object
+        self._pristine = self.state
 
     # ------------------------------------------------------------------
     @property
@@ -226,23 +339,10 @@ class FLEngine:
         # then records the post-fault / post-retry arrivals and
         # ``upload_failures`` the losses that survived every retry.
         winners = [int(u) for u in sel.winners]
-        faults = self.faults
-        if faults is not None:
-            faults.begin_round()            # burst-outage process
-        delivered, failures = _gate_round(self.channel, winners)
-        rf, stale_in, merged_now = None, [], delivered
-        if faults is not None:
-            rf = faults.process_uploads(
-                winners, delivered,
-                self.channel.per if self.channel is not None else None)
-            delivered, failures = rf.arrived, len(rf.failed)
-            merged_now = rf.merged_now
-            stale_in = faults.pop_stale()
-            # capture this round's stragglers BEFORE the merge overwrites
-            # the trained stack
-            for u in rf.stragglers:
-                faults.push_stale(u, self.backend.extract_local(tr, u),
-                                  self.backend.num_examples(u))
+        delivered, failures, rf, stale_in, merged_now = _uploads(
+            self.channel, self.faults, winners,
+            lambda u: self.backend.extract_local(tr, u),
+            self.backend.num_examples)
         # FedDyn's h-state is keyed to the round's ATTEMPT winners (they
         # trained, so their local h advanced even if the channel dropped
         # the upload) — such rounds still dispatch the merge, whose
@@ -260,23 +360,8 @@ class FLEngine:
                 history.quarantined_updates += int(fault_ctx.n_quarantined)
         if winners:
             self.counter.update(winners, len(winners))
-            history.uploads_total += len(winners)
-            for u in winners:
-                history.selections[u] += 1
-        history.winners.append(winners)
-        history.delivered.append(delivered)
-        history.upload_failures += failures
-        history.collisions += sel.collisions
-        retry_slots = rf.retry_slots if rf is not None else 0
-        history.contention_slots += sel.elapsed_slots + retry_slots
-        if rf is not None:
-            history.retries += rf.retries
-            history.dropped_clients += len(rf.crashed)
-            history.stale_merges += len(stale_in)
-        _record_time(history, spec, self.channel, sel.elapsed_slots,
-                     winners, retry_slots=retry_slots,
-                     retry_uploads=(rf.retry_uploads if rf is not None
-                                    else ()))
+        _record_round(history, spec, self.channel, sel, winners, delivered,
+                      failures, rf, stale_in)
         if strat.uses_priority:
             # one vectorized conversion — per-element float() is O(U)
             history.priorities.append(
@@ -289,18 +374,58 @@ class FLEngine:
         return winners
 
     # ------------------------------------------------------------------
+    def _delegates(self) -> bool:
+        """True when ``run`` goes through the sweep loop as its E = 1
+        case: a sweep-capable backend, a strategy that trains the whole
+        cohort (not ``trains_before_selection``), a pristine state
+        (untouched since init: after a merged round the per-round path
+        would continue consumed client streams) and a backend seeded with
+        the spec's seed (the lane re-derives the batch streams from
+        ``spec.seed``)."""
+        return (self.backend.sweep_capable()
+                and not self.strategy.trains_before_selection
+                and self.state is self._pristine
+                and getattr(self.backend, "seed", None) == self.spec.seed)
+
     def run(self, verbose: bool = False, *,
             checkpoint_dir: Optional[str] = None,
             checkpoint_every: int = 0) -> FLHistory:
-        """Run the spec's rounds, one ``run_round`` each."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: checkpoint / resume is not ported yet")
-        del checkpoint_every
+        """Run the spec's rounds. With ``checkpoint_dir`` set, the run
+        persists its full host+device state every ``checkpoint_every``
+        rounds (an atomic file) and — when the directory already holds a
+        checkpoint for THIS spec — resumes from it, bit-identically to
+        the uninterrupted run."""
         spec = self.spec
+        if self._delegates():
+            # E = 1 case of the sweep loop over this engine's own lane
+            # (its strategy, rng, channel and faults)
+            self._lane.history = FLHistory(
+                selections=np.zeros(self.num_users, np.int64))
+            result, st, counters = self._run_lanes(
+                [self._lane], init_state=self.state, overlap=True,
+                verbose=verbose, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every)
+            self.state = self.backend.sweep_global(st, 0)
+            self.counter.uploads[:] = counters.uploads[0]
+            self.counter.total_merged = int(counters.total_merged[0])
+            # the lane consumed spec-seeded batch streams; hand them to
+            # the clients so continued per-round training picks up the
+            # stream where a pure per-round run would be
+            self.backend.sweep_adopt_streams(st, 0)
+            self.backend.adopt_sweep_objective(st)
+            return result.histories[0]
+
+        # per-round path: stacked / ragged backends and partial-cohort
+        # (trains_before_selection) rounds
         history = FLHistory(
             selections=np.zeros(self.num_users, np.int64))
-        for t in range(spec.rounds):
+        start = 0
+        fp = run_fingerprint([spec], self.num_users)
+        if checkpoint_dir is not None:
+            payload = load_fl_checkpoint(checkpoint_dir)
+            if payload is not None:
+                history, start = self._load_run_payload(payload, fp)
+        for t in range(start, spec.rounds):
             self.run_round(t, history)
             if self.eval_fn is not None and (
                     t % spec.eval_every == 0 or t == spec.rounds - 1):
@@ -312,12 +437,314 @@ class FLEngine:
                           f"acc {acc:.4f}"
                           + (f" loss {history.train_loss[-1]:.4f}"
                              if history.train_loss else ""))
+            if (checkpoint_dir is not None and checkpoint_every > 0
+                    and (t + 1) % checkpoint_every == 0
+                    and t + 1 < spec.rounds):
+                save_fl_checkpoint(checkpoint_dir,
+                                   self._run_payload(fp, t, history))
         return history
 
-    def run_sweep(self, sweep, **kwargs):
-        raise NotImplementedError(
-            "run_sweep: the sweep path is not ported yet; run the cells "
-            "one by one through run()")
+    # ------------------------------------------- checkpoint plumbing
+    def _run_payload(self, fp, t, history):
+        return {
+            "kind": "run", "fingerprint": fp, "round": t,
+            "state": params_to_numpy(self.state),
+            "history": history,
+            **self._lane.state(),
+            "counter": self.counter.state_dict(),
+            "client_streams": self.backend.client_stream_states(),
+            # server-opt moments + FedDyn h; None for plain objectives
+            "objective": self.backend.objective_state(),
+        }
+
+    def _load_run_payload(self, payload, fp):
+        if payload["fingerprint"] != fp:
+            raise ValueError(
+                "checkpoint was written by a different experiment "
+                "configuration; refusing to resume (point checkpoint_dir "
+                "at a fresh directory or match the original spec)")
+        if payload["kind"] != "run":
+            raise ValueError(
+                "checkpoint was written by the sweep path; resume it "
+                "through the same sweep-capable configuration")
+        self.state = self.backend.to_device(payload["state"])
+        self._lane.load_state(payload)
+        self.counter.load_state_dict(payload["counter"])
+        self.backend.restore_client_streams(payload["client_streams"])
+        self.backend.restore_objective_state(payload.get("objective"))
+        return payload["history"], payload["round"] + 1
+
+    # ------------------------------------------------------- sweep path
+    def run_sweep(self, sweep: Union[SweepSpec, Sequence[ExperimentSpec]],
+                  *, overlap: Optional[bool] = None,
+                  verbose: bool = False,
+                  checkpoint_dir: Optional[str] = None,
+                  checkpoint_every: int = 0) -> SweepResult:
+        """Run E experiment cells through one training pass a round.
+
+        ``sweep``: a ``SweepSpec`` or a plain sequence of
+        ``ExperimentSpec`` cells (validated into one). Every cell starts
+        from the engine's initial params and its own spec seed, exactly
+        like E fresh sequential ``run`` calls. ``overlap`` overrides the
+        sweep's pipeline flag (results are bit-identical either way).
+        ``checkpoint_dir`` / ``checkpoint_every`` persist and resume the
+        whole sweep (every lane's host state and device globals) exactly
+        like ``run``'s flags.
+        """
+        if not isinstance(sweep, SweepSpec):
+            sweep = SweepSpec(specs=list(sweep))
+        if overlap is None:
+            overlap = sweep.overlap
+        if not self.backend.sweep_capable():
+            raise ValueError(
+                "run_sweep needs a sweep-capable backend (HostBackend "
+                "round_mode='fused' over a rectangular cohort); run the "
+                "cells sequentially through FLEngine.run instead")
+        lanes = [_Lane(spec, self.num_users, device=self.backend.device)
+                 for spec in sweep.specs]
+        result, _, _ = self._run_lanes(
+            lanes, init_state=self._init_params, overlap=overlap,
+            verbose=verbose, labels=sweep.labels,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every)
+        return result
+
+    # ------------------------------------------------------------------
+    def _select_lanes(self, lanes, counters, prios64, t):
+        """Host selection for all lanes: ONE shares / mask computation,
+        one grouped (batched) select dispatch."""
+        U = self.num_users
+        shares = counters.values()                 # (E, U), once a round
+        masks = counters.participating(shares)
+        het = self.backend.heterogeneity
+        ones = np.ones(U)
+        strategies, ctxs = [], []
+        for e, lane in enumerate(lanes):
+            spec, strat = lane.spec, lane.strategy
+            if lane.channel is not None:
+                lane.channel.begin_round()         # block fading
+            mask = (masks[e] if spec.use_counter
+                    else np.ones(U, bool))
+            if not mask.any():                     # degenerate threshold
+                mask = np.ones(U, bool)
+            prios = (prios64[e]
+                     if strat.uses_priority
+                     and not strat.trains_before_selection else ones)
+            strategies.append(strat)
+            ctxs.append(SelectionContext(
+                priorities=prios, participating=mask,
+                k_target=spec.k_per_round, rng=lane.rng,
+                cw_base=spec.cw_base, counter_values=shares[e],
+                heterogeneity=het,
+                snr_db=(lane.channel.snr_db if lane.channel is not None
+                        else None),
+                round_index=t))
+        sels = select_grouped(strategies, ctxs)
+        winners_all = [[int(u) for u in sel.winners] for sel in sels]
+        return winners_all, sels
+
+    def _sweep_merge_ctx(self, lanes, t: int):
+        """The sweep's AirComp merge inputs — (E, U) coefficients, (E,)
+        sigmas, one ``(noise entropy, t)`` key a lane — or None for the
+        digital merge (``merge_backend`` is sweep-shared, so the lead
+        lane decides for all)."""
+        if lanes[0].spec.merge_backend != "aircomp":
+            return None
+        coeffs = np.ones((len(lanes), self.num_users), np.float32)
+        sigmas = np.zeros(len(lanes), np.float32)
+        keys = []
+        for e, lane in enumerate(lanes):
+            if lane.channel is not None:
+                coeffs[e], sigmas[e] = lane.channel.aircomp_coeffs()
+                entropy = lane.channel.noise_entropy
+            else:
+                entropy = channel_noise_entropy(lane.spec.seed)
+            keys.append((entropy, t))
+        return MergeContext(coeffs=coeffs, noise_sigma=sigmas, key=keys)
+
+    def _sweep_merge_faults(self, lanes, st, tr, rfs, stales, merged_all,
+                            idx):
+        """Each lane's robust-merge context (``_lane_fault_ctx``: its
+        ``fault_alphas`` weights, corruption factors and stale group),
+        then the robust sweep merge. Returns the (E,) quarantine
+        counts."""
+        ctxs = [self._lane_fault_ctx(lane.spec, rf, stale_in, merged)
+                for lane, rf, stale_in, merged
+                in zip(lanes, rfs, stales, merged_all)]
+        return self.backend.sweep_merge_faults(st, tr, idx, merged_all,
+                                               ctxs)
+
+    def _dispatch_sweep_merge(self, lanes, st, tr, merged_all, rfs, stales,
+                              lead_faults, k_pad, t, attempts=None):
+        """One (E, k_pad) merge dispatch. ``merged_all[e]`` are lane e's
+        merge candidates (user ids = row indices into the trained stack,
+        delivery order); ``attempts`` the per-lane attempt-winner (uids,
+        positions) pair for the FedDyn h update. Routes through the
+        robust, AirComp or digital / objective sweep merge; returns the
+        (E,) quarantine counts, or None off the fault path."""
+        backend, E = self.backend, len(lanes)
+        idx = np.zeros((E, k_pad), np.int32)
+        w = np.zeros((E, k_pad), np.float32)
+        for e in range(E):
+            idx[e], w[e] = compact_weights(
+                k_pad, merged_all[e],
+                [backend.num_examples(u) for u in merged_all[e]])
+        if lead_faults is not None and lead_faults.merge_guarded:
+            return self._sweep_merge_faults(lanes, st, tr, rfs, stales,
+                                            merged_all, idx)
+        backend.sweep_merge(st, tr, idx, w,
+                            merge_ctx=self._sweep_merge_ctx(lanes, t),
+                            uids=idx, attempts=attempts)
+        return None
+
+    def _sweep_payload(self, fp, t, st, stream_snap, counters, lanes):
+        return {
+            "kind": "sweep", "fingerprint": fp, "round": t,
+            "glob": params_to_numpy(self.backend.sweep_globals(st)),
+            "client_streams": stream_snap,
+            "counters": counters.state_dict(),
+            # the lanes' m / v / h; None for all-plain sweeps
+            "objective": self.backend.sweep_objective_state(st),
+            "lanes": [{"history": lane.history, **lane.state()}
+                      for lane in lanes],
+        }
+
+    @staticmethod
+    def _load_sweep_payload(payload, fp, lanes, counters):
+        if payload["fingerprint"] != fp:
+            raise ValueError(
+                "checkpoint was written by a different sweep "
+                "configuration; refusing to resume (point checkpoint_dir "
+                "at a fresh directory or match the original specs)")
+        if payload["kind"] != "sweep":
+            raise ValueError(
+                "checkpoint was written by the per-round path; resume "
+                "it through the same non-sweep configuration")
+        counters.load_state_dict(payload["counters"])
+        for lane, lst in zip(lanes, payload["lanes"]):
+            lane.history = lst["history"]
+            lane.load_state(lst)
+        return payload["round"] + 1
+
+    def _run_lanes(self, lanes, *, init_state, overlap, verbose,
+                   labels=None, checkpoint_dir=None, checkpoint_every=0):
+        """The sweep round loop: one training pass for all lanes, one
+        batched host selection, host work ordered around the card's.
+
+        Per round t (card work in brackets; CUDA launches return at
+        once, so the bracketed work runs while the host goes on):
+
+            [train t queued]  host pre-draws round t+1's batches
+            read the (E, U) priorities and losses        <- the sync
+            host: refrain masks + grouped CSMA contention
+            queue [merge t] then [train t+1]
+            host: counters, history, eval
+
+        With ``overlap`` off the pre-draw moves after the contention;
+        every per-lane rng stream is consumed in the same order either
+        way, so the two schedules give the same bits.
+        """
+        backend, U, E = self.backend, self.num_users, len(lanes)
+        rounds = lanes[0].spec.rounds
+        need_prio = any(l.strategy.uses_priority for l in lanes)
+        lead_faults = lanes[0].spec.faults       # sweep-shared field
+        counters = SweepFairnessCounter(
+            E, U, np.array([l.spec.counter_threshold for l in lanes]))
+        fp = run_fingerprint([l.spec for l in lanes], U)
+        seeds = [l.spec.seed for l in lanes]
+        objs = [l.spec.objective for l in lanes]
+        t0 = time.perf_counter()
+        start, st = 0, None
+        if checkpoint_dir is not None:
+            payload = load_fl_checkpoint(checkpoint_dir)
+            if payload is not None:
+                start = self._load_sweep_payload(payload, fp, lanes,
+                                                 counters)
+                st = backend.sweep_restore(
+                    payload["glob"], payload["client_streams"], seeds,
+                    objectives=objs,
+                    objective_state=payload.get("objective"))
+        if st is None:
+            st = backend.sweep_init(init_state, seeds, objectives=objs)
+        tr = backend.sweep_train(st, backend.sweep_batches(st), need_prio)
+        for t in range(start, rounds):
+            last = t + 1 >= rounds
+            want_ckpt = (checkpoint_dir is not None
+                         and checkpoint_every > 0
+                         and (t + 1) % checkpoint_every == 0 and not last)
+            # the client-stream snapshot must precede ANY round-t+1
+            # batch draw (overlapped or not): a resumed run re-draws
+            # round t+1 from exactly this position
+            stream_snap = (backend.sweep_stream_states(st) if want_ckpt
+                           else None)
+            next_batched = None
+            if overlap and not last:
+                # host: round t+1's epoch permutations, drawn while the
+                # queued round-t train call runs on the card
+                next_batched = backend.sweep_batches(st)
+            prios64, losses64 = tr.read()                  # the sync
+            winners_all, sels = self._select_lanes(
+                lanes, counters, prios64, t)
+            # channel gate + fault pipeline: merge weights are computed
+            # over the post-fault merge candidates; counters and
+            # histories keep seeing the attempts
+            ups = [_uploads(lane.channel, lane.faults, winners_all[e],
+                            lambda u, e=e: backend.sweep_extract(tr, e, u),
+                            backend.num_examples)
+                   for e, lane in enumerate(lanes)]
+            rfs = [up[2] for up in ups]
+            stales = [up[3] for up in ups]
+            merged_all = [[int(u) for u in up[4]] for up in ups]
+            # user ids ARE the row indices into the (E, U, ...) stack
+            # (for attempts too)
+            k_pad = backend._k_pad(max(len(m) for m in merged_all))
+            nq = self._dispatch_sweep_merge(
+                lanes, st, tr, merged_all, rfs, stales, lead_faults,
+                k_pad, t, attempts=(winners_all, winners_all))
+            next_tr = None
+            if not last:
+                if next_batched is None:
+                    next_batched = backend.sweep_batches(st)
+                next_tr = backend.sweep_train(st, next_batched, need_prio)
+            # deferred bookkeeping: overlaps the queued train call
+            counters.update(winners_all)
+            for e, (lane, (delivered, failures, rf, stale_in, _)) in \
+                    enumerate(zip(lanes, ups)):
+                h = lane.history
+                if nq is not None:
+                    h.quarantined_updates += int(nq[e])
+                _record_round(h, lane.spec, lane.channel, sels[e],
+                              winners_all[e], delivered, failures, rf,
+                              stale_in)
+                if (lane.strategy.uses_priority
+                        and not lane.strategy.trains_before_selection):
+                    h.priorities.append(prios64[e].tolist())
+                h.train_loss.append(float(np.mean(losses64[e])))
+            if self.eval_fn is not None:
+                for e, lane in enumerate(lanes):
+                    spec = lane.spec
+                    if t % spec.eval_every == 0 or t == spec.rounds - 1:
+                        acc = float(self.eval_fn(
+                            backend.sweep_global(st, e)))
+                        lane.history.accuracy.append(acc)
+                        lane.history.eval_round.append(t)
+                        if verbose:
+                            tag = (labels[e] if labels
+                                   else f"{spec.strategy}/{e}")
+                            print(f"[{tag}] round {t:4d} acc {acc:.4f}"
+                                  f" loss {lane.history.train_loss[-1]:.4f}")
+            if want_ckpt:
+                save_fl_checkpoint(
+                    checkpoint_dir,
+                    self._sweep_payload(fp, t, st, stream_snap,
+                                        counters, lanes))
+            tr = next_tr
+        result = SweepResult(
+            histories=[l.history for l in lanes],
+            specs=[l.spec for l in lanes], labels=labels,
+            overlap=overlap, wall_s=time.perf_counter() - t0,
+            final_globals=backend.sweep_globals(st))
+        return result, st, counters
 
 
 #: the reference auto-selects its winner-sparse round path when the

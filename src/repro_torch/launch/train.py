@@ -17,9 +17,12 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --round-mode stacked
   PYTHONPATH=src python -m repro_torch.launch.train --round-mode ragged
 
-``--arch`` (the LLM finetune), ``--sweep-seeds`` above 1 and ``--ckpt``
-belong to parts of the reference that are not ported yet and raise
-``NotImplementedError``.
+  # the same cell over 4 seeds as ONE sweep, the final params saved
+  PYTHONPATH=src python -m repro_torch.launch.train --sweep-seeds 4 \
+      --ckpt /tmp/final.npz
+
+``--arch`` (the LLM finetune) belongs to a part of the reference that is
+not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,12 +34,13 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.data import (make_classification_dataset, partition_iid,
                               partition_noniid_shards)
 from repro_torch.device import resolve_device
 from repro_torch.engine import (ExperimentSpec, FLEngine, PAPER_STRATEGIES,
-                                available_strategies, build_host_engine,
-                                make_accuracy_eval)
+                                SweepSpec, available_strategies,
+                                build_host_engine, make_accuracy_eval)
 from repro_torch.models.paper_models import get_paper_model
 
 
@@ -119,30 +123,40 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-test", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sweep-seeds", type=int, default=1,
-                    help="(not ported above 1) seed-varied copies of the "
-                         "cell as one sweep")
+                    help="run this many seed-varied copies of the cell "
+                         "as ONE run_sweep")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; fails without a GPU) or 'cpu'")
     ap.add_argument("--out", default=None, help="history JSON path")
-    ap.add_argument("--ckpt", default=None,
-                    help="(not ported) final checkpoint path")
+    ap.add_argument("--ckpt", default=None, help="final checkpoint path")
     ap.add_argument("--verbose", action="store_true")
     return ap
 
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
-    for flag, bad, what in (
-            ("--arch", args.arch is not None, "the LLM stack"),
-            ("--sweep-seeds", args.sweep_seeds > 1, "the sweep path"),
-            ("--ckpt", args.ckpt is not None, "checkpointing")):
-        if bad:
-            raise NotImplementedError(
-                f"{flag}: {what} is not ported yet")
+    if args.arch is not None:
+        raise NotImplementedError("--arch: the LLM stack is not ported yet")
 
     t0 = time.perf_counter()
     engine = build_paper_engine(args)
-    hist = engine.run(verbose=args.verbose)
+    if args.sweep_seeds > 1:
+        sweep = SweepSpec.grid(
+            engine.spec, seed=range(args.seed,
+                                    args.seed + args.sweep_seeds))
+        result = engine.run_sweep(sweep, verbose=args.verbose)
+        hist = result.histories[0]       # lead cell drives the summary
+        final_params = result.lane_params(0)
+        extra = {
+            "sweep_cells": len(result),
+            "sweep_labels": result.labels,
+            "sweep_best_metric": [max(h.accuracy) if h.accuracy else None
+                                  for h in result],
+        }
+    else:
+        hist = engine.run(verbose=args.verbose)
+        final_params = engine.global_params
+        extra = {}
     dt = time.perf_counter() - t0
 
     summary = {
@@ -153,6 +167,7 @@ def main(argv=None):
         "selections": hist.selections.tolist(),
         "uploads_total": hist.uploads_total,
         "wall_s": round(dt, 1),
+        **extra,
     }
     print(json.dumps(summary, indent=1))
     if args.out:
@@ -162,6 +177,8 @@ def main(argv=None):
                        "accuracy": hist.accuracy,
                        "eval_round": hist.eval_round,
                        "train_loss": hist.train_loss}, f, indent=1)
+    if args.ckpt:
+        save_checkpoint(args.ckpt, final_params)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@ FedDyn) + server aggregators (FedAvg / FedAvgM / FedAdam), run on
 HostBackend's fused round path: the local law in the training loop
 (``objective_epoch_scan``), the server step after Eq. 1
 (``kernels.ops.server_opt_leaves``), the FedDyn h update at merge
-time. The reference's sweep and winner-sparse objective programs are
-not ported yet."""
+time; a sweep's lanes each run their own (the objective is a sweep
+axis). The reference's winner-sparse objective programs are not ported
+yet."""
 from repro_torch.objectives.local import objective_epoch_scan
 from repro_torch.objectives.server import (ObjectiveTable,
                                            build_objective_table)

@@ -371,13 +371,16 @@ def test_engine_refuses_an_objective_with_a_partial_cohort_strategy():
         be.train_round(be.init_state(to_torch(pin_init())), 0, [0, 1], True)
 
 
-def test_unported_objective_programs_still_raise():
+def test_unported_objective_programs_still_raise(tmp_path):
     obj = ObjectiveSpec(local="feddyn", alpha=0.1, aggregator="fedadam")
     _, eng = run_port(rounds=1, objective=obj)
-    with pytest.raises(NotImplementedError, match="run_sweep"):
-        eng.run_sweep([eng.spec])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        eng.run(checkpoint_dir="/nonexistent")
+    # the objective sweep and checkpoints are ported: these run
+    res = eng.run_sweep([eng.spec])
+    assert len(res) == 1 and len(res[0].winners) == 1
+    _, fresh = run_port(rounds=2, objective=obj)
+    fresh.run(checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    assert (tmp_path / "fl_ckpt.pkl").exists()
+    # the sparse round path is not
     with pytest.raises(NotImplementedError, match="sparse"):
         THostBackend(pin_torch_loss, pin_user_data(), round_mode="sparse",
                      objective=obj, device="cpu")

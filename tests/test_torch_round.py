@@ -260,13 +260,13 @@ def test_unported_faults_mesh_objective_and_uneven_cohort_raise():
     _build(_spec(objective=teng.ObjectiveSpec()))
 
 
-def test_unported_run_options_and_merge_contexts_raise():
+def test_unported_run_options_and_merge_contexts_raise(tmp_path):
     eng = _build()
-    with pytest.raises(NotImplementedError, match="run_sweep"):
-        eng.run_sweep([eng.spec])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        eng.run(checkpoint_dir="/nonexistent")
-    assert eng.backend.sweep_capable() is False
+    # the sweep and checkpoints are ported: these run
+    assert len(eng.run_sweep([eng.spec])) == 1
+    assert len(_build().run(checkpoint_dir=str(tmp_path)).winners) == 1
+    assert eng.backend.sweep_capable() is True
+    assert _build(round_mode="stacked").backend.sweep_capable() is False
     assert eng.backend.sparse_capable() is False
     assert eng.backend.objective_active() is False
     assert eng.backend.objective_needs_h() is False
@@ -282,9 +282,9 @@ def test_unported_run_options_and_merge_contexts_raise():
 
 def test_launch_train_rejects_unported_flags():
     from repro_torch.launch import train
-    for argv in (["--arch", "hymba-1.5b"], ["--sweep-seeds", "2"],
-                 ["--ckpt", "x.npz"]):
-        with pytest.raises(NotImplementedError):
+    # --sweep-seeds and --ckpt are ported (tests/test_torch_sweep.py)
+    for argv in (["--arch", "hymba-1.5b"],):
+        with pytest.raises(NotImplementedError, match="--arch"):
             train.main(["--device", "cpu", *argv])
 
 

@@ -23,6 +23,7 @@ SPINE = [
     "engine/spec.py", "channel/spec.py", "channel/model.py",
     "faults/spec.py", "faults/injectors.py",
     "objectives/spec.py", "objectives/server.py",
+    "checkpoint/fl_state.py",
 ]
 
 #: The reprolint whitelist for rng construction matches the reference's
