@@ -77,17 +77,27 @@ without CUDA (there is no CPU path here). It
      ``random-centralized`` (partial-cohort rounds: only the two winners
      train, as one stack) for 20, the same at 1000 users and 64 winners
      for 3, and an uneven cohort (odd users 40 examples short, so nothing
-     stacks: every user trains on its own) for 10; then the sweep path
+     stacks: every user trains on its own) for 10; then the winner-sparse
+     round path, which the factory picks for the 1000-user, 64-winner
+     cell without ``--round-mode``: its exact prepass in turns with the
+     fused route (winners equal, priorities, losses and globals within
+     rtol 1e-5, launches a round predicted exactly, the device's idle
+     share of each), its stale priorities, 10 000 users on the stale,
+     prepass and fused routes in turns, and the fault, AirComp and
+     FedDyn + FedAvgM layers on the sparse route against their fused
+     twins, 3 rounds each; then the sweep path
      (``FLEngine.run_sweep``; ``FLEngine.run`` on the fused path above is
      its E = 1 case): the Fig. 3 grid (the four paper strategies x seeds 0
      and 1, 8 lanes, 20 rounds) against the 8 sequential runs of its
-     cells and against itself with its overlap off, and 4 seeds of the 1000-user cell with device contention
-     against their 4 sequential runs, in turns, each with its launches a
-     round predicted exactly; the layers as sweep lanes (five objectives
+     cells and against itself with its overlap off, and 4 seeds of the
+     1000-user cell, with device contention on the fused route and with
+     numpy contention on the sparse one, against their 4 sequential runs,
+     in turns, each with its launches a round predicted exactly; the layers as sweep lanes (five objectives
      and a plain lane under the lossy channel, AirComp at three SNR
      points, the active faults over three seeds); checkpoint / resume
      (``tools/kill_resume_smoke_torch.py`` on the card, a checkpointed
-     fused and stacked run of the MLP cell resumed by fresh engines) —
+     fused, stacked and stale winner-sparse run of the MLP cell resumed
+     by fresh engines) —
      with the launch counts set to zero just before each path and read
      just after;
   5. checks the result by the repository's own means: the pinned
@@ -95,7 +105,10 @@ without CUDA (there is no CPU path here). It
      of the same rounds (channel, AirComp with and without receiver
      noise, fault and active-objective lanes included, and the stacked,
      ragged and ``random-centralized`` lanes, seeds 0 and 1, the stacked
-     one also with the lossy channel, the faults and noisy AirComp; the noisy AirComp
+     one also with the lossy channel, the faults and noisy AirComp; the
+     winner-sparse pin sweeps — plain, channel-off, faults-off and the
+     inert objective, whose lanes also equal the pins — and a stale
+     sparse lane; the noisy AirComp
      lane also through the default counter-based noise draw on each
      side; a 4-strategy sweep over seeds 0 and 1, whose lanes also equal
      the pins; the fused lanes through the per-round loop, whose winners
@@ -913,8 +926,10 @@ def contention_run(sim, backoffs, windows, k):
 def loop_agree_cases():
     """(backoff slots, window slots, k, participating, overrides) of the
     persistent kernel's corners: the dense grid's 1e4 x 64, the retry
-    ladder (identical backoffs drain the pool), the ladder past the
-    shared-memory limit (its last attempt runs on global-memory state),
+    ladder (identical backoffs drain the pool), the ladder of a
+    10 000-user, k = 64 round (pools of 512, 4096 — 48 KB of lanes and the
+    static buffer: the opt-in edge — and 10 000 lanes), the ladder past
+    the shared-memory limit (its last attempt runs on global-memory state),
     the 1000-user round's pool (priority-scaled windows, k = 64), a
     horizon that cuts rows mid-run, and rows with k = 0, a row nobody
     contends in and masked participation."""
@@ -928,6 +943,8 @@ def loop_agree_cases():
             10_000, 64, seed=10_000)), 8, None, {}),
         "retry_ladder_2x2000": (np.full((2, 2000), 50.0),
                                 np.full(2000, 2.5e6), 3, None, {}),
+        "retry_ladder_1x10000_k64": (np.full((1, 10_000), 50.0),
+                                     np.full(10_000, 2.5e6), 64, None, {}),
         f"past_shared_2x{wide}": (np.full((2, wide), 50.0),
                                   np.full(wide, 2.5e6), 3, None, {}),
         "u1000_pool": (rng.uniform(0, 1, (1, 1000)) * 1024 / prio,
@@ -1591,6 +1608,10 @@ def run_main_path(model, rounds, *extra, split=None, merges=None,
                  (be, "sweep_merge_faults", "merge")) if delegated else (
             (be, "train_round", "train_round"), (be, "_epoch_run", "sgd"),
             (engine.strategy, "select", "select"), (be, "merge", "merge"))
+        if be.sparse_capable():
+            # the winner-sparse round: the prepass, then the retrain
+            spied += ((be, "sparse_priorities", "prepass"),
+                      (be, "sparse_train", "train_round"))
         for obj, attr, key in spied:
             split[key] = 0.0
             setattr(obj, attr, _timed(getattr(obj, attr), split, key))
@@ -1696,7 +1717,7 @@ def sweep_merge_spy(dispatch, merges, h_moved, merge_lanes=None):
     moved the attempt winners' rows of the lane's FedDyn h (into
     ``h_moved``, when given)."""
     def spy(lanes, st, tr, merged_all, rfs, stales, lead_faults, k_pad, t,
-            attempts=None):
+            attempts=None, **kw):
         guarded = lead_faults is not None and lead_faults.merge_guarded
         watch = []
         for e, lane in enumerate(lanes):
@@ -1711,7 +1732,7 @@ def sweep_merge_spy(dispatch, merges, h_moved, merge_lanes=None):
                 watch.append((e, rows, [h[e][rows].clone()
                                         for h in tree_leaves(st.h)]))
         out = dispatch(lanes, st, tr, merged_all, rfs, stales, lead_faults,
-                       k_pad, t, attempts=attempts)
+                       k_pad, t, attempts=attempts, **kw)
         for e, rows, before in watch:
             h_moved.append(all(not torch.equal(b, h[e][rows]) for b, h in
                                zip(before, tree_leaves(st.h))))
@@ -1743,7 +1764,13 @@ def training_launches(engine, hist):
     user) one SGD launch a step for each user and one Eq. 2 launch a
     user. A round trains every user, or, for a strategy that selects
     before training, only its winners. Priorities only where the
-    strategy uses them. One launch takes up to ``max_leaves()`` leaves.
+    strategy uses them. A winner-sparse round (``sparse_capable``) is a
+    prepass of ceil(U / C) chunks, each one SGD launch a step and one
+    Eq. 2 launch, where the mode is ``"prepass"`` and the strategy uses
+    priorities; then the retrain of the (K_max, ...) winner stack, one
+    SGD launch a step and one Eq. 2 launch whatever the strategy (its
+    priorities are always computed), skipped in a ``"stale"`` round
+    without winners. One launch takes up to ``max_leaves()`` leaves.
     Returns the two totals and the rounds of each path."""
     be, spec = engine.backend, engine.spec
     leaves = len(tree_leaves(engine.global_params))
@@ -1757,7 +1784,23 @@ def training_launches(engine, hist):
 
     sgd = dn = 0
     paths = Counter()
+    sparse = be.sparse_capable() and not \
+        engine.strategy.trains_before_selection
+    dn_all = -(-leaves // kdn.max_leaves())
     for winners in hist.winners:
+        if sparse:
+            paths["sparse"] += 1
+            steps = sgd_per * nb(0) * E
+            prepass = be._sparse_priority == "prepass"
+            if prepass and engine.strategy.uses_priority:
+                chunks = -(-be.num_users // max(1, min(be._sparse_chunk,
+                                                       be.num_users)))
+                sgd += steps * chunks
+                dn += dn_all * chunks
+            if winners or prepass:
+                sgd += steps
+                dn += dn_all
+            continue
         ids = (list(winners) if engine.strategy.trains_before_selection
                else list(range(be.num_users)))
         if not ids:
@@ -2257,13 +2300,16 @@ def phase_reference_small():
                                  "bits on the card")
     sweep_lanes = pin_sweep_lanes(pins)
     loop_lanes = pin_round_loop_lanes()
+    sparse_lanes = pin_sparse_lanes(pins)
     emit("reference_small", agree_with_pins=["random-distributed/seed0",
                                              "priority-distributed/seed0",
                                              "random-centralized/seed0",
                                              "random-centralized/seed1",
                                              *OBJ_INERT,
                                              *sweep_lanes["lanes"]],
-         sweep_lanes=sweep_lanes,
+         sweep_lanes=sweep_lanes, sparse_lanes=sparse_lanes,
+         sparse_lanes_agree_with_pins=[
+             f"*/{t}" for t in sparse_lanes if t != "stale"],
          card_equals_cpu=["priority-distributed/seed0", *lanes,
                           *OBJ_ACTIVE, *round_lanes,
                           *(f"run_round/{k}" for k in loop_lanes)],
@@ -2271,6 +2317,8 @@ def phase_reference_small():
          layer_lanes=lanes, round_lanes=round_lanes,
          objective_max_abs_gap_card_vs_cpu=gaps,
          inert_objectives_bit_equal_to_plain=list(OBJ_INERT),
+         sparse_twins_bit_equal_to_sparse=[
+             t for t in sparse_lanes if t not in ("sparse", "stale")],
          tolerance="history counts exact; globals rtol 1e-4 atol 1e-6 "
                    "(the default-noise AirComp lane rtol 1e-5 atol 1e-6); "
                    "inert objectives bitwise")
@@ -2368,6 +2416,435 @@ def phase_main_path_u1000(rounds=3):
          accuracy=hist.accuracy, loss=hist.train_loss,
          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
     return launches, set(map(tuple, loop["shapes"]))
+
+
+# ------------------------------------------------- the winner-sparse path
+#: the README's 1000-user command (k * 8 <= users: the factory picks the
+#: winner-sparse round path) and its 10 000-user variant (32 examples a
+#: user: the non-IID shards divide evenly, so the cohort is rectangular)
+U1000 = ("--users", "1000", "--k", "64", "--n-train", "60000",
+         "--contention-backend", "device")
+U10000 = ("--users", "10000", "--k", "64", "--n-train", "320000",
+          "--contention-backend", "device")
+
+
+def cohort_of(engine):
+    """What engines over ``engine``'s cohort share — spec, initial
+    weights, loss, data and evaluation — read before it runs (a run
+    wraps its evaluation)."""
+    be = engine.backend
+    return dict(spec=engine.spec, init=engine._init_params,
+                loss=be._loss_fn, data=[c.data for c in be.clients],
+                eval_fn=engine.eval_fn)
+
+
+def cohort_engine(cohort, mode=None, **spec):
+    """An engine over ``cohort`` (``cohort_of``) on the round path
+    ``mode`` (None: the factory's choice), the spec's fields ``spec``
+    replaced."""
+    return build_host_engine(
+        dataclasses.replace(cohort["spec"], **spec), cohort["init"],
+        cohort["loss"], cohort["data"], cohort["eval_fn"], round_mode=mode,
+        device="cuda")
+
+
+def kept(hist, engine):
+    """A run's history and a copy of its final global's leaves."""
+    return hist, [x.clone() for x in tree_leaves(engine.global_params)]
+
+
+def route_gap(a, b):
+    """Two runs of one cell on two round paths (``kept``): winners equal,
+    the largest relative gap of their priorities and losses, the largest
+    gap of the final globals relative to each leaf's largest magnitude
+    (0 where bitwise), the globals within rtol 1e-5 / atol 1e-6, and
+    whether all of it is bitwise."""
+    (ha, ga), (hb, gb) = a, b
+
+    def rel(x, y):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        if x.shape != y.shape:
+            return float("inf")
+        return float(np.max(np.abs(x / y - 1.0))) if x.size else 0.0
+    prios = rel(ha.priorities, hb.priorities)
+    losses = rel(ha.train_loss, hb.train_loss)
+    glob = max(float((p - q).abs().max() / q.abs().max().clamp_min(1e-30))
+               for p, q in zip(ga, gb))
+    winners = ha.winners == hb.winners
+    return dict(winners_equal=winners,
+                max_rel_gap_priorities_losses=max(prios, losses),
+                max_rel_gap_priorities=prios, max_rel_gap_losses=losses,
+                max_rel_gap_global=glob,
+                globals_close=all(torch.allclose(p, q, rtol=1e-5, atol=1e-6)
+                                  for p, q in zip(ga, gb)),
+                globals_bitwise=all(torch.equal(p, q)
+                                    for p, q in zip(ga, gb)),
+                bitwise=winners and max(prios, losses) == 0.0 and all(
+                    torch.equal(p, q) for p, q in zip(ga, gb)))
+
+
+def check_routes(name, gap, within=True):
+    """``route_gap``'s verdict: winners equal, and with ``within`` the
+    priorities, losses and globals within rtol 1e-5."""
+    if not gap["winners_equal"] or within and not (
+            gap["globals_close"]
+            and gap["max_rel_gap_priorities_losses"] < 1e-5):
+        raise AssertionError(f"{name}: the sparse route and the fused one "
+                             f"disagree on the card: {gap}")
+
+
+def routes_in_turns(name, cohort, routes, order, rounds):
+    """``order``'s runs of ``cohort`` (``routes``: a route's round mode and
+    spec fields), each held to ``check_main_path``'s launches predicted
+    round by round (``training_launches``), its peak memory on top of what
+    was live before it. Returns each route's first run (``kept``), its
+    launches, median later-round seconds and peak memory of every run,
+    and contention attempts."""
+    runs, launches = {}, {}
+    steady = {r: [] for r in routes}
+    peak = {r: [] for r in routes}
+    for route in order:
+        mode, spec = routes[route]
+        engine = cohort_engine(cohort, mode, **spec)
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        hist, engine, dt, l, round_s, loop = run_main_path(
+            "mlp", rounds, engine=engine)
+        check_main_path(f"{name}/{route}", hist, engine, l, rounds, False,
+                        events=loop["events"], attempts=loop["attempts"])
+        steady[route].append(statistics.median(round_s[1:]))
+        peak[route].append(torch.cuda.max_memory_allocated() / 2**20
+                           - base_mb)
+        if route not in runs:
+            runs[route], launches[route] = kept(hist, engine), l
+        del engine
+        torch.cuda.empty_cache()
+    return runs, launches, steady, peak
+
+
+def phase_main_path_u1000_sparse(rounds=3):
+    """The README's 1000-user command without ``--round-mode``: the
+    factory picks the winner-sparse path (exact prepass). That run first
+    (it also warms the card to the path's shapes), then in turns with the
+    same cell on ``--round-mode fused`` (fused, sparse, sparse, fused),
+    every run held to ``check_main_path``'s launches: here 5
+    ``fused_sgd``, 5 ``delta_norm`` and 4 ``gather_combine`` launches a
+    round on the sparse route (4 prepass chunks of 256 users and the
+    winner retrain), and one ``contention_loop`` launch a pool attempt;
+    the two routes' winners equal, their priorities, losses and globals
+    within rtol 1e-5 (the largest relative gap printed: 0 where bitwise).
+    Then a sparse run's seconds a round in the prepass, the retrain,
+    selection and the merge (a run of its own: the split synchronizes),
+    and a profile of a fresh engine of each route (no evaluation): the
+    device's idle share."""
+    base = paper_engine("mlp", rounds, *U1000)
+    if base.backend._mode != "sparse":
+        raise AssertionError(f"main_path_mlp_U1000_sparse: the factory chose "
+                             f"{base.backend._mode!r}")
+    cohort = cohort_of(base)
+    hist, base, _, first, _, loop = run_main_path("mlp", rounds, engine=base)
+    check_main_path("main_path_mlp_U1000_sparse/readme", hist, base, first,
+                    rounds, False, events=loop["events"],
+                    attempts=loop["attempts"])
+    del base
+    routes = {"sparse": (None, {}), "fused": ("fused", {})}
+    runs, launches, steady, peak = routes_in_turns(
+        "main_path_mlp_U1000_sparse", cohort, routes,
+        ["fused", "sparse", "sparse", "fused"], rounds)
+    if first != launches["sparse"]:
+        raise AssertionError(f"main_path_mlp_U1000_sparse: the first run's "
+                             f"launches {first} differ from the later "
+                             f"{launches['sparse']}")
+    gap = route_gap(runs["sparse"], runs["fused"])
+    want = {"fused_sgd": 5 * rounds, "delta_norm": 5 * rounds,
+            "gather_combine": 4 * rounds}
+    got = {k: launches["sparse"][k] for k in want}
+    split = {}
+    run_main_path("mlp", rounds, engine=cohort_engine(cohort), split=split)
+    idle = {}
+    for route, (mode, spec) in routes.items():
+        idle[route] = profiled(f"mlp_U1000_{route}", cohort_engine(
+            cohort, mode, **spec), lambda e: e.run(), rounds)[
+            "device_idle_share"]
+        torch.cuda.empty_cache()
+    emit("main_path_mlp_U1000_sparse", rounds=rounds,
+         order=["sparse (the README command)", "fused", "sparse", "sparse",
+                "fused"],
+         median_later_round_s=steady,
+         rounds_per_s={r: [1.0 / t for t in v] for r, v in steady.items()},
+         sparse_vs_fused_round_time=statistics.mean(steady["sparse"])
+         / statistics.mean(steady["fused"]),
+         launches=launches, launches_per_round={
+             r: per_round(v, rounds) for r, v in launches.items()},
+         predicted_sparse_launches=want, **gap,
+         split_s_per_round={k: t / rounds for k, t in split.items()},
+         device_idle_share=idle, peak_mem_mb=peak,
+         winners=runs["sparse"][0].winners)
+    check_routes("main_path_mlp_U1000_sparse", gap)
+    if got != want:
+        raise AssertionError(f"main_path_mlp_U1000_sparse: launches {got}, "
+                             f"predicted {want}")
+    return launches["sparse"]
+
+
+def phase_main_path_u1000_sparse_stale(rounds=3):
+    """The same cell with ``sparse_priority="stale"`` (the spec field; the
+    command line has none): no prepass, so 1 ``fused_sgd``, 1
+    ``delta_norm`` and 4 ``gather_combine`` launches a round (and one
+    ``contention_loop`` launch a pool attempt), held to
+    ``check_main_path``; rounds/s and peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    hist, engine, dt, launches, round_s, loop = run_main_path(
+        "mlp", rounds, *U1000, sparse_priority="stale")
+    if engine.backend._sparse_priority != "stale":
+        raise AssertionError("main_path_mlp_U1000_sparse_stale: not stale")
+    check_main_path("main_path_mlp_U1000_sparse_stale", hist, engine,
+                    launches, rounds, False, events=loop["events"],
+                    attempts=loop["attempts"])
+    want = {"fused_sgd": rounds, "delta_norm": rounds,
+            "gather_combine": 4 * rounds}
+    got = {k: launches[k] for k in want}
+    steady = statistics.median(round_s[1:])
+    emit("main_path_mlp_U1000_sparse_stale", rounds=rounds, seconds=dt,
+         first_round_s=round_s[0], median_later_round_s=steady,
+         rounds_per_s=1.0 / steady, launches=launches,
+         launches_per_round=per_round(launches, rounds),
+         predicted_launches=want, attempts=loop["attempts"],
+         winners=hist.winners, loss=hist.train_loss,
+         cached_users=int((engine.backend.priority_cache_state() != 1.0)
+                          .sum()),
+         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20 - base_mb)
+    if got != want:
+        raise AssertionError(f"main_path_mlp_U1000_sparse_stale: launches "
+                             f"{got}, predicted {want}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_main_path_u10000_sparse(rounds=3):
+    """10 000 users, k = 64, 32 examples a user, device contention — the
+    K << U regime the winner-sparse path exists for — on the stale and
+    the prepass sparse routes and the fused one, in turns (stale, prepass,
+    fused, fused, prepass, stale), each run held to ``check_main_path``'s
+    launch predictions: rounds/s and peak memory of each; prepass must
+    equal fused in winners (the priority, loss and global gaps
+    printed)."""
+    base = paper_engine("mlp", rounds, *U10000)
+    if base.backend._mode != "sparse" or not base.backend._rect:
+        raise AssertionError("main_path_mlp_U10000_sparse: not a "
+                             "rectangular sparse cohort")
+    cohort = cohort_of(base)
+    del base
+    routes = {"stale": (None, dict(sparse_priority="stale")),
+              "prepass": (None, {}), "fused": ("fused", {})}
+    order = ["stale", "prepass", "fused", "fused", "prepass", "stale"]
+    runs, launches, steady, peak = routes_in_turns(
+        "main_path_mlp_U10000_sparse", cohort, routes, order, rounds)
+    gap = route_gap(runs["prepass"], runs["fused"])
+    idle = {}
+    for route in ("prepass", "fused"):
+        mode, spec = routes[route]
+        idle[route] = profiled(f"mlp_U10000_{route}", cohort_engine(
+            cohort, mode, **spec), lambda e: e.run(), rounds)[
+            "device_idle_share"]
+        torch.cuda.empty_cache()
+    emit("main_path_mlp_U10000_sparse", rounds=rounds, order=order,
+         device_idle_share=idle, delta_norm_width_bits=delta_norm_widths(
+             [tuple(p.shape) for p in tree_leaves(cohort["init"])]),
+         median_later_round_s=steady,
+         rounds_per_s={r: [1.0 / t for t in v] for r, v in steady.items()},
+         vs_fused_round_time={r: statistics.mean(v) / statistics.mean(
+             steady["fused"]) for r, v in steady.items()},
+         launches_per_round={r: per_round(v, rounds)
+                             for r, v in launches.items()},
+         prepass_vs_fused=gap, peak_mem_mb=peak)
+    check_routes("main_path_mlp_U10000_sparse", gap, within=False)
+    del cohort
+    torch.cuda.empty_cache()
+
+
+def delta_norm_widths(shapes, widths=(1000, 10_000), chunk=256):
+    """Eq. 2's reduction of one (U, ...) stack of every leaf of
+    ``shapes`` (random, on the card) against that of its chunks of
+    ``chunk`` rows, as the prepass calls it: for each U, the rows whose
+    d2 bits differ, of every leaf, and the largest relative gap.
+    ``delta_norm``'s rows a block (1, 2 or 4) and vectors a thread follow
+    the row count, so a row's summation order may follow it too."""
+    out = {}
+    for U in widths:
+        stacks = [randn_dev(31 + i, (U, *s), torch.float32)
+                  for i, s in enumerate(shapes)]
+        globs = [randn_dev(131 + i, s, torch.float32)
+                 for i, s in enumerate(shapes)]
+        full, _ = ops.delta_norm_leaves(stacks, globs)
+        parts = torch.cat([ops.delta_norm_leaves(
+            [x[lo:lo + chunk] for x in stacks], globs)[0]
+            for lo in range(0, U, chunk)], dim=1)
+        out[U] = dict(rows=U * len(shapes),
+                      rows_differ=int((full != parts).sum()),
+                      max_rel_gap=float(((full - parts).abs()
+                                         / full.abs()).max()))
+        del stacks, full, parts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sparse_layers(rounds=3):
+    """The fault layer (LOSSY + ACTIVE: the robust merge, whose rows are
+    read by delivery position and weights by user id, stragglers taken
+    by position), AirComp (power-control coefficients by user id) and
+    FedDyn + FedAvgM under the 20 dB channel (h rows written by user id
+    from positions) through the winner-sparse route at 1000 users, each
+    in turn with its fused twin: both runs held to ``check_main_path``'s
+    launch predictions from their merge kinds, a finite global after
+    every round and h moved by every attempt-only merge; every history
+    count equal, priorities, losses and globals within rtol 1e-5 (the
+    largest gap printed). Returns the sparse runs' launches together."""
+    base = paper_engine("mlp", rounds, *U1000)
+    cohort = cohort_of(base)
+    del base
+    out, total = {}, Counter()
+    for name, spec in (("faults", dict(channel=LOSSY, faults=ACTIVE)),
+                       ("aircomp", AIRCOMP),
+                       ("feddyn_fedavgm", dict(channel=LOSSIER,
+                                               objective=FEDDYN))):
+        runs = {}
+        for route, mode in (("sparse", None), ("fused", "fused")):
+            merges, finite, h_moved = [], [], []
+            hist, engine, dt, l, round_s, cont = run_main_path(
+                "mlp", rounds, engine=cohort_engine(cohort, mode, **spec),
+                merges=merges, finite=finite, h_moved=h_moved)
+            label = f"sparse_layers/{name}/{route}"
+            if (engine.backend._mode == "sparse") != (route == "sparse"):
+                raise AssertionError(f"{label}: round mode "
+                                     f"{engine.backend._mode!r}")
+            check_main_path(label, hist, engine, l, rounds, False,
+                            events=cont["events"], attempts=cont["attempts"],
+                            merges=merges)
+            if not (len(finite) == rounds and all(finite) and all(h_moved)):
+                raise AssertionError(f"{label}: finite {finite}, h moved "
+                                     f"{h_moved}")
+            runs[route] = kept(hist, engine)
+            if route == "sparse":
+                total.update(l)
+                out[name] = dict(launches_per_round=per_round(l, rounds),
+                                 merges=dict(Counter(merges)),
+                                 median_later_round_s=statistics.median(
+                                     round_s[1:]),
+                                 stale_merges=hist.stale_merges,
+                                 quarantined=hist.quarantined_updates,
+                                 upload_failures=hist.upload_failures,
+                                 attempt_only_merges_h_moved=h_moved)
+            else:
+                out[name]["fused_median_later_round_s"] = statistics.median(
+                    round_s[1:])
+            del engine
+            torch.cuda.empty_cache()
+        (hs, _), (hf, _) = runs["sparse"], runs["fused"]
+        differ = [f for f in HISTORY_COUNTS
+                  if getattr(hs, f) != getattr(hf, f)]
+        gap = route_gap(runs["sparse"], runs["fused"])
+        out[name].update(gap, history_counts_equal=not differ)
+        if differ:
+            raise AssertionError(f"sparse_layers/{name}: {differ} differ "
+                                 "between the sparse and the fused route")
+        check_routes(f"sparse_layers/{name}", gap)
+    emit("sparse_layers", rounds=rounds, users=1000, layers=out)
+    return dict(total)
+
+
+def phase_sweep_mlp_u1000_sparse(rounds=3):
+    """Four seeds of the 1000-user, k = 64 cell on its auto-selected
+    winner-sparse route (prepass) as one ``run_sweep``, with numpy
+    contention (each lane redraws from its own stream, so the lanes must
+    equal their sequential sparse runs in winners, priorities and losses
+    within rtol 1e-5), against the four sequential runs, in turns
+    (``sweep_in_turns``); the launches held to ``sweep_expected``."""
+    base = launch_train.build_paper_engine(paper_args(
+        "--model", "mlp", "--rounds", str(rounds), "--users", "1000",
+        "--k", "64", "--n-train", "60000"))
+    if not base.backend.sweep_sparse_capable():
+        raise AssertionError("sweep_mlp_U1000_sparse: not a sparse cell")
+    sweep = SweepSpec.grid(base.spec, seed=[0, 1, 2, 3])
+    launches = sweep_in_turns("sweep_mlp_U1000_sparse", base, sweep, True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pin_sparse_lanes(pins):
+    """The winner-sparse twins of ``tools/check_winner_pins.py`` on the
+    pin scenario, on the card and on the CPU: the four paper strategies x
+    seeds 0 and 1 as ONE sparse sweep (prepass), and its channel-off,
+    faults-off and inert-objective twins (FedDyn at alpha 0 + FedAvgM at
+    beta 0 / server_lr 1, without ``random-centralized``): every lane's
+    winners equal the pins (``.../sparse``, ``.../channel-off``,
+    ``.../faults-off``, ``.../objective-inert-sparse``), every twin's
+    globals bit-equal to the sparse sweep's on the card, and the card's
+    history counts the CPU's, globals within rtol 1e-4 / atol 1e-6. Then
+    one stale run (``priority-distributed``, seed 0): card = CPU."""
+    inert = ObjectiveSpec(local="feddyn", alpha=0.0, aggregator="fedavgm",
+                          beta=0.0, server_lr=1.0)
+    twins = {"sparse": {}, "channel-off": dict(
+        channel=ChannelSpec(per_model="off")),
+        "faults-off": dict(faults=FaultSpec()),
+        "objective-inert-sparse": dict(objective=inert)}
+    cells = [(s, seed) for s in PAPER_STRATEGIES for seed in (0, 1)]
+    out, plain = {}, None
+    for tag, fields in twins.items():
+        lanes = [(s, seed) for s, seed in cells if not (
+            "objective" in fields and s == "random-centralized")]
+        res = {}
+        for device in ("cuda", "cpu"):
+            engine = pin_engine("priority-distributed", 0, device,
+                                round_mode="sparse")
+            res[device] = engine.run_sweep([ExperimentSpec(
+                rounds=4, strategy=s, seed=seed, round_mode="sparse",
+                **fields) for s, seed in lanes])
+        gaps = []
+        for e, (s, seed) in enumerate(lanes):
+            key = f"{s}/seed{seed}"
+            g, c = res["cuda"][e], res["cpu"][e]
+            if g.winners != pins[f"{key}/{tag}"]:
+                raise AssertionError(f"reference_small {key}/{tag}: winners "
+                                     f"{g.winners} differ from the pins")
+            for f in HISTORY_COUNTS:
+                if getattr(g, f) != getattr(c, f):
+                    raise AssertionError(f"reference_small {key}/{tag}: {f} "
+                                         "differs between the card and "
+                                         "the CPU")
+            for a, b in zip(tree_leaves(res["cuda"].lane_params(e)),
+                            tree_leaves(res["cpu"].lane_params(e))):
+                np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                           rtol=1e-4, atol=1e-6)
+                gaps.append(float((a.cpu() - b).abs().max()))
+            if tag == "sparse":
+                continue
+            ref_e = cells.index((s, seed))
+            if not all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(res["cuda"].lane_params(e)),
+                    tree_leaves(plain.lane_params(ref_e)))):
+                raise AssertionError(f"reference_small {key}/{tag}: globals "
+                                     "not bit-equal to the sparse sweep's")
+        if tag == "sparse":
+            plain = res["cuda"]
+        out[tag] = dict(lanes=len(lanes), max_abs_gap_global=max(gaps))
+    gh, gp = pin_scenario("priority-distributed", 0, "cuda",
+                          round_mode="sparse", sparse_priority="stale")
+    ch, cp = pin_scenario("priority-distributed", 0, "cpu",
+                          round_mode="sparse", sparse_priority="stale")
+    for f in HISTORY_COUNTS:
+        if getattr(gh, f) != getattr(ch, f):
+            raise AssertionError(f"reference_small sparse stale: {f} differs "
+                                 "between the card and the CPU")
+    for a, b in zip(tree_leaves(gp), tree_leaves(cp)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-6)
+    out["stale"] = dict(winners=gh.winners, max_abs_gap_global=max(
+        float((a.cpu() - b).abs().max())
+        for a, b in zip(tree_leaves(gp), tree_leaves(cp))))
+    return out
 
 
 def phase_layer_path(name, rounds, check_accuracy, *extra,
@@ -2618,9 +3095,11 @@ def timed(engine, call):
     """``call(engine)`` (a ``run`` or ``run_sweep``) with the launch
     counts and contention statistics set to 0 just before it and read
     just after; every round stamped at its first evaluation, after a
-    synchronize (``lane_round_s``). Returns (result, seconds, launches,
-    per-round seconds, contention attempts)."""
-    E = [0]
+    synchronize (``lane_round_s``; the sparse sweep loop queues no next
+    round before its evaluations, so all its intervals count). Returns
+    (result, seconds, launches, per-round seconds, contention
+    attempts)."""
+    E, queued = [0], [False]
     inner, stamps, calls = engine.eval_fn, [], [0]
 
     def timed_eval(params):
@@ -2630,11 +3109,14 @@ def timed(engine, call):
         calls[0] += 1
         return inner(params)
 
-    def spy_lanes(lanes, **kw):
-        E[0] = len(lanes)
-        return run_lanes(lanes, **kw)
-    run_lanes = engine._run_lanes
-    engine._run_lanes = spy_lanes
+    def spy(loop, queues):
+        def spy_lanes(lanes, **kw):
+            E[0], queued[0] = len(lanes), queues
+            return loop(lanes, **kw)
+        return spy_lanes
+    loops = (engine._run_lanes, engine._run_lanes_sparse)
+    engine._run_lanes = spy(loops[0], True)
+    engine._run_lanes_sparse = spy(loops[1], False)
     engine.eval_fn = timed_eval
     torch.cuda.synchronize()
     ops.reset_launches()                      # just before the path
@@ -2644,17 +3126,21 @@ def timed(engine, call):
         out = call(engine)
         torch.cuda.synchronize()
     finally:
-        engine.eval_fn, engine._run_lanes = inner, run_lanes
+        engine.eval_fn = inner
+        engine._run_lanes, engine._run_lanes_sparse = loops
     dt = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)             # just after it
-    return (out, dt, launches, lane_round_s(t0, stamps, E[0] > 0),
+    return (out, dt, launches, lane_round_s(t0, stamps, queued[0]),
             kcont.LOOP["attempts"])
 
 
 def sweep_expected(engine, res, merges, merge_lanes, attempts=0):
     """The launches a sweep makes, from its shape and the kinds of its
     lanes' merges: ``fused_sgd`` one a local step for every lane, Eq. 2
-    one ``delta_norm_leaves`` call over the E x L leaf list a round; per
+    one ``delta_norm_leaves`` call over the E x L leaf list a round (a
+    sparse sweep: each of the ceil(U / C) prepass chunks, where the mode
+    is ``"prepass"`` and a lane uses priorities, and the winner retrain,
+    whose priorities are always computed, one training pass each); per
     merge of a lane, one launch a leaf of its merge kernel (gather,
     AirComp, robust once per group, with one ``delta_norm`` call a group)
     and, for an objective merge with a nonzero weight whose aggregator
@@ -2671,12 +3157,17 @@ def sweep_expected(engine, res, merges, merge_lanes, attempts=0):
     server = sum(1 for k, e in zip(merges, merge_lanes)
                  if k == "objective" and res.specs[e].objective.uses_server)
     per = -(-L // kdn.max_leaves())
+    passes, calls = R, R if prio else 0      # training passes, Eq. 2 calls
+    if be.sweep_sparse_capable():
+        chunks = -(-be.num_users // max(1, min(be._sparse_chunk,
+                                               be.num_users)))
+        pre = chunks if prio and be._sparse_priority == "prepass" else 0
+        passes = calls = (pre + 1) * R
     want = {k: 0 for k in ops.LAUNCHES}
     want.update(
         fused_sgd=-(-L // kfused.max_leaves()) * be._nb
-        * engine.spec.local_epochs * R,
-        delta_norm=(-(-E * L // kdn.max_leaves()) * R if prio else 0)
-        + per * groups,
+        * engine.spec.local_epochs * passes,
+        delta_norm=-(-E * L // kdn.max_leaves()) * calls + per * groups,
         gather_combine=L * (kinds["digital"] + kinds["objective"]
                             + kinds["objective-empty"]),
         aircomp_combine=L * kinds["aircomp"],
@@ -2909,8 +3400,9 @@ def phase_kill_resume(rounds=4):
     first checkpoint, resumed, bit-identical; both scenarios), then the
     MLP cell run with checkpoints every two rounds and resumed by a fresh
     engine: the fused run (its E = 1 sweep writes the sweep payload) and
-    the stacked run (the per-round "run" payload), each resumed run
-    bit-identical to the uninterrupted one."""
+    the stacked run and a winner-sparse run under stale priorities (the
+    per-round "run" payload, the latter with its priority cache), each
+    resumed run bit-identical to the uninterrupted one."""
     t0 = time.perf_counter()
     spec = importlib.util.spec_from_file_location(
         "kill_resume_smoke_torch",
@@ -2925,16 +3417,20 @@ def phase_kill_resume(rounds=4):
                              + said.getvalue())
     tool_s = time.perf_counter() - t0
     paths = {}
-    for label, extra in (("fused", ()), ("stacked",
-                                         ("--round-mode", "stacked"))):
+    for label, extra, spec in (
+            ("fused", (), {}), ("stacked", ("--round-mode", "stacked"), {}),
+            ("sparse_stale", ("--round-mode", "sparse"),
+             dict(sparse_priority="stale"))):
         args = paper_args("--model", "mlp", "--rounds", str(rounds), *extra)
-        ref = launch_train.build_paper_engine(args)
+        ref = launch_train.build_paper_engine(args, **spec)
         want = ref.run()
         with tempfile.TemporaryDirectory() as d:
-            first = launch_train.build_paper_engine(args)
+            first = launch_train.build_paper_engine(args, **spec)
             h1 = first.run(checkpoint_dir=d, checkpoint_every=2)
-            kind = load_fl_checkpoint(d)["kind"]
-            again = launch_train.build_paper_engine(args)
+            payload = load_fl_checkpoint(d)
+            kind = payload["kind"]
+            cache = payload.get("priority_cache")
+            again = launch_train.build_paper_engine(args, **spec)
             h2 = again.run(checkpoint_dir=d)
         for h, e, what in ((h1, first, "checkpointed"), (h2, again,
                                                          "resumed")):
@@ -2944,10 +3440,12 @@ def phase_kill_resume(rounds=4):
                         tree_leaves(ref.global_params))):
                 raise AssertionError(f"kill_resume {label}: the {what} run "
                                      "is not the uninterrupted run's bits")
-        paths[label] = dict(payload=kind, winners=want.winners)
-    if [paths[k]["payload"] for k in ("fused", "stacked")] != ["sweep",
-                                                               "run"]:
-        raise AssertionError(f"kill_resume: payload kinds {paths}")
+        paths[label] = dict(payload=kind, winners=want.winners,
+                            priority_cache=cache is not None)
+    if [paths[k]["payload"] for k in ("fused", "stacked", "sparse_stale")] \
+            != ["sweep", "run", "run"] \
+            or not paths["sparse_stale"]["priority_cache"]:
+        raise AssertionError(f"kill_resume: payloads {paths}")
     emit("kill_resume", tool=said.getvalue().strip().splitlines(),
          tool_seconds=tool_s, rounds=rounds, paths=paths,
          bit_identical=True, seconds=time.perf_counter() - t0)
@@ -2967,18 +3465,21 @@ def profile_report(label, prof, wall_ms, rounds):
                or "delta_norm" in r[0] or "combine_kernel" in r[0]
                or "robust_kernel" in r[0] or "server_opt" in r[0]
                or "contention_cu" in r[0] or "loop_kernel" in r[0])
-    emit(f"profile_{label}", rounds=rounds, wall_ms=wall_ms,
-         device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
-         port_kernels_ms=ours, port_kernels_share_of_busy=ours / busy_ms,
-         device_kernels=len(rows),
-         launches=sum(r[2] for r in rows),
-         top=[dict(name=k[:90], ms=ms, count=c) for k, ms, c in rows[:12]],
-         # every device kernel's launches in the window, by name
-         launch_counts={k[:90]: c for k, _, c in rows},
-         host_top=[dict(name=e.key[:60], self_cpu_ms=e.self_cpu_time_total
-                        / 1e3, count=e.count)
-                   for e in sorted(prof.key_averages(),
-                                   key=lambda e: -e.self_cpu_time_total)[:10]])
+    fields = dict(
+        rounds=rounds, wall_ms=wall_ms,
+        device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
+        port_kernels_ms=ours, port_kernels_share_of_busy=ours / busy_ms,
+        device_kernels=len(rows),
+        launches=sum(r[2] for r in rows),
+        top=[dict(name=k[:90], ms=ms, count=c) for k, ms, c in rows[:12]],
+        # every device kernel's launches in the window, by name
+        launch_counts={k[:90]: c for k, _, c in rows},
+        host_top=[dict(name=e.key[:60], self_cpu_ms=e.self_cpu_time_total
+                       / 1e3, count=e.count)
+                  for e in sorted(prof.key_averages(),
+                                  key=lambda e: -e.self_cpu_time_total)[:10]])
+    emit(f"profile_{label}", **fields)
+    return fields
 
 
 def profiled(label, engine, call, rounds):
@@ -2987,7 +3488,7 @@ def profiled(label, engine, call, rounds):
     ``profile_report``."""
     from torch.profiler import ProfilerActivity, profile
     engine.eval_fn = None
-    if engine.backend.sweep_capable():
+    if engine.backend.sweep_capable() or engine.backend.sparse_capable():
         engine.backend._ensure_xstack()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2995,7 +3496,8 @@ def profiled(label, engine, call, rounds):
                              ProfilerActivity.CUDA]) as prof:
         call(engine)
         torch.cuda.synchronize()
-    profile_report(label, prof, (time.perf_counter() - t0) * 1e3, rounds)
+    return profile_report(label, prof, (time.perf_counter() - t0) * 1e3,
+                          rounds)
 
 
 def phase_profile_sweep(rounds=6):
@@ -3206,10 +3708,17 @@ def main():
                              engine=uneven_mlp_engine(10))
     phase_round_paths_in_turns()
 
+    # ---- the winner-sparse round path -----------------------------------
+    l_sp = phase_main_path_u1000_sparse()
+    l_sps = phase_main_path_u1000_sparse_stale()
+    phase_main_path_u10000_sparse()
+    l_splay = phase_sparse_layers()
+
     # ---- the sweep path and checkpoint / resume -------------------------
     l_fig3 = phase_sweep_paper_fig3()
     torch.cuda.empty_cache()
     l_su = phase_sweep_mlp_u1000()
+    l_ssp = phase_sweep_mlp_u1000_sparse()
     l_slay = phase_sweep_layers()
     phase_kill_resume()
 
@@ -3251,6 +3760,15 @@ def main():
                        "priorities)"),
         "server_opt": ("server_opt", "f32: the MLP's four leaves, FedAdam, "
                        "one launch (an objective merge)")}
+    # the kernels of the winner-sparse path, and where each must run
+    sparse_path = {"fused_sgd": (l_sp, l_sps, l_ssp),
+                   "delta_norm": (l_sp, l_sps, l_ssp),
+                   "gather_combine": (l_sp, l_sps, l_ssp),
+                   LOOP_KERNEL: (l_sp, l_sps)}
+    for name, runs in sparse_path.items():
+        if min(r[name] for r in runs) < 1:
+            raise AssertionError(f"{name}: never launched on a run of the "
+                                 "winner-sparse path")
     for name, meta in KERNELS.items():
         integer = name in CONTENTION or name == LOOP_KERNEL
         launches = path_of.get(name, l_mlp)[name]
@@ -3288,6 +3806,10 @@ def main():
             launches_sweep=l_fig3[name],
             launches_sweep_U1000=l_su[name],
             launches_sweep_layers=l_slay.get(name, 0),
+            launches_U1000_sparse=l_sp[name],
+            launches_U1000_sparse_stale=l_sps[name],
+            launches_U1000_sparse_layers=l_splay.get(name, 0),
+            launches_sweep_U1000_sparse=l_ssp[name],
             timed_at=where))
     emit("total", seconds=time.perf_counter() - t_start,
          before_profile_s=t_checks)

@@ -76,6 +76,23 @@ One implementation so far:
                stale-only round with no fresh winner). Objectives run in
                the fused round only, as in the reference.
 
+               sparse   winner-sparse rounds (``sparse_*``): Eq. 2
+                        priorities come BEFORE selection
+                        (``sparse_priorities``: the exact chunked
+                        train-and-discard prepass over (C, ...) broadcasts
+                        of the global, one host read a chunk, or the
+                        ``stale`` cache of each user's last-trained
+                        priority), contention runs over the whole cohort,
+                        and only the K winners train, as one compact
+                        (K_max, ...) stack (``sparse_train``; pad rows at
+                        index 0 with zero weight). The merge is the fused
+                        merge in all four forms over that stack, indexed
+                        by delivery POSITION; the AirComp coefficients,
+                        the robust weights and the FedDyn h rows are read
+                        by user id. Train FLOPs and memory a round scale
+                        with K; with ``prepass`` the winners, priorities
+                        and globals are the fused path's bits.
+
                sweep    (``sweep_*``) E independent experiments over the
                         fused path's cohort: the (E, U, ...) stack trains
                         as E * U rows of the same loop (one ``fused_sgd``
@@ -85,12 +102,13 @@ One implementation so far:
                         leaf list, then each lane's merge through the
                         fused merges above, on its (U, ...) view of the
                         stack. ``FLEngine.run`` on the fused path is its
-                        E = 1 case.
+                        E = 1 case. Its sparse twin (``sweep_sparse_*``)
+                        trains the (E, K_max, ...) winner stack as
+                        E * K_max rows and merges each lane on its
+                        (K_max, ...) view.
 
-               The reference's ``sparse`` round path with its objective
-               programs and cohort sharding are not ported yet; asking
-               for one raises ``NotImplementedError`` naming it. Nothing
-               downgrades silently.
+               Cohort sharding (``mesh``) is not ported yet and raises
+               ``NotImplementedError``. Nothing downgrades silently.
 
 Epoch batching stays on the host with each client's own rng stream, so
 fixed seeds give the reference's winner sequences. Contention stays on
@@ -219,6 +237,12 @@ class SweepState:
     ``obj`` is the sweep's ``ObjectiveTable`` (None: every lane plain
     FedAvg); ``m`` / ``v`` the lanes' server moments (one pytree a lane)
     and ``h`` the ``(E, U, ...)`` FedDyn state, all on the device.
+
+    A sparse sweep's ``stack`` is the ``(E, K_max, ...)`` winner stack
+    (None before its first merge); ``pending`` holds the round's (E, U,
+    ep*take) prepass draws for the winner retrain, and ``prio_cache``
+    the (E, U) stale priorities of ``sparse_priority="stale"`` (None
+    before the first round).
     """
     num_lanes: int
     glob: List[Any]
@@ -228,25 +252,30 @@ class SweepState:
     m: Optional[List[Any]] = None
     v: Optional[List[Any]] = None
     h: Any = None
+    pending: Any = None
+    prio_cache: Optional[np.ndarray] = None
 
 
 @dataclass
 class SweepTrainResult:
-    """One sweep training pass, as device tensors: the trained ``(E, U,
-    ...)`` stack (the merge overwrites it) and the ``(E, U)`` f32
+    """One sweep training pass, as device tensors: the trained ``(E, R,
+    ...)`` stack (the merge overwrites it) and the ``(E, R)`` f32
     priorities and losses — the only values the engine reads on the host
-    each round (``read``)."""
+    each round (``read``). R is the cohort, or K_max on a sparse sweep."""
     trained: Any
     losses: Any
     priorities: Any
+    host: Any = None
 
     def read(self):
-        """``(priorities, losses)`` as (E, U) float64 host arrays, in ONE
-        copy: the round's one sync. Read before anything else is queued
-        (a later copy would wait for it)."""
-        both = torch.stack((self.priorities, self.losses.float()))
-        prios, losses = both.cpu().numpy().astype(np.float64)
-        return prios, losses
+        """``(priorities, losses)`` as (E, R) float64 host arrays, in ONE
+        copy: the round's one sync (a second call returns the same
+        arrays). Read before anything else is queued (a later copy would
+        wait for it)."""
+        if self.host is None:
+            both = torch.stack((self.priorities, self.losses.float()))
+            self.host = tuple(both.cpu().numpy().astype(np.float64))
+        return self.host
 
 
 class Backend:
@@ -297,7 +326,23 @@ class Backend:
         return False
 
     def sparse_capable(self) -> bool:
+        """True when the engine selects BEFORE training and trains only
+        the winners (``sparse_priorities`` / ``sparse_train``)."""
         return False
+
+    def sweep_sparse_capable(self) -> bool:
+        return False
+
+    def priority_cache_state(self):
+        """The stale-priority cache for checkpoint / resume, or None when
+        the backend keeps none (everything but ``sparse_priority=
+        "stale"``)."""
+        return None
+
+    def restore_priority_cache(self, state) -> None:
+        if state is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no priority cache to restore")
 
     def objective_active(self) -> bool:
         """True when the backend was built with a non-plain objective."""
@@ -313,13 +358,16 @@ class HostBackend(Backend):
     """Paper-scale simulation over host data (see the module docstring
     for the fused / stacked / ragged round paths).
 
-    ``round_mode``: ``"fused"`` (the default), ``"stacked"`` or
-    ``"ragged"``; the reference's ``"sparse"`` raises
-    ``NotImplementedError``. ``None`` follows the reference's legacy
+    ``round_mode``: ``"fused"`` (the default), ``"stacked"``,
+    ``"ragged"`` or ``"sparse"`` (winner-sparse rounds; needs ``k_max``
+    and a rectangular cohort). ``None`` follows the reference's legacy
     ``prefer_vmap`` flag: ``"fused"`` when it is true, else
     ``"ragged"``; an explicit ``round_mode`` overrides the flag.
     ``k_max``: the round's winner budget (the spec's ``k_per_round``) —
-    the compact merge pad width.
+    the compact merge pad width, and the sparse path's train width.
+    ``sparse_priority`` (``"prepass"`` | ``"stale"``) and
+    ``sparse_chunk`` (rows a prepass chunk trains) set the sparse path's
+    Eq. 2 ordering (``sparse_priorities``).
     ``device``: where the cohort lives. ``None`` is the CUDA device and
     raises without one; only an explicit ``"cpu"`` runs on the CPU.
     """
@@ -328,15 +376,21 @@ class HostBackend(Backend):
                  batch_size: int = 32, local_epochs: int = 1, seed: int = 0,
                  prefer_vmap: bool = True, num_classes: int = 10,
                  round_mode: Optional[str] = None, mesh=None,
-                 k_max: Optional[int] = None, objective=None, device=None):
+                 k_max: Optional[int] = None,
+                 sparse_priority: str = "prepass", sparse_chunk: int = 256,
+                 objective=None, device=None):
         if round_mode is None:
             round_mode = "fused" if prefer_vmap else "ragged"
         if round_mode not in ("fused", "stacked", "ragged", "sparse"):
             raise ValueError(f"unknown round_mode {round_mode!r}")
-        if round_mode == "sparse":
-            raise NotImplementedError(
-                "round_mode='sparse' is not ported yet: the fused, "
-                "stacked and ragged round paths are")
+        if round_mode == "sparse" and not k_max:
+            raise ValueError(
+                "round_mode='sparse' needs k_max (the spec's "
+                "k_per_round): it sizes the compact winner stack")
+        if sparse_priority not in ("prepass", "stale"):
+            raise ValueError(
+                f"unknown sparse_priority {sparse_priority!r}; "
+                "known: ('prepass', 'stale')")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: sharding the cohort over devices is not ported yet")
@@ -364,6 +418,8 @@ class HostBackend(Backend):
         self._batch_size = batch_size
         self._local_epochs = local_epochs
         self._k_max = int(k_max) if k_max else None
+        self._sparse_priority = sparse_priority
+        self._sparse_chunk = int(sparse_chunk)
         self._epoch_run = sgd_epoch_scan(loss_fn, lr)
 
         # a cohort that is not rectangular runs its rounds on the stacked
@@ -371,6 +427,13 @@ class HostBackend(Backend):
         ns = {c.num_examples for c in self.clients}
         self._rect = (len(ns) == 1
                       and batch_size <= self.clients[0].num_examples)
+        if self._mode == "sparse" and not self._rect:
+            raise ValueError(
+                "round_mode='sparse' needs a rectangular cohort (equal "
+                "per-user example counts >= batch_size): the prepass "
+                "and compact gather-K train steps stack user data into "
+                "one (U, n, ...) tensor; use round_mode=None (auto) or "
+                "'ragged' for uneven cohorts")
         if obj_on and not self._rect:
             raise ValueError(
                 "non-plain objectives need a rectangular cohort (equal "
@@ -382,6 +445,9 @@ class HostBackend(Backend):
         self._noise_draw = aircomp_noise
         self._resident = None      # device-resident merged cohort stack
         self._resident_key = None  # the global-state object it mirrors
+        # ---- sparse-path state ----------------------------------------
+        self._stale_prios = None   # (U,) f64 last-trained priorities
+        self._pending_big = None   # this round's (U, ep*take) prepass draws
         # ---- objectives state (lazy, on the device) -------------------
         self._obj_runs = {}           # use_h -> objective_epoch_scan
         self._obj_m = None            # server-opt first moment (~ glob)
@@ -501,11 +567,12 @@ class HostBackend(Backend):
     def _bcast(self, state, rows: Optional[int] = None):
         """A fresh contiguous (rows, ...) stack of the global (``rows``
         defaults to the cohort size) — never a view of ``state``, which
-        training must not overwrite."""
+        training must not overwrite (``contiguous()`` would hand back
+        ``state``'s own storage for one row: a copy is always made)."""
         S = self.num_users if rows is None else rows
         return tree_map(
             lambda p: p.unsqueeze(0).expand((S,) + tuple(p.shape))
-            .contiguous(), state)
+            .clone(memory_format=torch.contiguous_format), state)
 
     def _fused_merge(self, trained, idx, w, old_glob):
         """The ONE Eq. 1 merge of the digital path: gather the ``idx``
@@ -638,6 +705,35 @@ class HostBackend(Backend):
         """(U, E*nb, bs, ...) full-cohort round batches."""
         return self._gather_rows(np.arange(self.num_users), self._draw_big())
 
+    def _draw_winner_perms(self, gens, rows: int):
+        """(rows, ep*take) index matrix of winner-only draws: row j takes
+        one permutation per local epoch from ``gens[j]`` (the stale
+        sparse mode draws nothing for anyone else); rows past
+        ``len(gens)`` are pads at index 0."""
+        bs, nb, ep = self._batch_size, self._nb, self._local_epochs
+        n = self.clients[0].num_examples
+        take = nb * bs
+        big = np.zeros((rows, ep * take), np.int64)
+        for j, gen in enumerate(gens):
+            for k in range(ep):
+                big[j, k * take:(k + 1) * take] = gen.permutation(n)[:take]
+        return big
+
+    def _train_rows(self, stack, batched, anchor, h=None):
+        """Local SGD over the rows of ``stack``, IN PLACE, under this
+        backend's objective law (``anchor``: the proximal anchor, a
+        global that never aliases ``stack``; ``h``: the rows' FedDyn
+        state when the objective carries it). Returns ``(trained, (R,)
+        losses)``, a row's loss the mean over its LAST epoch's
+        batches."""
+        if self.objective_active():
+            extra = (h,) if self._objective.uses_h else ()
+            trained, losses = self._obj_run(self._objective.uses_h)(
+                stack, batched, anchor, self._objective.prox_coeff, *extra)
+        else:
+            trained, losses = self._epoch_run(stack, batched)
+        return trained, losses[:, -self._nb:].mean(dim=1)
+
     def _train_round_fused(self, state, need_priority) -> TrainResult:
         self._ensure_xstack()
         if self._resident is not None and self._resident_key is state:
@@ -653,16 +749,9 @@ class HostBackend(Backend):
         # never aliases the stack (`_bcast` and the merge both produce
         # fresh tensors), so it is used as is — as the proximal anchor
         # of an objective's gradient law too.
-        if self.objective_active():
-            extra = ((self._ensure_obj_h(state),)
-                     if self._objective.uses_h else ())
-            trained, losses = self._obj_run(self._objective.uses_h)(
-                stack, self._fused_batches(), state,
-                self._objective.prox_coeff, *extra)
-        else:
-            trained, losses = self._epoch_run(stack, self._fused_batches())
-        # per-user loss = mean over the LAST epoch's batches
-        loss_u = losses[:, -self._nb:].mean(dim=1)
+        h = self._ensure_obj_h(state) if self.objective_needs_h() else None
+        trained, loss_u = self._train_rows(stack, self._fused_batches(),
+                                           state, h)
         if need_priority:
             prios = stacked_model_priorities(trained, state)
             # priorities leave the device as f32, widened on the host
@@ -748,6 +837,9 @@ class HostBackend(Backend):
         handle = train_result.local_handle
         if "fused_stack" in handle:
             return tree_map(lambda p: p[u].clone(), handle["fused_stack"])
+        if "sparse_stack" in handle:
+            j = handle["winners"].index(int(u))
+            return tree_map(lambda p: p[j].clone(), handle["sparse_stack"])
         return tree_map(lambda p: p.clone(), self._local(handle, u))
 
     def _k_pad(self, m: int) -> int:
@@ -765,28 +857,33 @@ class HostBackend(Backend):
         over the round's ATTEMPT winners, then the shared Eq. 1 average,
         then the server step on the pseudo-gradient (``server_opt_leaves``,
         one launch for every leaf) when the aggregator carries m / v.
-        Returns ``(new_glob, m', v')``.
+        ``attempts`` is the pair ``(user ids, rows)``: the attempt
+        winners and their rows in ``trained`` (the user ids themselves on
+        a (U, ...) stack, delivery positions on the sparse (K_max, ...)
+        one). Returns ``(new_glob, m', v')``.
 
         The h update ``h_u <- h_u - alpha * (w_u^end - w_glob)`` reads
-        only the trained rows of the attempt winners (row = user id on
-        the fused handle) and ``state``, so it runs first, before the
-        stack is overwritten; it writes each user's row of ``h`` in place
-        once (the winners are distinct: an indexed write, no float
-        atomics); ``alpha == 0`` skips it, so h stays bitwise. A merge
-        whose weights are all zero (attempts but no deliveries: only an
+        only the trained rows of the attempt winners and ``state``, so it
+        runs first, before the stack is overwritten; it writes each
+        user's row of ``h`` in place once (the winners are distinct: an
+        indexed write, no float atomics; a pad slot is never written);
+        ``alpha == 0`` skips it, so h stays bitwise. A merge whose
+        weights are all zero (attempts but no deliveries: only an
         h-carrying objective dispatches one) skips the server step on the
         host — the global is the average, which is the old global's bits,
         and m / v stay as they were, bitwise. The new global and moments
         are fresh tensors."""
         with torch.no_grad():
-            att = [int(u) for u in (attempts or [])]
-            if obj.uses_h and att and obj.alpha_coeff != 0.0:
-                rows = torch.as_tensor(att, dtype=torch.int64,
-                                       device=self.device)
+            uids, pos = attempts if attempts is not None else ([], [])
+            if obj.uses_h and len(uids) and obj.alpha_coeff != 0.0:
+                dst = torch.as_tensor([int(u) for u in uids],
+                                      dtype=torch.int64, device=self.device)
+                src = torch.as_tensor([int(p) for p in pos],
+                                      dtype=torch.int64, device=self.device)
                 neg_alpha = -float(np.float32(obj.alpha_coeff))
                 for hh, l, g in zip(tree_leaves(h), tree_leaves(trained),
                                     tree_leaves(state)):
-                    hh[rows] = hh[rows] + neg_alpha * (l[rows] - g)
+                    hh[dst] = hh[dst] + neg_alpha * (l[src] - g)
             new_glob = self._average(trained, idx, w, state)
             if obj.uses_server and np.any(w_host != 0.0):
                 outs, ms, vs = kops.server_opt_leaves(
@@ -803,24 +900,41 @@ class HostBackend(Backend):
         ``merge_ctx`` is, else the objective merge when a non-plain
         objective is active, else the digital one. ``attempts`` (the
         round's attempt winners) feed the FedDyn h update. The old global
-        ``state`` is only read. On the fused handle the trained stack
-        becomes the new resident stack; a stacked or ragged handle takes
-        the gather merge (``_gather_merge``)."""
+        ``state`` is only read. On the fused handle (rows = user ids) and
+        the sparse one (rows = delivery positions in the (K_max, ...)
+        winner stack) the trained stack becomes the new resident stack; a
+        stacked or ragged handle takes the gather merge
+        (``_gather_merge``)."""
         handle = train_result.local_handle
         winners = [int(u) for u in winners]
-        if "fused_stack" not in handle:
+        attempts = [int(u) for u in (attempts or [])]
+        if "fused_stack" in handle:
+            key, pos, att_pos = "fused_stack", winners, attempts
+        elif "sparse_stack" in handle:
+            key = "sparse_stack"
+            pos = [handle["winners"].index(u) for u in winners]
+            att_pos = [handle["winners"].index(u) for u in attempts]
+            if handle[key] is None and not handle["winners"]:
+                # a stale-mode round without winners trained nothing:
+                # only a stale-only robust merge lands here
+                if fault_ctx is None or winners:
+                    raise ValueError("merge of an untrained sparse round "
+                                     "needs a stale-only robust merge")
+                return self._gather_merge_faults(state, handle, [],
+                                                 fault_ctx)
+        else:
             return self._gather_merge(state, handle, winners, merge_ctx,
                                       fault_ctx)
-        trained = handle["fused_stack"]
+        trained = handle[key]
         if trained is None:
             raise ValueError(
-                "merge needs the fused train handle of this round (each "
-                "handle merges once: its stack is overwritten)")
+                "merge needs the train handle of this round (each handle "
+                "merges once: its stack is overwritten)")
         k_pad = self._k_pad(len(winners))
         if winners and max(winners) >= self.num_users:
             raise IndexError(f"winner id {max(winners)} out of range")
         idx, w = compact_weights(
-            k_pad, winners, [self.clients[u].num_examples for u in winners])
+            k_pad, pos, [self.clients[u].num_examples for u in winners])
         if fault_ctx is not None:
             new_glob = self._merge_fused_faults(
                 state, trained, idx, winners, fault_ctx)
@@ -836,19 +950,21 @@ class HostBackend(Backend):
                 h = self._ensure_obj_h(state) if obj.uses_h else None
                 new_glob, self._obj_m, self._obj_v = \
                     self._objective_merge(obj, state, trained, idx_d, w_d,
-                                          w, attempts, self._obj_m,
-                                          self._obj_v, h)
+                                          w, (attempts, att_pos),
+                                          self._obj_m, self._obj_v, h)
             elif merge_ctx is None:
                 new_glob = self._fused_merge(trained, idx_d, w_d, state)
             else:
-                # row index = user id here; the pad slots take user 0's
-                # coefficient, which their zero alpha masks
-                coeffs = np.asarray(merge_ctx.coeffs, np.float32)[idx]
+                # coefficients by user id; the pad slots take user 0's,
+                # which their zero alpha masks
+                uids = np.zeros(k_pad, np.int64)
+                uids[:len(winners)] = winners
+                coeffs = np.asarray(merge_ctx.coeffs, np.float32)[uids]
                 new_glob = self._fused_merge_air(
                     trained, idx_d, w_d,
                     torch.from_numpy(coeffs).to(self.device),
                     float(merge_ctx.noise_sigma), merge_ctx.key)
-        handle["fused_stack"] = None     # buffer reused as the new stack
+        handle[key] = None               # buffer reused as the new stack
         # stays on device for round t+1
         self._resident = self._restack(new_glob, trained)
         self._resident_key = new_glob
@@ -935,6 +1051,116 @@ class HostBackend(Backend):
                 for i, leaf in enumerate(tree_leaves(stacked))]
         return tree_unflatten(stacked, merged)
 
+    # ------------------------------------------------ winner-sparse path
+    # Contention-first rounds: Eq. 2 priorities come BEFORE selection,
+    # then only the K winners train, as one compact (K_max, ...) stack,
+    # and the fused merges reduce it by delivery position. Train FLOPs and
+    # peak memory a round scale with K, not U.
+    def sparse_capable(self) -> bool:
+        return (self._mode == "sparse" and self._rect
+                and bool(self._k_max))
+
+    def sparse_priorities(self, state, need_priority: bool):
+        """Pre-selection Eq. 2: ``(priorities (U,) f64, losses (U,) f64
+        or None)``.
+
+        ``"prepass"`` draws the round's FULL epoch permutations (every
+        client's stream: the fused path's draws, kept for the winner
+        retrain) and, when priorities are needed, trains a fresh (C, ...)
+        broadcast of the global over each chunk of C = ``sparse_chunk``
+        users and keeps only its losses and priorities (one host read a
+        chunk; peak memory O(C · params) whatever U). Each row's bits are
+        those of the fused round's row, so the priorities, the winners
+        and the retrained winners are the fused path's. ``"stale"`` serves
+        each user's last-trained priority from the cache (ones before its
+        first contact) and draws nothing: O(K) work a round, the same
+        winners in distribution only."""
+        U = self.num_users
+        if self._sparse_priority == "stale":
+            if not need_priority:
+                return np.ones(U), None
+            if self._stale_prios is None:
+                self._stale_prios = np.ones(U, np.float64)
+            return self._stale_prios.copy(), None
+        self._ensure_xstack()
+        self._pending_big = big = self._draw_big()
+        if not need_priority:
+            return np.ones(U), None
+        C = max(1, min(self._sparse_chunk, U))
+        prios, losses = np.empty(U), np.empty(U)
+        h = self._ensure_obj_h(state) if self.objective_needs_h() else None
+        for lo in range(0, U, C):
+            rows = np.arange(lo, min(lo + C, U))
+            hc = (None if h is None
+                  else tree_map(lambda x: x[lo:lo + len(rows)], h))
+            trained, loss_c = self._train_rows(
+                self._bcast(state, len(rows)),
+                self._gather_rows(rows, big[rows]), state, hc)
+            p = stacked_model_priorities(trained, state)
+            both = torch.stack((p, loss_c.float())).cpu().numpy()
+            prios[rows], losses[rows] = both.astype(np.float64)
+        return prios, losses
+
+    def sparse_train(self, state, winners: List[int]) -> TrainResult:
+        """Compact winner training: the K_max rows (winners in delivery
+        order, then pads at index 0 with zero merge weight) train on the
+        winners' batches — from the prepass draws when present, else
+        fresh winner-only draws from the winners' own streams — as one
+        stack: the resident (K_max, ...) stack when it mirrors ``state``,
+        else a fresh broadcast. The Eq. 2 priorities of the trained rows
+        are always computed (``"stale"`` caches them). Returns a
+        ``{"sparse_stack", "winners"}`` handle for ``merge``. A round
+        with no winner and no draws trains nothing and consumes no
+        stream: its handle is empty and the resident stack stays."""
+        K, m = self._k_max, len(winners)
+        if m > K:
+            raise ValueError(f"{m} winners exceed k_max={K}")
+        winners = [int(u) for u in winners]
+        big, self._pending_big = self._pending_big, None
+        if not m and big is None:
+            return TrainResult(
+                losses={}, priorities=np.ones(self.num_users),
+                local_handle={"sparse_stack": None, "winners": []})
+        self._ensure_xstack()
+        rows = np.zeros(K, np.int64)
+        rows[:m] = winners
+        if big is not None:
+            big_rows = big[rows]
+        else:
+            big_rows = self._draw_winner_perms(
+                [self.clients[u]._rng for u in winners], K)
+        batched = self._gather_rows(rows, big_rows)
+        if self._resident is not None and self._resident_key is state:
+            stack = self._resident
+        else:
+            stack = self._bcast(state, K)
+        self._resident = self._resident_key = None
+        h = None
+        if self.objective_needs_h():
+            # pad rows gather user 0's h: zero weight, row discarded
+            r = torch.from_numpy(rows).to(self.device)
+            h = tree_map(lambda x: x[r], self._ensure_obj_h(state))
+        trained, loss_k = self._train_rows(stack, batched, state, h)
+        prios_k = stacked_model_priorities(trained, state)
+        pk, lk = torch.stack((prios_k, loss_k.float())).cpu().numpy() \
+            .astype(np.float64)
+        if self._sparse_priority == "stale" and m:
+            if self._stale_prios is None:
+                self._stale_prios = np.ones(self.num_users, np.float64)
+            self._stale_prios[rows[:m]] = pk[:m]
+        return TrainResult(
+            losses={u: float(lk[j]) for j, u in enumerate(winners)},
+            priorities=np.ones(self.num_users),
+            local_handle={"sparse_stack": trained, "winners": winners})
+
+    def priority_cache_state(self):
+        return (None if self._stale_prios is None
+                else self._stale_prios.copy())
+
+    def restore_priority_cache(self, state) -> None:
+        if state is not None:
+            self._stale_prios = np.asarray(state, np.float64).copy()
+
     # ---- checkpoint hooks --------------------------------------------
     def client_stream_states(self):
         return [copy.deepcopy(c._rng.bit_generator.state)
@@ -959,17 +1185,21 @@ class HostBackend(Backend):
         rectangular cohort (equal per-user example counts)."""
         return self._mode == "fused" and self._rect
 
-    def _lane_stack(self, globs):
-        """A fresh contiguous (E, U, ...) stack, lane e's rows all equal
-        to ``globs[e]``."""
-        U = self.num_users
+    def _lane_stack(self, globs, rows: Optional[int] = None):
+        """A fresh contiguous (E, rows, ...) stack (``rows`` defaults to
+        the cohort size), lane e's rows all equal to ``globs[e]``."""
+        R = self.num_users if rows is None else rows
         return tree_map(
             lambda *ls: torch.stack(ls).unsqueeze(1).expand(
-                (len(ls), U) + tuple(ls[0].shape)).contiguous(), *globs)
+                (len(ls), R) + tuple(ls[0].shape)).contiguous(), *globs)
 
     def _new_sweep(self, globs, seeds, objectives, stream_states=None,
-                   objective_state=None) -> SweepState:
-        if not self.sweep_capable():
+                   objective_state=None, sparse=False) -> SweepState:
+        if sparse and not self.sweep_sparse_capable():
+            raise ValueError(
+                "sparse sweep needs round_mode='sparse' (k_max set) "
+                "and a rectangular cohort")
+        if not sparse and not self.sweep_capable():
             raise ValueError(
                 "sweep needs round_mode='fused' and a rectangular "
                 "cohort (equal per-user example counts)")
@@ -979,8 +1209,10 @@ class HostBackend(Backend):
         for lane, states in zip(rngs, stream_states or []):
             for gen, gs in zip(lane, states):
                 gen.bit_generator.state = gs
+        # a sparse sweep's (E, K_max, ...) stack first exists in a round
         st = SweepState(num_lanes=len(seeds), glob=list(globs),
-                        stack=self._lane_stack(globs), rngs=rngs)
+                        stack=None if sparse else self._lane_stack(globs),
+                        rngs=rngs)
         table = build_objective_table(objectives or [])
         if table is not None:
             st.obj = table
@@ -1047,18 +1279,7 @@ class HostBackend(Backend):
         priorities. Returns device tensors: no host sync here."""
         E, U = st.num_lanes, self.num_users
         stack, st.stack = st.stack, None
-        rows = tree_map(lambda p: p.view((E * U,) + tuple(p.shape[2:])),
-                        stack)
-        if st.obj is not None:
-            run = self._obj_run(st.obj.use_h)
-            anchors = tree_map(lambda *ls: torch.stack(ls), *st.glob)
-            extra = ((tree_map(lambda x: x.view((E * U,)
-                                                + tuple(x.shape[2:])),
-                               st.h),) if st.obj.use_h else ())
-            _, losses = run(rows, batched, anchors, st.obj.prox, *extra)
-        else:
-            _, losses = self._epoch_run(rows, batched)
-        loss_u = losses[:, -self._nb:].mean(dim=1).view(E, U)
+        loss_u = self._train_lanes(st, stack, batched, st.h)
         if need_priority:
             prios = self._sweep_priorities(stack, st.glob)
         else:
@@ -1066,6 +1287,27 @@ class HostBackend(Backend):
                                device=self.device)
         return SweepTrainResult(trained=stack, losses=loss_u,
                                 priorities=prios)
+
+    def _train_lanes(self, st: SweepState, stack, batched, h=None):
+        """The (E, R, ...) lane stack trained IN PLACE as E * R rows of
+        the local-SGD loop (``batched``: (E * R, ep*nb, bs, ...),
+        lane-major); an objective sweep runs each lane's law on its own
+        rows, anchored to its own global, with ``h`` the rows' (E, R,
+        ...) FedDyn state. Returns the (E, R) losses."""
+        E, R = st.num_lanes, tree_leaves(stack)[0].shape[1]
+        # a view, so the loop trains the stack itself (h is only read)
+        flat = tree_map(lambda x: x.view((E * R,) + tuple(x.shape[2:])),
+                        stack)
+        if st.obj is not None:
+            run = self._obj_run(st.obj.use_h)
+            anchors = tree_map(lambda *ls: torch.stack(ls), *st.glob)
+            extra = ((tree_map(lambda x: x.reshape(
+                (E * R,) + tuple(x.shape[2:])), h),)
+                if st.obj.use_h else ())
+            _, losses = run(flat, batched, anchors, st.obj.prox, *extra)
+        else:
+            _, losses = self._epoch_run(flat, batched)
+        return losses[:, -self._nb:].mean(dim=1).view(E, R)
 
     @staticmethod
     def _sweep_priorities(trained, globs):
@@ -1103,12 +1345,13 @@ class HostBackend(Backend):
                     uids=None, attempts=None) -> None:
         """Eq. 1 for every lane, lane by lane on its view of the trained
         stack, through the fused round's digital, AirComp or objective
-        merge: ``idx`` / ``w`` (E, k_pad) row indices (user ids) and
-        compact weights, zero-padded; ``merge_ctx`` the sweep's AirComp
-        inputs ((E, U) coefficients, (E,) sigmas, one ``(entropy, t)``
-        noise key a lane); ``uids`` the (E, k_pad) user ids behind the
-        slots (for the coefficient gather); ``attempts`` the per-lane
-        attempt winners ``(uids, positions)`` for the FedDyn h update. A
+        merge: ``idx`` / ``w`` (E, k_pad) row indices (user ids on the
+        dense sweep, delivery positions on the sparse one) and compact
+        weights, zero-padded; ``merge_ctx`` the sweep's AirComp inputs
+        ((E, U) coefficients, (E,) sigmas, one ``(entropy, t)`` noise key
+        a lane); ``uids`` the (E, k_pad) user ids behind the slots (for
+        the coefficient gather); ``attempts`` the per-lane attempt
+        winners ``(uids, rows)`` for the FedDyn h update. A
         lane merges where a sequential run would: a nonzero weight, or
         attempts under an h-carrying objective; any other lane keeps its
         global — the reference's all-zero-weight guard, decided on the
@@ -1122,7 +1365,8 @@ class HostBackend(Backend):
         for e in range(st.num_lanes):
             lane, glob = self._lane(trained, e), st.glob[e]
             obj = st.obj.specs[e] if st.obj is not None else None
-            att = attempts[0][e] if attempts is not None else []
+            att, att_rows = ((attempts[0][e], attempts[1][e])
+                             if attempts is not None else ([], []))
             go = bool(np.any(w[e] != 0.0)) or (
                 merge_ctx is None and obj is not None and obj.uses_h
                 and len(att) > 0)
@@ -1140,7 +1384,8 @@ class HostBackend(Backend):
                 m = st.m[e] if st.m is not None else None
                 v = st.v[e] if st.v is not None else None
                 g, m, v = self._objective_merge(
-                    obj, glob, lane, idx_d[e], w_d[e], w[e], att, m, v, h)
+                    obj, glob, lane, idx_d[e], w_d[e], w[e],
+                    (att, att_rows), m, v, h)
                 if st.m is not None:
                     st.m[e], st.v[e] = m, v
                 new_glob.append(g)
@@ -1172,10 +1417,111 @@ class HostBackend(Backend):
         return nq
 
     def sweep_extract(self, tr: SweepTrainResult, e: int, u: int):
-        """Lane e / user u's trained params as freshly materialized
+        """Lane e / row u's trained params as freshly materialized
         tensors, safe to hold across the merge that overwrites the
-        trained stack — the stale-upload capture."""
+        trained stack — the stale-upload capture. On a sparse sweep ``u``
+        is a compact POSITION, not a user id."""
         return tree_map(lambda p: p[e, u].clone(), tr.trained)
+
+    # ------------------------------------ sweep twin of the sparse path
+    def sweep_sparse_capable(self) -> bool:
+        """Sparse sweeps need what a sparse run needs."""
+        return self.sparse_capable()
+
+    def sweep_sparse_init(self, init_params, seeds: Sequence[int],
+                          objectives=None) -> SweepState:
+        """A sparse sweep's state: the lanes' globals (all
+        ``init_params``), their client streams (the dense sweep's seeding
+        rule) and objective state; no cohort stack — the (E, K_max, ...)
+        winner stack exists from the first round on."""
+        glob = self.init_state(init_params)
+        return self._new_sweep([glob] * len(seeds), seeds, objectives,
+                               sparse=True)
+
+    def _gather_lane_rows(self, rows, big):
+        """(E * R, ep*nb, bs, ...) batches, lane-major, of the (E, R)
+        user ids ``rows`` under the (E, R, ep*take) draws ``big``."""
+        E, R = rows.shape
+        return self._gather_rows(rows.reshape(E * R),
+                                 big.reshape(E * R, -1))
+
+    def sweep_sparse_priorities(self, st: SweepState, need_priority: bool):
+        """The sweep twin of ``sparse_priorities``: ``(priorities (E, U)
+        f64, losses (E, U) f64 or None)``. ``"prepass"`` draws every
+        lane's full round (kept in ``st.pending`` for the retrain), then
+        trains each chunk of C users for every lane as E * C rows of one
+        loop (each lane's objective law, anchored to its global), one
+        ``delta_norm_leaves`` call and one host read a chunk;
+        ``"stale"`` serves the sweep's (E, U) cache."""
+        E, U = st.num_lanes, self.num_users
+        if self._sparse_priority == "stale":
+            if not need_priority:
+                return np.ones((E, U)), None
+            if st.prio_cache is None:
+                st.prio_cache = np.ones((E, U), np.float64)
+            return st.prio_cache.copy(), None
+        st.pending = big = self._draw_perms(st.rngs)
+        if not need_priority:
+            return np.ones((E, U)), None
+        C = max(1, min(self._sparse_chunk, U))
+        prios, losses = np.empty((E, U)), np.empty((E, U))
+        for lo in range(0, U, C):
+            hi = min(lo + C, U)
+            rows = np.broadcast_to(np.arange(lo, hi), (E, hi - lo))
+            stack = self._lane_stack(st.glob, hi - lo)
+            hc = (None if st.h is None
+                  else tree_map(lambda x: x[:, lo:hi], st.h))
+            loss_c = self._train_lanes(
+                st, stack, self._gather_lane_rows(rows, big[:, lo:hi]), hc)
+            p = self._sweep_priorities(stack, st.glob)
+            both = torch.stack((p, loss_c.float())).cpu().numpy()
+            prios[:, lo:hi], losses[:, lo:hi] = both.astype(np.float64)
+        return prios, losses
+
+    def sweep_sparse_train(self, st: SweepState,
+                           winners_all) -> SweepTrainResult:
+        """Compact winner training for every lane at once:
+        ``winners_all[e]`` is lane e's delivery-ordered winner list. The
+        (E, K_max, ...) stack — the resident one, else a fresh broadcast —
+        trains as E * K_max rows (pads at index 0, zero weight), on the
+        prepass draws or, under ``"stale"``, on winner-only draws from
+        each lane's own streams; then every lane's priorities in one
+        ``delta_norm_leaves`` call (``"stale"`` caches them: one host
+        read). Every array of the result is POSITION-indexed (E, K_max)."""
+        E, U, K = st.num_lanes, self.num_users, self._k_max
+        big, st.pending = st.pending, None
+        rows = np.zeros((E, K), np.int64)
+        for e, ws in enumerate(winners_all):
+            if len(ws) > K:
+                raise ValueError(f"{len(ws)} winners exceed k_max={K}")
+            rows[e, :len(ws)] = [int(u) for u in ws]
+        if big is not None:
+            big_rows = big[np.arange(E)[:, None], rows]
+        else:
+            big_rows = np.stack([
+                self._draw_winner_perms([st.rngs[e][int(u)] for u in ws], K)
+                for e, ws in enumerate(winners_all)])
+        stack = (st.stack if st.stack is not None
+                 else self._lane_stack(st.glob, K))
+        st.stack = None
+        h = None
+        if st.h is not None:
+            # pad rows gather user 0's h: zero weight, row discarded
+            lanes = torch.arange(E, device=self.device)[:, None]
+            r = torch.from_numpy(rows).to(self.device)
+            h = tree_map(lambda x: x[lanes, r], st.h)
+        loss_k = self._train_lanes(
+            st, stack, self._gather_lane_rows(rows, big_rows), h)
+        tr = SweepTrainResult(trained=stack, losses=loss_k,
+                              priorities=self._sweep_priorities(stack,
+                                                                st.glob))
+        if self._sparse_priority == "stale":
+            if st.prio_cache is None:
+                st.prio_cache = np.ones((E, U), np.float64)
+            pk, _ = tr.read()
+            for e, ws in enumerate(winners_all):
+                st.prio_cache[e, rows[e, :len(ws)]] = pk[e, :len(ws)]
+        return tr
 
     def sweep_global(self, st: SweepState, e: int):
         """Lane e's current global params."""

@@ -9,7 +9,10 @@ One round, regardless of strategy or backend:
   3. strategy.select over the SelectionContext (Step 4/5 contention) —
      a strategy that selects before training (``random-centralized``)
      selects first, with unit priorities, and only its winners train
-     (a partial-cohort round);
+     (a partial-cohort round); on a winner-sparse backend
+     (``sparse_capable``) the priorities come first (the backend's exact
+     prepass or its stale cache), then selection, then only the winners
+     train;
   4. the channel's PER gate and the fault pipeline (crashes, outages,
      HARQ retries, stragglers, corruption) turn the contention winners
      (upload attempts) into the merge candidates;
@@ -29,7 +32,11 @@ return at once, so while the card trains round t the host pre-draws round
 t+1's batches; only the (E, U) priorities and losses are read back each
 round, and the next train call is queued before the host settles round
 t's bookkeeping. ``run`` on a sweep-capable backend is the E = 1 case of
-the same loop.
+the same loop. On a winner-sparse backend ``run_sweep`` takes the
+contention-first loop instead (``_run_lanes_sparse``): every lane's
+priorities, one grouped selection, one compact (E, K_max, ...) training
+pass over the winners, the merge by delivery position; ``run`` there is
+the per-round loop.
 
 Sweep lanes are faithful to sequential runs: each lane owns its strategy
 instance (its contention rng), its engine rng, its fairness counter row
@@ -67,7 +74,7 @@ from repro_torch.engine.backends import Backend, compact_weights
 from repro_torch.engine.registry import create_strategy, select_grouped
 from repro_torch.engine.spec import ExperimentSpec, SweepSpec
 from repro_torch.engine.types import (FLHistory, SelectionContext,
-                                      SweepResult)
+                                      SweepResult, TrainResult)
 from repro_torch.faults.injectors import FaultInjector
 from repro_torch.faults.robust import FaultMergeContext, fault_alphas
 from repro_torch.tree import tree_leaves
@@ -323,6 +330,22 @@ class FLEngine:
             tr = self.backend.train_round(
                 self.state, t, train_ids,
                 need_priority=strat.uses_priority)
+        elif self.backend.sparse_capable():
+            # winner-sparse round: Eq. 2 priorities BEFORE selection (the
+            # exact chunked prepass, or the stale cache), then only the
+            # contention winners train, as one compact stack. A prepass
+            # round reports the whole cohort's prepass losses (the fused
+            # path's numbers); a stale round its winners' losses.
+            train_ids = list(range(self.num_users))
+            prios, pre_losses = self.backend.sparse_priorities(
+                self.state, strat.uses_priority)
+            sel = strat.select(self._context(
+                prios, participating, t, shares))
+            tr = self.backend.sparse_train(
+                self.state, [int(u) for u in sel.winners])
+            tr = TrainResult(
+                losses=pre_losses if pre_losses is not None else tr.losses,
+                priorities=prios, local_handle=tr.local_handle)
         else:
             train_ids = list(range(self.num_users))
             tr = self.backend.train_round(
@@ -453,6 +476,9 @@ class FLEngine:
             **self._lane.state(),
             "counter": self.counter.state_dict(),
             "client_streams": self.backend.client_stream_states(),
+            # the sparse "stale" mode's last-trained Eq. 2 priorities;
+            # None everywhere else
+            "priority_cache": self.backend.priority_cache_state(),
             # server-opt moments + FedDyn h; None for plain objectives
             "objective": self.backend.objective_state(),
         }
@@ -471,6 +497,7 @@ class FLEngine:
         self._lane.load_state(payload)
         self.counter.load_state_dict(payload["counter"])
         self.backend.restore_client_streams(payload["client_streams"])
+        self.backend.restore_priority_cache(payload.get("priority_cache"))
         self.backend.restore_objective_state(payload.get("objective"))
         return payload["history"], payload["round"] + 1
 
@@ -495,13 +522,22 @@ class FLEngine:
             sweep = SweepSpec(specs=list(sweep))
         if overlap is None:
             overlap = sweep.overlap
+        lanes = [_Lane(spec, self.num_users, device=self.backend.device)
+                 for spec in sweep.specs]
+        if self.backend.sweep_sparse_capable():
+            # winner-sparse sweeps run the contention-first lane loop:
+            # every lane selects, then ONE compact (E, K_max, ...) train
+            # covers all lanes' winners
+            result, _, _ = self._run_lanes_sparse(
+                lanes, init_state=self._init_params, verbose=verbose,
+                labels=sweep.labels, checkpoint_dir=checkpoint_dir)
+            return result
         if not self.backend.sweep_capable():
             raise ValueError(
                 "run_sweep needs a sweep-capable backend (HostBackend "
-                "round_mode='fused' over a rectangular cohort); run the "
-                "cells sequentially through FLEngine.run instead")
-        lanes = [_Lane(spec, self.num_users, device=self.backend.device)
-                 for spec in sweep.specs]
+                "round_mode='fused' or 'sparse' over a rectangular "
+                "cohort); run the cells sequentially through "
+                "FLEngine.run instead")
         result, _, _ = self._run_lanes(
             lanes, init_state=self._init_params, overlap=overlap,
             verbose=verbose, labels=sweep.labels,
@@ -575,26 +611,33 @@ class FLEngine:
                                                ctxs)
 
     def _dispatch_sweep_merge(self, lanes, st, tr, merged_all, rfs, stales,
-                              lead_faults, k_pad, t, attempts=None):
+                              lead_faults, k_pad, t, attempts=None,
+                              pos_all=None):
         """One (E, k_pad) merge dispatch. ``merged_all[e]`` are lane e's
-        merge candidates (user ids = row indices into the trained stack,
-        delivery order); ``attempts`` the per-lane attempt-winner (uids,
-        positions) pair for the FedDyn h update. Routes through the
-        robust, AirComp or digital / objective sweep merge; returns the
-        (E,) quarantine counts, or None off the fault path."""
+        merge candidates (user ids, delivery order); ``pos_all[e]`` their
+        rows in the trained stack (None: the user ids themselves, as on
+        the dense sweep; compact positions on the sparse one);
+        ``attempts`` the per-lane attempt-winner (uids, rows) pair for
+        the FedDyn h update. Routes through the robust, AirComp or
+        digital / objective sweep merge; returns the (E,) quarantine
+        counts, or None off the fault path."""
         backend, E = self.backend, len(lanes)
+        if pos_all is None:
+            pos_all = merged_all
         idx = np.zeros((E, k_pad), np.int32)
         w = np.zeros((E, k_pad), np.float32)
+        uids = np.zeros((E, k_pad), np.int64)
         for e in range(E):
             idx[e], w[e] = compact_weights(
-                k_pad, merged_all[e],
+                k_pad, pos_all[e],
                 [backend.num_examples(u) for u in merged_all[e]])
+            uids[e, :len(merged_all[e])] = merged_all[e]
         if lead_faults is not None and lead_faults.merge_guarded:
             return self._sweep_merge_faults(lanes, st, tr, rfs, stales,
                                             merged_all, idx)
         backend.sweep_merge(st, tr, idx, w,
                             merge_ctx=self._sweep_merge_ctx(lanes, t),
-                            uids=idx, attempts=attempts)
+                            uids=uids, attempts=attempts)
         return None
 
     def _sweep_payload(self, fp, t, st, stream_snap, counters, lanes):
@@ -720,19 +763,7 @@ class FLEngine:
                         and not lane.strategy.trains_before_selection):
                     h.priorities.append(prios64[e].tolist())
                 h.train_loss.append(float(np.mean(losses64[e])))
-            if self.eval_fn is not None:
-                for e, lane in enumerate(lanes):
-                    spec = lane.spec
-                    if t % spec.eval_every == 0 or t == spec.rounds - 1:
-                        acc = float(self.eval_fn(
-                            backend.sweep_global(st, e)))
-                        lane.history.accuracy.append(acc)
-                        lane.history.eval_round.append(t)
-                        if verbose:
-                            tag = (labels[e] if labels
-                                   else f"{spec.strategy}/{e}")
-                            print(f"[{tag}] round {t:4d} acc {acc:.4f}"
-                                  f" loss {lane.history.train_loss[-1]:.4f}")
+            self._eval_lanes(lanes, st, t, labels, verbose)
             if want_ckpt:
                 save_fl_checkpoint(
                     checkpoint_dir,
@@ -746,9 +777,97 @@ class FLEngine:
             final_globals=backend.sweep_globals(st))
         return result, st, counters
 
+    def _eval_lanes(self, lanes, st, t, labels, verbose):
+        """Each lane's evaluation of round t, where its spec asks for
+        one."""
+        if self.eval_fn is None:
+            return
+        for e, lane in enumerate(lanes):
+            spec, h = lane.spec, lane.history
+            if t % spec.eval_every == 0 or t == spec.rounds - 1:
+                acc = float(self.eval_fn(self.backend.sweep_global(st, e)))
+                h.accuracy.append(acc)
+                h.eval_round.append(t)
+                if verbose:
+                    tag = labels[e] if labels else f"{spec.strategy}/{e}"
+                    print(f"[{tag}] round {t:4d} acc {acc:.4f}"
+                          + (f" loss {h.train_loss[-1]:.4f}"
+                             if h.train_loss else ""))
 
-#: the reference auto-selects its winner-sparse round path when the
-#: winner budget is at least this many times smaller than the cohort
+    def _run_lanes_sparse(self, lanes, *, init_state, verbose, labels=None,
+                          checkpoint_dir=None):
+        """The winner-sparse sweep loop: per round, every lane's Eq. 2
+        priorities (the exact prepass or the stale cache), ONE grouped
+        host contention, ONE compact (E, K_max, ...) training pass over
+        the winners, then the merge by delivery position. Synchronous —
+        no overlap: a round's winner draws depend on its contention. A
+        prepass round records the whole cohort's losses, a stale round
+        its winners' (none without winners)."""
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "sparse sweeps don't checkpoint; use round_mode='fused' "
+                "for checkpointed sweeps")
+        backend, U, E = self.backend, self.num_users, len(lanes)
+        rounds = lanes[0].spec.rounds
+        need_prio = any(l.strategy.uses_priority for l in lanes)
+        lead_faults = lanes[0].spec.faults       # sweep-shared field
+        counters = SweepFairnessCounter(
+            E, U, np.array([l.spec.counter_threshold for l in lanes]))
+        t0 = time.perf_counter()
+        st = backend.sweep_sparse_init(
+            init_state, [l.spec.seed for l in lanes],
+            objectives=[l.spec.objective for l in lanes])
+        for t in range(rounds):
+            prios64, pre_losses = backend.sweep_sparse_priorities(
+                st, need_prio)
+            winners_all, sels = self._select_lanes(
+                lanes, counters, prios64, t)
+            tr = backend.sweep_sparse_train(st, winners_all)
+            # a straggler's row is its delivery position
+            ups = [_uploads(lane.channel, lane.faults, winners_all[e],
+                            lambda u, e=e: backend.sweep_extract(
+                                tr, e, winners_all[e].index(u)),
+                            backend.num_examples)
+                   for e, lane in enumerate(lanes)]
+            merged_all = [[int(u) for u in up[4]] for up in ups]
+            # rows are compact positions in the (E, K_max, ...) stack; a
+            # lane's attempts ARE its trained rows, in order
+            pos_all = [[winners_all[e].index(u) for u in merged_all[e]]
+                       for e in range(E)]
+            att_rows = [list(range(len(ws))) for ws in winners_all]
+            losses64 = (pre_losses if pre_losses is not None
+                        else tr.read()[1])
+            nq = self._dispatch_sweep_merge(
+                lanes, st, tr, merged_all, [up[2] for up in ups],
+                [up[3] for up in ups], lead_faults, tr.priorities.shape[1],
+                t, attempts=(winners_all, att_rows), pos_all=pos_all)
+            counters.update(winners_all)
+            for e, (lane, (delivered, failures, rf, stale_in, _)) in \
+                    enumerate(zip(lanes, ups)):
+                h = lane.history
+                if nq is not None:
+                    h.quarantined_updates += int(nq[e])
+                _record_round(h, lane.spec, lane.channel, sels[e],
+                              winners_all[e], delivered, failures, rf,
+                              stale_in)
+                if (lane.strategy.uses_priority
+                        and not lane.strategy.trains_before_selection):
+                    h.priorities.append(prios64[e].tolist())
+                loss_row = (losses64[e] if pre_losses is not None
+                            else losses64[e, :len(winners_all[e])])
+                if np.size(loss_row):
+                    h.train_loss.append(float(np.mean(loss_row)))
+            self._eval_lanes(lanes, st, t, labels, verbose)
+        result = SweepResult(
+            histories=[l.history for l in lanes],
+            specs=[l.spec for l in lanes], labels=labels,
+            overlap=False, wall_s=time.perf_counter() - t0,
+            final_globals=backend.sweep_globals(st))
+        return result, st, counters
+
+
+#: auto-select the winner-sparse path when the winner budget is at least
+#: this many times smaller than the cohort (K ≪ U)
 SPARSE_AUTO_RATIO = 8
 
 
@@ -759,15 +878,14 @@ def build_host_engine(spec: ExperimentSpec, init_params, loss_fn,
     """Convenience: spec + host data -> engine over HostBackend.
 
     ``round_mode`` (argument, else ``spec.round_mode``) picks the
-    backend round path: ``"fused"``, ``"stacked"`` or ``"ragged"``
-    (``"sparse"`` is not ported). When BOTH are None the backend runs
-    the dense default (``"fused"``, or ``"ragged"`` without
-    ``prefer_vmap``), except that the reference auto-selects
-    ``"sparse"`` for a rectangular cohort with ``k_per_round *
-    SPARSE_AUTO_RATIO <= num_users`` under ``prefer_vmap``; the port
-    raises there instead of quietly running another path — pass
-    ``round_mode="fused"`` to run such a cohort dense. ``device=None``
-    is the CUDA device (raises without one); ``"cpu"`` runs on the CPU.
+    backend round path: ``"fused"``, ``"stacked"``, ``"ragged"`` or
+    ``"sparse"``. When BOTH are None the factory auto-selects
+    ``"sparse"`` (winner-sparse rounds, ``spec.sparse_priority``
+    ordering) for a rectangular cohort with ``k_per_round *
+    SPARSE_AUTO_RATIO <= num_users``, else the dense default
+    (``"fused"``, or ``"ragged"`` without ``prefer_vmap``).
+    ``device=None`` is the CUDA device (raises without one); ``"cpu"``
+    runs on the CPU.
     """
     from repro_torch.engine.backends import HostBackend
     mode = round_mode if round_mode is not None else spec.round_mode
@@ -776,17 +894,11 @@ def build_host_engine(spec: ExperimentSpec, init_params, loss_fn,
         rect = len(ns) == 1 and spec.batch_size <= next(iter(ns))
         if (rect and spec.k_per_round * SPARSE_AUTO_RATIO
                 <= len(user_data)):
-            raise NotImplementedError(
-                f"{len(user_data)} users with k_per_round="
-                f"{spec.k_per_round} auto-selects round_mode='sparse' "
-                f"(k_per_round * {SPARSE_AUTO_RATIO} <= users), which is "
-                "not ported yet; pass round_mode='fused' explicitly to "
-                "run the dense fused path (with the default "
-                "k_per_round=2 that means any cohort above 15 users)")
+            mode = "sparse"
     backend = HostBackend(
         loss_fn, user_data, lr=spec.lr, batch_size=spec.batch_size,
         local_epochs=spec.local_epochs, seed=spec.seed,
         prefer_vmap=prefer_vmap, round_mode=mode, mesh=mesh,
-        k_max=spec.k_per_round,
+        k_max=spec.k_per_round, sparse_priority=spec.sparse_priority,
         objective=spec.objective, device=device)
     return FLEngine(spec, backend, init_params, eval_fn)

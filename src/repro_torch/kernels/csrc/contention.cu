@@ -458,10 +458,15 @@ extern "C" int repro_contention_loop(
   int* o = static_cast<int*>(out);
   if (M <= kSharedLanes) {
     const size_t smem = (size_t)12 * M;
-    if (smem > 48 * 1024) {
-      // above 48 KB only after opting in, which holds for the current
-      // device alone: opt in on every such launch
-      const cudaError_t rc = cudaFuncSetAttribute(
+    // the dynamic lanes and the static reduction buffer together: above
+    // 48 KB only after opting in, which holds for the current device
+    // alone: opt in on every such launch (a 4096-lane pool's 48 KB of
+    // lanes alone does not fit without it)
+    cudaFuncAttributes attr;
+    cudaError_t rc = cudaFuncGetAttributes(&attr, loop_kernel<true>);
+    if (rc != cudaSuccess) return (int)rc;
+    if (smem + attr.sharedSizeBytes > 48 * 1024) {
+      rc = cudaFuncSetAttribute(
           loop_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
       if (rc != cudaSuccess) return (int)rc;

@@ -9,7 +9,13 @@ Examples:
   # the same on the CPU (slow; the kernels' plain versions)
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 5
 
-  # CSMA contention on the GPU (the event loop and its three kernels)
+  # 1000 users, 64 winners a round, CSMA contention on the GPU: k * 8 <=
+  # users, so the factory picks the winner-sparse round path (priorities
+  # from a chunked prepass, then only the winners train)
+  PYTHONPATH=src python -m repro_torch.launch.train --users 1000 --k 64 \
+      --n-train 60000 --contention-backend device
+
+  # the same cell on the dense fused path
   PYTHONPATH=src python -m repro_torch.launch.train --users 1000 --k 64 \
       --n-train 60000 --round-mode fused --contention-backend device
 
@@ -116,9 +122,10 @@ def make_parser() -> argparse.ArgumentParser:
                          "loop on --device")
     ap.add_argument("--round-mode", default=None,
                     choices=["fused", "stacked", "ragged", "sparse"],
-                    help="backend round path: 'fused' (the default), "
-                         "'stacked' or 'ragged'; 'sparse' is not ported "
-                         "(name 'fused' explicitly above 15 users at k=2)")
+                    help="backend round path: 'fused', 'stacked', "
+                         "'ragged' or 'sparse' (winner-sparse rounds); "
+                         "without it 'sparse' when k * 8 <= users over "
+                         "equal user datasets, else 'fused'")
     ap.add_argument("--n-train", type=int, default=6000)
     ap.add_argument("--n-test", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)

@@ -252,14 +252,24 @@ def test_npz_loads_in_both_directions(tmp_path):
     assert int(load_extra(str(port))["round"]) == 3
 
 
-def test_kill_resume_tool_on_the_cpu():
-    """``tools/kill_resume_smoke_torch.py``: a child SIGTERMed after its
-    first checkpoint, resumed, bit-identical to the uninterrupted run."""
+def _kill_resume_tool(scenario):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "tools",
                                       "kill_resume_smoke_torch.py"),
-         "--device", "cpu", "--scenario", "objectives"],
+         "--device", "cpu", "--scenario", scenario],
         capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "OK[objectives]" in out.stdout
+    assert f"OK[{scenario}]" in out.stdout
+
+
+def test_kill_resume_tool_on_the_cpu():
+    """``tools/kill_resume_smoke_torch.py``: a child SIGTERMed after its
+    first checkpoint, resumed, bit-identical to the uninterrupted run."""
+    _kill_resume_tool("objectives")
+
+
+def test_kill_resume_tool_stale_sparse_on_the_cpu():
+    """The tool's winner-sparse scenario: a stale-priority run killed and
+    resumed bit for bit, its checkpoint carrying the priority cache."""
+    _kill_resume_tool("stale-sparse")

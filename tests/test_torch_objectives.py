@@ -380,10 +380,12 @@ def test_unported_objective_programs_still_raise(tmp_path):
     _, fresh = run_port(rounds=2, objective=obj)
     fresh.run(checkpoint_dir=str(tmp_path), checkpoint_every=1)
     assert (tmp_path / "fl_ckpt.pkl").exists()
-    # the sparse round path is not
-    with pytest.raises(NotImplementedError, match="sparse"):
-        THostBackend(pin_torch_loss, pin_user_data(), round_mode="sparse",
-                     objective=obj, device="cpu")
+    # and so is the sparse round path with the objective on
+    sparse = THostBackend(pin_torch_loss, pin_user_data(), round_mode="sparse",
+                          k_max=2, objective=obj, device="cpu")
+    hist = teng.FLEngine(teng.ExperimentSpec(rounds=2, objective=obj),
+                         sparse, to_torch(pin_init())).run()
+    assert len(hist.winners) == 2 and sparse.objective_state()["h"] is not None
 
 
 def _bf16_loss(params, batch):

@@ -206,22 +206,29 @@ def _build(spec=None, **kw):
 
 @pytest.mark.parametrize("mode", ["sparse"])
 def test_unported_round_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match=mode):
-        _build(round_mode=mode)
-    with pytest.raises(NotImplementedError, match=mode):
-        _build(_spec(round_mode=mode))
+    """The winner-sparse mode is ported: named as an argument or in the
+    spec it builds and runs (the sparse path, selection before training);
+    an unknown mode still raises."""
+    for eng in (_build(round_mode=mode), _build(_spec(round_mode=mode))):
+        assert eng.backend._mode == mode and eng.backend.sparse_capable()
+        hist = eng.run()
+        assert len(hist.winners) == 1 and hist.uploads_total >= 1
     with pytest.raises(ValueError):
         THostBackend(_torch_loss, _user_data(), round_mode="bogus",
                      device="cpu")
 
 
 def test_sparse_auto_selection_raises_and_names_the_way_out():
+    """16 users at k = 2 (k * 8 <= U) auto-select the sparse path, as the
+    reference's factory does; an explicit round mode wins."""
     data = _user_data() * 2                      # 16 users, k = 2
-    with pytest.raises(NotImplementedError, match="round_mode='fused'"):
-        teng.build_host_engine(_spec(), to_torch(_init()), _torch_loss,
-                               data, device="cpu")
+    auto = teng.build_host_engine(_spec(), to_torch(_init()), _torch_loss,
+                                  data, device="cpu")
+    assert auto.backend._mode == "sparse"
+    assert len(auto.run().winners) == 1
     eng = teng.build_host_engine(_spec(), to_torch(_init()), _torch_loss,
                                  data, device="cpu", round_mode="fused")
+    assert eng.backend._mode == "fused"
     assert len(eng.run().winners) == 1
 
 
@@ -268,6 +275,7 @@ def test_unported_run_options_and_merge_contexts_raise(tmp_path):
     assert eng.backend.sweep_capable() is True
     assert _build(round_mode="stacked").backend.sweep_capable() is False
     assert eng.backend.sparse_capable() is False
+    assert _build(round_mode="sparse").backend.sparse_capable() is True
     assert eng.backend.objective_active() is False
     assert eng.backend.objective_needs_h() is False
     tr = eng.backend.train_round(eng.state, 0, list(range(NUM_USERS)), True)
@@ -298,3 +306,20 @@ def test_launch_train_runs_the_paper_cell_on_the_cpu(capsys, tmp_path):
     assert summary["device"] == "cpu" and summary["uploads_total"] >= 1
     saved = json.loads(out.read_text())
     assert len(saved["accuracy"]) == 2 and len(saved["train_loss"]) == 2
+
+
+@pytest.mark.parametrize("argv", [
+    ["--users", "16", "--k", "2"],
+    ["--users", "4", "--k", "2", "--round-mode", "sparse"],
+], ids=["auto", "explicit"])
+def test_launch_train_runs_the_sparse_route_on_the_cpu(capsys, argv):
+    """``--round-mode sparse``, and the factory's own choice of it when k
+    * 8 <= users (no flag), run the winner-sparse path end to end."""
+    from repro_torch.launch import train
+    argv = ["--device", "cpu", "--rounds", "2", "--n-train", "640",
+            "--n-test", "100", "--batch-size", "16", *argv]
+    assert train.build_paper_engine(
+        train.make_parser().parse_args(argv)).backend._mode == "sparse"
+    train.main(argv)
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["device"] == "cpu" and summary["uploads_total"] >= 1

@@ -1,22 +1,28 @@
 #!/usr/bin/env python
-"""Kill-and-resume bit-identity of the PyTorch port's checkpointed sweeps.
+"""Kill-and-resume bit-identity of the PyTorch port's checkpointed runs.
 
 For each scenario, spawns a child process that runs a checkpointed sweep
-(``checkpoint_every=1``; the scenarios' children start together),
+or run (``checkpoint_every=1``; the scenarios' children start together),
 SIGTERMs it as soon as the first checkpoint hits disk (a genuine
-mid-sweep kill — the child never finishes), then resumes from the
+mid-run kill — the child never finishes), then resumes from the
 orphaned checkpoint in-process and compares against an uninterrupted run
-of the same sweep: winner sequences, fault counters and merged globals
+of the same cells: winner sequences, fault counters and merged globals
 must match bit for bit.
 
-Scenarios (those of ``tools/kill_resume_smoke.py``, on the port):
+Scenarios (those of ``tools/kill_resume_smoke.py``, on the port, and one
+of the winner-sparse path):
 
-  faults      fault+channel sweep (crash/straggle/corrupt/outage + HARQ
-              retries + robust merge guard);
-  objectives  FedDyn + FedAvgM lanes under failure-only faults (crash /
-              outage / HARQ, quarantine off) + channel: the resumed run
-              must restore the server-opt m / v and per-user h stacks,
-              not just the globals.
+  faults        fault+channel sweep (crash/straggle/corrupt/outage + HARQ
+                retries + robust merge guard);
+  objectives    FedDyn + FedAvgM lanes under failure-only faults (crash /
+                outage / HARQ, quarantine off) + channel: the resumed run
+                must restore the server-opt m / v and per-user h stacks,
+                not just the globals;
+  stale-sparse  one winner-sparse run (``round_mode="sparse"``) under
+                stale priorities + channel (a sparse sweep does not
+                checkpoint): the resumed run must restore the
+                stale-priority cache (the payload's ``priority_cache``)
+                with the client streams, not just the global.
 
     python tools/kill_resume_smoke_torch.py                  # all, CUDA
     python tools/kill_resume_smoke_torch.py --device cpu --scenario faults
@@ -38,7 +44,7 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
 ROUNDS = 8
-SCENARIOS = ("faults", "objectives")
+SCENARIOS = ("faults", "objectives", "stale-sparse")
 
 
 def _scenario(name: str, device: str):
@@ -92,6 +98,11 @@ def _scenario(name: str, device: str):
                            strategy="random-distributed", faults=faults,
                            channel=ch, objective=obj),
         ])
+    elif name == "stale-sparse":
+        sw = SweepSpec(specs=[
+            ExperimentSpec(rounds=ROUNDS, k_per_round=2, seed=5,
+                           round_mode="sparse", sparse_priority="stale",
+                           channel=ch)])
     else:
         raise SystemExit(f"unknown scenario {name!r}; known: {SCENARIOS}")
     engine = build_host_engine(sw.specs[0], params, loss_fn, data,
@@ -99,9 +110,20 @@ def _scenario(name: str, device: str):
     return engine, sw
 
 
+def _run(engine, sw, **kw):
+    """The scenario's cells, ``(history, final global)`` a cell: one
+    ``FLEngine.run`` for a sparse cell (a sparse sweep does not
+    checkpoint), else one ``run_sweep``."""
+    if sw.specs[0].round_mode == "sparse":
+        hist = engine.run(**kw)
+        return [(hist, engine.global_params)]
+    res = engine.run_sweep(sw, **kw)
+    return [(h, res.lane_params(e)) for e, h in enumerate(res.histories)]
+
+
 def _child(name: str, device: str, ckpt_dir: str) -> None:
     engine, sw = _scenario(name, device)
-    engine.run_sweep(sw, checkpoint_dir=ckpt_dir, checkpoint_every=1)
+    _run(engine, sw, checkpoint_dir=ckpt_dir, checkpoint_every=1)
 
 
 def _kill_children(names, device, dirs) -> int:
@@ -124,7 +146,7 @@ def _kill_children(names, device, dirs) -> int:
                 if os.path.exists(checkpoint_path(dirs[name])):
                     child.send_signal(signal.SIGTERM)
                     rc = child.wait(timeout=60)
-                    print(f"[{name}] killed child mid-sweep (rc={rc}), "
+                    print(f"[{name}] killed child mid-run (rc={rc}), "
                           "checkpoint on disk")
                     pending.remove(name)
                 elif child.poll() is not None:
@@ -147,14 +169,19 @@ def _resume_matches(name: str, device: str, ckpt_dir: str) -> int:
     """An uninterrupted run of the scenario against a FRESH engine resumed
     from the orphaned checkpoint: 0 when they agree bit for bit."""
     import torch
+    from repro_torch.checkpoint import load_fl_checkpoint
     from repro_torch.tree import tree_leaves
 
+    if name == "stale-sparse" and load_fl_checkpoint(ckpt_dir).get(
+            "priority_cache") is None:
+        print(f"FAIL[{name}]: the checkpoint holds no priority cache")
+        return 1
     engine_ref, sw = _scenario(name, device)
-    ref = engine_ref.run_sweep(sw)
+    ref = _run(engine_ref, sw)
     engine_res, sw2 = _scenario(name, device)
-    res = engine_res.run_sweep(sw2, checkpoint_dir=ckpt_dir)
+    res = _run(engine_res, sw2, checkpoint_dir=ckpt_dir)
 
-    for e, (ha, hb) in enumerate(zip(ref.histories, res.histories)):
+    for e, ((ha, ga), (hb, gb)) in enumerate(zip(ref, res)):
         if (ha.winners != hb.winners
                 or ha.delivered != hb.delivered
                 or ha.round_seconds != hb.round_seconds
@@ -164,13 +191,12 @@ def _resume_matches(name: str, device: str, ckpt_dir: str) -> int:
                     hb.quarantined_updates, hb.stale_merges)):
             print(f"FAIL[{name}]: lane {e} history diverged after resume")
             return 1
-        for a, b in zip(tree_leaves(ref.lane_params(e)),
-                        tree_leaves(res.lane_params(e))):
+        for a, b in zip(tree_leaves(ga), tree_leaves(gb)):
             if not torch.equal(a, b):
                 print(f"FAIL[{name}]: lane {e} resumed globals are not "
                       "bit-equal to the uninterrupted run")
                 return 1
-    print(f"OK[{name}]: resumed sweep bit-identical to uninterrupted run "
+    print(f"OK[{name}]: resumed run bit-identical to uninterrupted run "
           f"({len(sw)} lanes x {ROUNDS} rounds, {device})")
     return 0
 
