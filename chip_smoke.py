@@ -97,7 +97,26 @@ without CUDA (there is no CPU path here). It
      points, the active faults over three seeds); checkpoint / resume
      (``tools/kill_resume_smoke_torch.py`` on the card, a checkpointed
      fused, stacked and stale winner-sparse run of the MLP cell resumed
-     by fresh engines) —
+     by fresh engines); then the dense LLM stack: the SGD step, Eq. 2
+     and the gather merge on the reduced yi-9b and gemma2-27b leaf tables
+     at 10 users, f32 and bf16 (each row's Eq. 2 bits the same alone as
+     in the stack), the federated finetune of each through
+     ``launch.train.main(["--arch", ...])`` for 5 rounds (10 users, k =
+     2, 32 sequences of 128 tokens a user) against the same run on the
+     CPU, its launches a round held to PERF.md's prediction, a steady
+     round, peak memory (and its parts: what was held, the engine, one
+     local step, one evaluation) and the idle share, and yi-9b as a
+     3-lane sweep whose lane 0 is held to the run (its first local step
+     at 10 and at 30 rows compared aten op by aten op); ``launch.serve``
+     for the five dense and vlm archs (decode against ``forward`` within
+     1e-3); and
+     yi-9b at its published dims in bf16, its 8.8 B params drawn on the
+     card: 4 prompts of 512 tokens prefilled, 16 greedy tokens, every
+     step's logits against ``forward``'s within the bar PERF.md states,
+     prefill and decode timed against their bounds; then the SGD step,
+     Eq. 2 and the gather merge on its full-width leaves at U = 2, one
+     at a time (the 4.3 G-element ``w_gate`` stack, past 2^31, included;
+     the Eq. 2 sums also against their f64 values) —
      with the launch counts set to zero just before each path and read
      just after;
   5. checks the result by the repository's own means: the pinned
@@ -152,6 +171,8 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: "
@@ -162,6 +183,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.channel import ChannelSpec               # noqa: E402
 from repro_torch.checkpoint import load_fl_checkpoint     # noqa: E402
+from repro_torch.configs.registry import get_config       # noqa: E402
 from repro_torch.core import client as fl_client          # noqa: E402
 from repro_torch.core import server as fl_server          # noqa: E402
 from repro_torch.core.csma import CSMAConfig, CSMASimulator  # noqa: E402
@@ -178,7 +200,10 @@ from repro_torch.kernels import delta_norm as kdn          # noqa: E402
 from repro_torch.kernels import fused_sgd as kfused        # noqa: E402
 from repro_torch.kernels import ops, ref                  # noqa: E402
 from repro_torch.kernels import server_opt as kso          # noqa: E402
+from repro_torch.launch import serve as launch_serve      # noqa: E402
+from repro_torch.launch import steps as launch_steps      # noqa: E402
 from repro_torch.launch import train as launch_train      # noqa: E402
+from repro_torch.models import model as llm               # noqa: E402
 from repro_torch.models.paper_models import get_paper_model  # noqa: E402
 from repro_torch.objectives import ObjectiveSpec          # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map        # noqa: E402
@@ -186,6 +211,7 @@ from repro_torch.tree import tree_leaves, tree_map        # noqa: E402
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 LR = 1e-2
 
 #: tolerances of the CPU parity tests: f32 rtol 1e-5 / atol 1e-6; bf16
@@ -253,6 +279,30 @@ SERVER_KINDS = {0: [0, 0.9, 0.99, 0.5, 1e-3], 1: [1, 0.9, 0.0, 0.5, 1e-3],
                 2: [2, 0.9, 0.99, 0.1, 1e-3]}
 BIG = ref.CONTENTION_BIG
 SLOT_S = 20e-6
+#: the dense LLM stack: the --arch cells (phase tag -> arch), the serving
+#: archs (the dense and vlm families), the --arch cell's arguments beyond
+#: the launcher's defaults (--llm-seq 128 --llm-seqs-per-user 32 are its
+#: defaults, given for the record), and the launches a round of rows 1-3
+#: that PERF.md predicts (one local step of 12 / 13 leaves, one launch
+#: each; one Eq. 2 call; the merge once a leaf)
+LLM_CELLS = {"yi9b": "yi-9b", "gemma2": "gemma2-27b"}
+SERVE_ARCHS = ("yi-9b", "gemma2-27b", "phi3-mini-3.8b", "phi4-mini-3.8b",
+               "phi-3-vision-4.2b")
+LLM_ARGV = ("--users", "10", "--k", "2", "--llm-seq", "128",
+            "--llm-seqs-per-user", "32")
+LLM_ROUND_LAUNCHES = {
+    "yi-9b": {"fused_sgd": 1, "delta_norm": 1, "gather_combine": 12},
+    "gemma2-27b": {"fused_sgd": 1, "delta_norm": 1, "gather_combine": 13}}
+LLM_KERNELS = ("fused_sgd", "delta_norm", "gather_combine")
+#: lanes of the --arch sweep (yi-9b): E x 12 leaves in one Eq. 2 call, more
+#: than one launch takes
+LLM_SWEEP_LANES = 3
+#: the full-width yi-9b serving check (PERF.md states the bar): every
+#: decode step's and the prefill's logits against forward's row, the
+#: largest gap over the row's logit range
+YI_FULL = dict(batch=4, prompt=512, gen=16, bar=0.05)
+#: the full-width leaves rows 1-3 run on one at a time (U = 2, bf16)
+YI_FULL_LEAVES = ("blocks0/mlp/w_gate", "blocks0/attn/wq", "embed/embedding")
 
 
 T_START = time.perf_counter()
@@ -2629,8 +2679,9 @@ def phase_main_path_u10000_sparse(rounds=3):
     the prepass sparse routes and the fused one, in turns (stale, prepass,
     fused, fused, prepass, stale), each run held to ``check_main_path``'s
     launch predictions: rounds/s and peak memory of each; prepass must
-    equal fused in winners (the priority, loss and global gaps
-    printed)."""
+    equal fused in winners and its priorities bit for bit, and no Eq. 2
+    sum may follow the row count (``delta_norm_widths``; the loss and
+    global gaps printed)."""
     base = paper_engine("mlp", rounds, *U10000)
     if base.backend._mode != "sparse" or not base.backend._rect:
         raise AssertionError("main_path_mlp_U10000_sparse: not a "
@@ -2650,9 +2701,11 @@ def phase_main_path_u10000_sparse(rounds=3):
             cohort, mode, **spec), lambda e: e.run(), rounds)[
             "device_idle_share"]
         torch.cuda.empty_cache()
+    widths = delta_norm_widths(
+        [tuple(p.shape) for p in tree_leaves(cohort["init"])])
+    widths_differ = sum(w["rows_differ"] for w in widths.values())
     emit("main_path_mlp_U10000_sparse", rounds=rounds, order=order,
-         device_idle_share=idle, delta_norm_width_bits=delta_norm_widths(
-             [tuple(p.shape) for p in tree_leaves(cohort["init"])]),
+         device_idle_share=idle, delta_norm_width_bits=widths,
          median_later_round_s=steady,
          rounds_per_s={r: [1.0 / t for t in v] for r, v in steady.items()},
          vs_fused_round_time={r: statistics.mean(v) / statistics.mean(
@@ -2660,7 +2713,11 @@ def phase_main_path_u10000_sparse(rounds=3):
          launches_per_round={r: per_round(v, rounds)
                              for r, v in launches.items()},
          prepass_vs_fused=gap, peak_mem_mb=peak)
-    check_routes("main_path_mlp_U10000_sparse", gap, within=False)
+    check_routes("main_path_mlp_U10000_sparse", gap)
+    if widths_differ or gap["max_rel_gap_priorities"] != 0.0:
+        raise AssertionError("main_path_mlp_U10000_sparse: the prepass "
+                             "priorities are not fused's bits "
+                             f"({gap}; delta_norm widths {widths})")
     del cohort
     torch.cuda.empty_cache()
 
@@ -2670,8 +2727,8 @@ def delta_norm_widths(shapes, widths=(1000, 10_000), chunk=256):
     ``shapes`` (random, on the card) against that of its chunks of
     ``chunk`` rows, as the prepass calls it: for each U, the rows whose
     d2 bits differ, of every leaf, and the largest relative gap.
-    ``delta_norm``'s rows a block (1, 2 or 4) and vectors a thread follow
-    the row count, so a row's summation order may follow it too."""
+    ``delta_norm``'s rows a block (1, 2 or 4) follow the row count; a
+    row's partition and summation order must not, so no sum may differ."""
     out = {}
     for U in widths:
         stacks = [randn_dev(31 + i, (U, *s), torch.float32)
@@ -3523,6 +3580,596 @@ def phase_profile(label, make, loop="run", rounds=4):
 
 
 # -------------------------------------------------------------------- run
+# ------------------------------------------------------------ LLM stack
+def llm_leaves(arch):
+    """The reduced arch's leaf shapes (tree order), from meta params."""
+    cfg = get_config(arch).reduced()
+    return [tuple(p.shape) for p in
+            tree_leaves(launch_steps.params_struct(cfg))]
+
+
+def rel_gap(got, want):
+    return float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+
+
+def check_llm_leaf_table(label, shapes, U, dtype, seed, winners=(7, 2)):
+    """Rows 1-3 on one leaf table of (U, ...) stacks: the multi-leaf SGD
+    step and the gather merge (every leaf) bit for bit, the Eq. 2 sums
+    rtol 1e-5, one launch a call for up to ``max_leaves()`` leaves, and
+    every row's sums the same bits reduced alone as inside the stack.
+    Returns ({kernel: (err, bit_equal)}, delta_norm's relative error)."""
+    stacks = [randn(seed + i, (U,) + s, dtype) for i, s in enumerate(shapes)]
+    grads = [randn(seed + 100 + i, (U,) + s, dtype)
+             for i, s in enumerate(shapes)]
+    globs = [randn(seed + 200 + i, s, dtype) for i, s in enumerate(shapes)]
+    out = {}
+    want = [ref.fused_sgd_ref(p, g, LR) for p, g in zip(stacks, grads)]
+    before = ops.LAUNCHES["fused_sgd"]
+    got = ops.fused_sgd_leaves([p.clone() for p in stacks], grads, LR)
+    if ops.LAUNCHES["fused_sgd"] - before != -(-len(shapes)
+                                               // kfused.max_leaves()):
+        raise AssertionError(f"{label}: fused_sgd launches")
+    out["fused_sgd"] = (max(bit_check(
+        f"{label} fused_sgd leaf {i} {tuple(g.shape)}", g, w, dtype)
+        for i, (g, w) in enumerate(zip(got, want))), True)
+    before = ops.LAUNCHES["delta_norm"]
+    d2, g2 = ops.delta_norm_leaves(stacks, globs)
+    if ops.LAUNCHES["delta_norm"] - before != -(-len(shapes)
+                                                // kdn.max_leaves()):
+        raise AssertionError(f"{label}: delta_norm launches")
+    d2w, g2w = ref.delta_norm_leaves_ref(stacks, globs)
+    e1, b1 = compare(f"{label} delta_norm.d2", d2, d2w, torch.float32,
+                     rel_only=True)
+    e2, b2 = compare(f"{label} delta_norm.g2", g2, g2w, torch.float32,
+                     rel_only=True)
+    alone = torch.cat([ops.delta_norm_leaves([s[u:u + 1] for s in stacks],
+                                             globs)[0] for u in range(U)], 1)
+    if not same_bits(alone, d2):
+        raise AssertionError(f"{label}: delta_norm rows reduced alone "
+                             "differ from the stack's bits")
+    out["delta_norm"] = (max(e1, e2), b1 and b2)
+    idx, w = merge_inputs(U, list(winners), k_pad=len(winners))
+    out["gather_combine"] = (max(bit_check(
+        f"{label} gather_combine leaf {i}", ops.gather_combine(s, idx, w, g),
+        ref.gather_combine_ref(s, idx, w, g), dtype)
+        for i, (s, g) in enumerate(zip(stacks, globs))), True)
+    return out, max(rel_gap(d2, d2w), rel_gap(g2, g2w))
+
+
+def phase_llm_kernels(U=10):
+    """Rows 1-3 on the reduced yi-9b and gemma2-27b leaf tables at U =
+    10 (an --arch round's cohort), f32 and bf16. Returns {kernel: {dtype:
+    (err, bit_equal)}} and delta_norm's relative error."""
+    worst = {k: {} for k in LLM_KERNELS}
+    rel, tables = 0.0, {}
+    for tag, arch in LLM_CELLS.items():
+        shapes = llm_leaves(arch)
+        tables[arch] = [[U, *s] for s in shapes]
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[1]
+            got, r = check_llm_leaf_table(f"llm_kernels {arch} {key}",
+                                          shapes, U, dtype, seed=5000)
+            rel = max(rel, r)
+            for k, v in got.items():
+                old = worst[k].get(key, (0.0, True))
+                worst[k][key] = (max(old[0], v[0]), old[1] and v[1])
+    emit("llm_kernels", U=U, leaf_tables=tables,
+         max_abs_err={k: {d: e for d, (e, _) in v.items()}
+                      for k, v in worst.items()},
+         bit_equal_to_plain={k: all(b for _, b in v.values())
+                             for k, v in worst.items()},
+         delta_norm_max_rel_err=rel,
+         tolerance="fused_sgd and gather_combine bit-equal; delta_norm "
+                   "sums rtol 1e-5, each row's bits the same alone as in "
+                   "the stack")
+    torch.cuda.empty_cache()
+    return worst, rel
+
+
+def quiet(fn, *a, **kw):
+    """``fn`` with its standard output kept; returns (result, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue()
+
+
+def phase_llm_fl_round(tag, rounds=5):
+    """Federated finetune of the reduced arch through
+    ``launch.train.main(["--arch", ...])``: 10 users, k = 2, 128-token
+    sequences, 32 a user, ``priority-distributed``. The card's run
+    against the CPU's (``--device cpu``): equal selections and uploads,
+    globals within rtol 1e-4. Then a fresh engine of the same cell
+    through ``run_main_path`` (round stamps), its launches held to
+    ``check_main_path``'s prediction and to PERF.md's a round; a steady
+    round, peak memory with its parts (``memory``), and the device's idle
+    share from a profiled run. Returns the launches."""
+    arch = LLM_CELLS[tag]
+    argv = ["--arch", arch, "--rounds", str(rounds), *LLM_ARGV]
+    name = f"llm_fl_round_{tag}"
+    torch.cuda.synchronize()
+    ops.reset_launches()                      # just before the path
+    t0 = time.perf_counter()
+    (engine, summary), text = quiet(launch_train.main, argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    l_main = dict(ops.LAUNCHES)               # just after it
+    t0 = time.perf_counter()
+    (cpu, cpu_summary), _ = quiet(launch_train.main, argv + ["--device",
+                                                            "cpu"])
+    cpu_s = time.perf_counter() - t0
+    if (summary["selections"] != cpu_summary["selections"]
+            or summary["uploads_total"] != cpu_summary["uploads_total"]):
+        raise AssertionError(f"{name}: the card ({summary}) and the CPU "
+                             f"({cpu_summary}) disagree")
+    gap = 0.0
+    for p, q in zip(tree_leaves(engine.global_params),
+                    tree_leaves(cpu.global_params)):
+        p = p.cpu()
+        if not torch.allclose(p, q, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"{name}: globals beyond rtol 1e-4 of the "
+                                 "CPU run's")
+        gap = max(gap, float((p - q).abs().max() / q.abs().max()))
+    del engine, cpu
+    args = launch_train.make_parser().parse_args(argv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**20
+    eng = launch_train.build_llm_engine(args)
+    built = torch.cuda.memory_allocated() / 2**20
+    hist, eng, dt, launches, round_s, _ = run_main_path(
+        None, rounds, engine=eng)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    # the peak's parts: one local step of the cohort, one evaluation
+    grad_fn, stack, batch = cohort_step(eng)
+    mem = dict(held_at_reset_mb=held, engine_mb=built - held, peak_mb=peak,
+               local_step_peak_mb=peak_above(lambda: grad_fn(stack, batch)),
+               eval_peak_mb=peak_above(
+                   lambda: eng.eval_fn(eng.global_params)))
+    del grad_fn, stack, batch
+    leaves, paths, merged = check_main_path(name, hist, eng, launches,
+                                            rounds, check_accuracy=False)
+    want = {k: v * rounds for k, v in LLM_ROUND_LAUNCHES[arch].items()}
+    if {k: launches[k] for k in want} != want or \
+            {k: l_main[k] for k in want} != want:
+        raise AssertionError(f"{name}: launches {launches} (main {l_main}), "
+                             f"PERF.md predicts {want}")
+    if not hist.accuracy[-1] > hist.accuracy[0]:
+        raise AssertionError(f"{name}: the held-out loss did not fall: "
+                             f"{hist.accuracy}")
+    sweep = llm_sweep(name, args, hist, eng) if tag == "yi9b" else None
+    del eng
+    torch.cuda.empty_cache()
+    prof = profiled(f"llm_{tag}", launch_train.build_llm_engine(args),
+                    lambda e: e.run(), rounds)
+    emit(name, arch=arch, argv=argv, rounds=rounds, leaves=leaves,
+         paths=paths, main_s=main_s, cpu_s=cpu_s,
+         selections=summary["selections"],
+         uploads_total=summary["uploads_total"], card_equals_cpu=True,
+         global_max_rel_gap_vs_cpu=gap, winners=hist.winners,
+         held_out_loss=[-a for a in hist.accuracy],
+         launches=launches, launches_per_round={
+             k: launches[k] / rounds for k in LLM_KERNELS},
+         predicted_per_round=LLM_ROUND_LAUNCHES[arch],
+         first_round_s=round_s[0],
+         median_later_round_s=statistics.median(round_s[1:]),
+         device_idle_share=prof["device_idle_share"], peak_mem_mb=peak,
+         memory=mem,
+         printed_summary=json.loads(text), sweep=sweep)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bits_hash(t):
+    """A position-weighted int64 sum of ``t``'s bits (wraps, exact): equal
+    bits give equal sums, and a differing element changes the sum."""
+    t = t.detach().contiguous().view(-1)
+    width = {8: torch.int64, 4: torch.int32, 2: torch.int16}
+    b = t.view(width.get(t.element_size(), torch.uint8)) \
+        if t.dtype != torch.bool else t.view(torch.uint8)
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return (b.long() * w).sum()
+
+
+class OpBits(TorchDispatchMode):
+    """Every aten op's output bits as ``bits_hash`` sums, with the output
+    shapes: recorded (``want=None``), or against such a record, each
+    output first cut to the recorded extent along the one dimension where
+    the two shapes differ (lane 0's rows come first). Uninitialised
+    outputs and read-only views are left out."""
+    SKIP = ("empty", "empty_like", "new_empty", "empty_strided",
+            "new_empty_strided")
+
+    def __init__(self, want=None):
+        super().__init__()
+        self.want, self.got = want, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if name in self.SKIP or any(
+                r.alias_info is not None and not r.alias_info.is_write
+                for r in func._schema.returns):
+            return out
+        ts = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+        if self.want is not None:
+            ts = [cut_to(t, s) for t, s in zip(ts, self.want[len(self.got)][2])]
+        self.got.append((name, [bits_hash(t) for t in ts],
+                         [tuple(t.shape) for t in ts]))
+        return out
+
+
+def cut_to(t, shape):
+    """``t`` narrowed to ``shape`` along the one dimension where they
+    differ by a whole factor (the row dimension of a wider run), or ``t``
+    itself where the shapes agree."""
+    dims = [d for d in range(t.dim()) if t.shape[d] != shape[d]]
+    if not dims:
+        return t
+    if len(dims) != 1 or t.shape[dims[0]] % shape[dims[0]]:
+        raise AssertionError(f"row bits: {tuple(t.shape)} against {shape}")
+    return t.narrow(dims[0], 0, shape[dims[0]])
+
+
+def cohort_step(eng):
+    """The cell's local step: ``vmap(grad_and_value(loss))``, the global
+    broadcast to the cohort's U rows, and the cohort's first batch."""
+    be = eng.backend
+    be._ensure_xstack()
+    batch = tree_map(lambda a: a[:, 0], be._fused_batches())
+    return (torch.func.vmap(torch.func.grad_and_value(be._loss_fn)),
+            be._bcast(eng.state), batch)
+
+
+def peak_above(fn):
+    """MiB that ``fn()`` allocated at its peak above what was held."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 2**20
+
+
+def gemm_kernels(fn):
+    """The GEMM kernels (cuBLAS / CUTLASS names) that ``fn()`` launched,
+    with their counts."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: e.count for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and any(
+                s in e.key for s in ("gemm", "nvjet", "cutlass", "xmma"))}
+
+
+def row_count_bits(eng, lanes):
+    """One local step of the cell's cohort at U rows and at ``lanes`` x U
+    rows (the U rows repeated, lane 0 first: a sweep's first step), aten
+    op by aten op: the ops whose lane-0 part of the wide output differs
+    from the U-row output's bits, the first of them, whether a second
+    U-row step repeats the first's bits, whether the grads and losses
+    agree, and the GEMM kernels each width launched."""
+    grad_fn, stack, batch = cohort_step(eng)
+    wide = [tree_map(lambda x: x.repeat((lanes,) + (1,) * (x.dim() - 1)),
+                     t) for t in (stack, batch)]
+    with OpBits() as narrow:
+        g, loss = grad_fn(stack, batch)
+    with OpBits(narrow.got) as again:
+        grad_fn(stack, batch)
+    with OpBits(narrow.got) as wider:
+        gw, lw = grad_fn(*wide)
+    U = loss.shape[0]
+
+    def differing(run):
+        if [n for n, _, _ in run.got] != [n for n, _, _ in narrow.got]:
+            raise AssertionError("row bits: the two widths ran other ops")
+        same = torch.stack([a == b for (_, ha, _), (_, hb, _) in zip(
+            narrow.got, run.got) for a, b in zip(ha, hb)]).tolist()
+        ops, i = [], 0
+        for k, (name, hs, shapes) in enumerate(narrow.got):
+            if not all(same[i:i + len(hs)]):
+                ops.append((k, name, shapes[0]))
+            i += len(hs)
+        return ops
+
+    ops = differing(wider)
+    return dict(
+        ops=len(narrow.got), repeat_equal=not differing(again),
+        differing=dict(Counter(n for _, n, _ in ops)),
+        first_differing=[dict(index=k, op=n, shape=s) for k, n, s in ops[:6]],
+        grads_equal=all(torch.equal(a, b[:U]) for a, b in zip(
+            tree_leaves(g), tree_leaves(gw))),
+        losses_equal=torch.equal(loss, lw[:U]),
+        gemm_kernels_narrow=gemm_kernels(lambda: grad_fn(stack, batch)),
+        gemm_kernels_wide=gemm_kernels(lambda: grad_fn(*wide)))
+
+
+def llm_sweep(name, args, hist, eng):
+    """The cell as a ``LLM_SWEEP_LANES``-seed sweep (``--sweep-seeds``):
+    its launches held to ``sweep_expected`` (one Eq. 2 call over E x L
+    leaves a round: ceil(E * L / 32) launches), lane 0 against the
+    single run ``hist`` / ``eng`` of the same cell (winners equal, the
+    global within rtol 1e-5; bitwise reported, with ``row_count_bits``
+    at the sweep's width)."""
+    base = launch_train.build_llm_engine(args)
+    sw = SweepSpec.grid(base.spec, seed=range(args.seed, args.seed
+                                              + LLM_SWEEP_LANES))
+    res, dt, launches, round_s, _ = timed(base, lambda e: e.run_sweep(sw))
+    merges = ["digital"] * sum(1 for h in res for w in h.winners if w)
+    want = sweep_expected(base, res, merges, [])
+    if launches != want:
+        raise AssertionError(f"{name} sweep: launches {launches}, the code "
+                             f"predicts {want}")
+    lane0 = res.lane_params(0)
+    pairs = list(zip(tree_leaves(lane0), tree_leaves(eng.global_params)))
+    if res[0].winners != hist.winners or not all(
+            torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in pairs):
+        raise AssertionError(f"{name} sweep: lane 0 differs from the run")
+    rows = row_count_bits(eng, LLM_SWEEP_LANES)
+    if not rows["repeat_equal"]:
+        raise AssertionError(f"{name}: a local step's bits differ run to run")
+    rounds = len(hist.winners)
+    return dict(lanes=LLM_SWEEP_LANES, launches_per_round={
+        k: launches[k] / rounds for k in LLM_KERNELS},
+        lane0_bitwise=all(torch.equal(a, b) for a, b in pairs),
+        row_count_bits=rows,
+        median_later_round_s=statistics.median(round_s[1:]))
+
+
+def decode_gaps(params, cfg, prompts, res, prefix=None):
+    """``generate``'s prefill and decode logits against ``forward`` over
+    the prompt and the generated tokens: per step (the prefill first),
+    the largest absolute gap and the largest gap over the row's logit
+    range; and the share of rows whose argmax agrees."""
+    P = 0 if prefix is None else prefix.shape[1]
+    S = prompts.shape[1]
+    toks = torch.cat([prompts, res["tokens"][:, :-1].to(prompts.dtype)], 1)
+    with torch.no_grad():
+        full, _, _ = llm.forward(params, toks, cfg, prefix_embeds=prefix)
+    absg, relg, agree = [], [], []
+    for i, got in enumerate([res["prefill_logits"], *res["step_logits"]]):
+        want = full[:, P + S - 1 + i, :cfg.vocab_size].float()
+        got = got[:, :cfg.vocab_size].float()
+        d = (got - want).abs().amax(dim=-1)
+        span = want.amax(dim=-1) - want.amin(dim=-1)
+        absg.append(float(d.max()))
+        relg.append(float((d / span).max()))
+        agree.append(float((got.argmax(-1) == want.argmax(-1))
+                           .float().mean()))
+    del full
+    return absg, relg, agree
+
+
+def phase_llm_serve_reduced():
+    """``launch.serve`` for each dense and vlm arch (reduced, f32): 4
+    prompts of 32 tokens, 16 greedy tokens; every decode step's logits
+    and the prefill's against ``forward``'s row at that position within
+    1e-3 absolute (the bar of tests/test_decode_parity.py)."""
+    rows = {}
+    for arch in SERVE_ARCHS:
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32",
+                "--gen-len", "16"]
+        (cfg, params, inputs, res), text = quiet(launch_serve.main, argv)
+        absg, relg, agree = decode_gaps(params, cfg, inputs["tokens"], res,
+                                        inputs["prefix_embeds"])
+        if max(absg) >= 1e-3:
+            raise AssertionError(f"llm_serve_reduced {arch}: decode against "
+                                 f"forward {absg}")
+        rows[arch] = dict(prefill_ms=res["prefill_s"] * 1e3,
+                          decode_ms_per_token=res["decode_s"] * 1e3 / 15,
+                          max_abs_gap=max(absg), argmax_agree=min(agree),
+                          printed=text.strip().splitlines())
+        del params, res
+    emit("llm_serve_reduced", archs=rows, bar="1e-3 absolute, f32")
+    torch.cuda.empty_cache()
+
+
+def randn_bf16(seed, shape):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=DEV, dtype=torch.bfloat16)
+
+
+def check_full_leaf(path, shape, U=2, seed=0, cols=1 << 27):
+    """Rows 1-3 on one full-width bf16 leaf, a (U, ...) stack: the Eq. 2
+    sums against the plain version row by row (rtol 1e-5), the gather
+    merge and the SGD step against the plain version column slice by
+    column slice (both elementwise along the columns), bit for bit. Each
+    kernel's time and bound ride along. Returns {kernel: (err, bit)}."""
+    n = int(np.prod(shape))
+    stack = randn_bf16(seed, (U,) + shape)
+    glob = randn_bf16(seed + 1, shape)
+    flat, gflat = stack.view(U, n), glob.view(n)
+    item = 2
+    out, times = {}, {}
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        r = fn()
+        b.record()
+        b.synchronize()
+        return r, a.elapsed_time(b)
+
+    (d2, g2), ms = clock(lambda: ops.delta_norm_leaves([stack], [glob]))
+    times["delta_norm"] = dict(ms=ms, bound_ms=(U + 1) * n * item
+                               / HBM_BYTES_PER_S * 1e3)
+    rows = [ref.delta_norm_stacked_ref(stack[u:u + 1], glob)
+            for u in range(U)]
+    d2w, g2w = torch.cat([d for d, _ in rows]), rows[0][1]
+    del rows
+    # the exact sums, in f64 over column slices: which side of a gap errs
+    exact = torch.zeros(U + 1, dtype=torch.float64, device=DEV)
+    for lo in range(0, n, cols):
+        g = gflat[lo:lo + cols].double()
+        exact[:U] += ((flat[:, lo:lo + cols].double() - g) ** 2).sum(1)
+        exact[U] += (g * g).sum()
+    got = torch.cat([d2[0], g2]).double()
+    plain = torch.cat([d2w, g2w.reshape(1)]).double()
+    sums = dict(kernel_rel_err_vs_f64=float(((got - exact) / exact).abs()
+                                            .max()),
+                plain_rel_err_vs_f64=float(((plain - exact) / exact).abs()
+                                           .max()))
+    emit("llm_full_leaf_sums", leaf=path, **sums)
+    e1, b1 = compare(f"{path} delta_norm.d2", d2[0], d2w, torch.float32,
+                     rel_only=True)
+    e2, b2 = compare(f"{path} delta_norm.g2", g2[0], g2w, torch.float32,
+                     rel_only=True)
+    out["delta_norm"] = (max(e1, e2), b1 and b2)
+    idx, w = merge_inputs(U, [1, 0], k_pad=2)
+    merged, ms = clock(lambda: ops.gather_combine(stack, idx, w, glob))
+    times["gather_combine"] = dict(ms=ms, bound_ms=3 * n * item
+                                   / HBM_BYTES_PER_S * 1e3)
+    mflat, err = merged.view(n), 0.0
+    for lo in range(0, n, cols):
+        sl = slice(lo, min(n, lo + cols))
+        err = max(err, bit_check(
+            f"{path} gather_combine cols {lo}", mflat[sl],
+            ref.gather_combine_ref(flat[:, sl], idx, w, gflat[sl]),
+            torch.bfloat16))
+    out["gather_combine"] = (err, True)
+    del merged, mflat
+    grad = randn_bf16(seed + 2, (U,) + shape)
+    p = stack.clone()
+    _, ms = clock(lambda: ops.fused_sgd_leaves([p], [grad], LR))
+    times["fused_sgd"] = dict(ms=ms, bound_ms=3 * U * n * item
+                              / HBM_BYTES_PER_S * 1e3)
+    pflat, grflat, err = p.view(U, n), grad.view(U, n), 0.0
+    for lo in range(0, n, cols):
+        sl = slice(lo, min(n, lo + cols))
+        err = max(err, bit_check(
+            f"{path} fused_sgd cols {lo}", pflat[:, sl],
+            ref.fused_sgd_ref(flat[:, sl], grflat[:, sl], LR),
+            torch.bfloat16))
+    out["fused_sgd"] = (err, True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del stack, glob, grad, p, flat, gflat, pflat, grflat
+    torch.cuda.empty_cache()
+    return out, dict(leaf=[U, *shape], elements=U * n,
+                     past_2_31=U * n > 2**31, peak_gb=peak, times=times,
+                     **sums)
+
+
+def profile_decode(params, cfg, prompts, steps):
+    """``steps`` decode steps after a prefill, under ``torch.profiler``:
+    the device's busy time and kernel launches a step, its idle share,
+    and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    S = prompts.shape[1]
+    with torch.no_grad():
+        caches = llm.make_caches(cfg, prompts.shape[0], S + steps + 1,
+                                 device=DEV)
+        _, caches, _ = llm.forward(params, prompts, cfg, caches=caches)
+        tok = prompts[:, -1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                _, caches = llm.decode_step(params, caches, tok, S + i, cfg)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted([e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"
+                   and e.self_device_time_total > 0],
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    return dict(steps=steps, wall_ms_per_step_profiled=wall / steps,
+                device_busy_ms_per_step=busy / steps,
+                device_idle_share=1.0 - busy / wall,
+                launches_per_step=sum(e.count for e in rows) / steps,
+                top=[dict(name=e.key[:70], ms_per_step=e.self_device_time_total
+                          / 1e3 / steps, count=e.count) for e in rows[:6]])
+
+
+def phase_llm_serve_yi9b_full(seed=0):
+    """yi-9b at its published dims (48 layers, d_model 4096, 32 heads
+    with kv 4, head_dim 128, d_ff 11008, vocab 64000), bf16, params drawn
+    on the card from a CUDA generator seeded with ``seed``: 4 prompts of
+    512 tokens prefilled into ``make_caches(..., 528)``, 16 greedy
+    tokens, twice (the second timed; both must give the same tokens);
+    the prefill's and every decode step's logits against ``forward``'s
+    row at that position, the largest gap over the row's logit range
+    within ``YI_FULL["bar"]``. Then, the params freed, rows 1-3 on the
+    full-width leaves of ``YI_FULL_LEAVES`` at U = 2, one leaf at a time.
+    Returns {kernel: (err, bit)} over those leaves."""
+    cfg = get_config("yi-9b")
+    B, S, G = YI_FULL["batch"], YI_FULL["prompt"], YI_FULL["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = llm.init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = llm.param_count(params)
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in tree_leaves(params)) / 1e9
+    shapes = {"/".join(k): tuple(v.shape) for k, v in _paths(params)}
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=DEV, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    first = launch_serve.generate(params, cfg, prompts, G)
+    res = launch_serve.generate(params, cfg, prompts, G)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    if not torch.equal(first["tokens"], res["tokens"]):
+        raise AssertionError("llm_serve_yi9b_full: two runs generated "
+                             "different tokens")
+    absg, relg, agree = decode_gaps(params, cfg, prompts, res)
+    decode_prof = profile_decode(params, cfg, prompts, steps=2)
+    kv = llm.make_caches(cfg, B, S + G, device="meta")
+    kv_gb = sum(t.numel() * t.element_size() for t in tree_leaves(kv)) / 1e9
+    # bounds: a decode step reads every weight once (bytes); the prefill
+    # does two operations a weight a token on the tensor cores, the
+    # embedding table's rows only gathered (operations)
+    dense = n_params - int(np.prod(shapes["embed/embedding"]))
+    prefill_bound = max(param_gb * 1e9 / HBM_BYTES_PER_S,
+                        2.0 * dense * B * S / BF16_FLOPS_PER_S) * 1e3
+    decode_bound = param_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    fields = dict(
+        arch="yi-9b", layers=cfg.num_layers, d_model=cfg.d_model,
+        params=n_params, param_gb=param_gb, kv_cache_gb=kv_gb,
+        batch=B, prompt=S, gen=G, init_s=init_s, init_peak_gb=init_peak,
+        serve_peak_gb=serve_peak,
+        prefill_ms=res["prefill_s"] * 1e3,
+        prefill_ms_first=first["prefill_s"] * 1e3,
+        prefill_bound_ms=prefill_bound,
+        decode_ms_per_token=res["decode_s"] * 1e3 / (G - 1),
+        decode_bound_ms=decode_bound,
+        max_abs_gap=absg, max_gap_over_range=relg, argmax_agree=agree,
+        bar=YI_FULL["bar"], decode_profile=decode_prof)
+    del params, first, res
+    torch.cuda.empty_cache()
+    if max(relg) > YI_FULL["bar"]:
+        emit("llm_serve_yi9b_full", **fields)
+        raise AssertionError("llm_serve_yi9b_full: decode logits beyond "
+                             f"{YI_FULL['bar']} of the row's range: {relg}")
+    worst, leaves = {}, {}
+    for i, path in enumerate(YI_FULL_LEAVES):
+        torch.cuda.reset_peak_memory_stats()
+        got, info = check_full_leaf(path, shapes[path], seed=9000 + 10 * i)
+        leaves[path] = info
+        for k, v in got.items():
+            fold(worst, k, v)
+    emit("llm_serve_yi9b_full", **fields, full_leaves=leaves,
+         full_leaf_max_abs_err={k: e for k, (e, _) in worst.items()},
+         full_leaf_bit_equal={k: b for k, (_, b) in worst.items()})
+    return worst
+
+
+def _paths(tree, prefix=()):
+    """(key path, leaf) pairs of a nested dict, in tree order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+
 def main():
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -3722,6 +4369,20 @@ def main():
     l_slay = phase_sweep_layers()
     phase_kill_resume()
 
+    # ---- the dense LLM stack: --arch rounds, serving, full-width leaves --
+    llm_worst, llm_rel = phase_llm_kernels()
+    l_llm = {tag: phase_llm_fl_round(tag) for tag in LLM_CELLS}
+    phase_llm_serve_reduced()
+    full_worst = phase_llm_serve_yi9b_full()
+    for k, per in llm_worst.items():
+        for key, (e, b) in per.items():
+            worst[k][key] = max(worst[k][key], e)
+            bit_equal[k] = bit_equal[k] and b
+    for k, (e, b) in full_worst.items():
+        worst[k]["bfloat16"] = max(worst[k]["bfloat16"], e)
+        bit_equal[k] = bit_equal[k] and b
+    dn_rel = max(dn_rel, llm_rel)
+
     t_checks = time.perf_counter() - t_start
     if "--profile" in sys.argv[1:]:
         mlp = functools.partial(paper_engine, "mlp", 4)
@@ -3769,6 +4430,9 @@ def main():
         if min(r[name] for r in runs) < 1:
             raise AssertionError(f"{name}: never launched on a run of the "
                                  "winner-sparse path")
+    for name in LLM_KERNELS:
+        if min(l[name] for l in l_llm.values()) < 1:
+            raise AssertionError(f"{name}: never launched on an --arch run")
     for name, meta in KERNELS.items():
         integer = name in CONTENTION or name == LOOP_KERNEL
         launches = path_of.get(name, l_mlp)[name]
@@ -3810,6 +4474,8 @@ def main():
             launches_U1000_sparse_stale=l_sps[name],
             launches_U1000_sparse_layers=l_splay.get(name, 0),
             launches_sweep_U1000_sparse=l_ssp[name],
+            launches_llm_yi9b=l_llm["yi9b"][name],
+            launches_llm_gemma2=l_llm["gemma2"][name],
             timed_at=where))
     emit("total", seconds=time.perf_counter() - t_start,
          before_profile_s=t_checks)

@@ -1,18 +1,22 @@
-"""Public engine API of the port: one way to run FL rounds.
+"""Public engine API of the port: one way to run FL rounds — and round
+sweeps.
 
-    from repro_torch.engine import (ExperimentSpec, FLEngine, HostBackend,
-                                    build_host_engine, register_strategy,
-                                    create_strategy)
+    from repro_torch.engine import (ExperimentSpec, SweepSpec, FLEngine,
+                                    HostBackend, build_host_engine,
+                                    register_strategy, create_strategy)
 
     engine = build_host_engine(spec, params, loss_fn, user_data, eval_fn)
-    history = engine.run()
+    history = engine.run()                       # one experiment
+    result = engine.run_sweep(                   # E experiments at once
+        SweepSpec.grid(spec, strategy=PAPER_STRATEGIES, seed=range(3)))
 
 Strategies plug in through the decorator registry (see
 ``repro_torch.engine.strategies`` for the paper's four plus the
 literature-derived extensions); backends implement the three-method
-contract in ``repro_torch.engine.backends``. What the reference
-exports and the port does not have yet (``SiloBackend``, the sweep
-types' producers) is absent here.
+contract in ``repro_torch.engine.backends``, and ``HostBackend`` the
+sweep contract (``SweepState``, ``SweepTrainResult``). Of the
+reference's exports only ``SiloBackend`` (the cross-silo path) is not
+ported yet.
 """
 from repro_torch.channel import ChannelModel, ChannelSpec, MergeContext
 from repro_torch.engine.registry import (available_strategies,
@@ -25,8 +29,8 @@ from repro_torch.engine.types import (FLHistory, SelectionContext,
                                       SelectionResult, SweepResult,
                                       TrainResult)
 from repro_torch.engine.strategies import PAPER_STRATEGIES, Strategy
-from repro_torch.engine.backends import (Backend, HostBackend,
-                                         compact_weights,
+from repro_torch.engine.backends import (Backend, HostBackend, SweepState,
+                                         SweepTrainResult, compact_weights,
                                          label_heterogeneity)
 from repro_torch.engine.engine import FLEngine, build_host_engine
 from repro_torch.engine.evals import make_accuracy_eval
@@ -40,6 +44,6 @@ __all__ = [
     "SelectionContext",
     "SelectionResult", "SweepResult", "TrainResult",
     "PAPER_STRATEGIES", "Strategy", "Backend", "HostBackend",
-    "compact_weights", "label_heterogeneity", "FLEngine",
+    "SweepState", "SweepTrainResult", "compact_weights", "label_heterogeneity", "FLEngine",
     "build_host_engine", "make_accuracy_eval",
 ]

@@ -19,12 +19,16 @@
 //   * a block owns R consecutive rows (R = 1, 2 or 4, a template argument
 //     chosen per launch: the most rows that still leave kMinBlocks blocks,
 //     so a small cohort keeps one row a block and a large one reads the
-//     global once per R rows). A thread loads kRowVecs / R 16-byte vectors
-//     of the global (4 f32 or 8 bf16 each), holds them in registers
-//     across the block's R rows, and loads that many vectors of each row
-//     before it accumulates any: 8 row vectors a thread a pass whatever R
-//     is (on the H100, 8 vectors at R = 1 and 2 at R = 4 were the fastest
-//     of 1, 2, 4 and 8 at 10 and at 1024 users);
+//     global once per R rows). R sets only how many rows share a block
+//     (or a warp) and its loads of the global, never which elements a
+//     thread sums or in what order: a thread loads the same kRowVecs
+//     16-byte vectors of the global (4 f32 or 8 bf16 each) whatever R is,
+//     holds them in registers across the block's R rows, and loads that
+//     many vectors of each row before it accumulates any. So a row's
+//     partition into chunks, slots, warps and lanes, and its fold order,
+//     follow its leaf's n alone: a row gives the same bits alone, in a
+//     256-row chunk or in a 10 000-row stack (the sparse prepass and the
+//     fused round must agree bit for bit);
 //   * a leaf longer than a warp's span (32 threads' vectors) is cut into
 //     chunks of kThreads threads' vectors; the block takes min(chunks,
 //     kMaxSlots) "slots" of its rows, walking chunk b, b + slots, ... A
@@ -41,8 +45,9 @@
 //     fold through a thread-block cluster's distributed shared memory (8
 //     blocks a row, no tickets) was no faster on the H100 at 10 users, and
 //     a launch has one cluster size for leaves of 10 to 819 200 elements.
-// The order of every addition is a function of (leaf shapes, U, dtype,
-// alignment) alone, so two runs give the same bits.
+// The order of every addition into a row's sum is a function of (its
+// leaf's n, dtype, alignment) alone: two runs give the same bits, and so
+// do a row alone and the same row inside a wider stack.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,10 +60,11 @@ using namespace repro_vec;
 constexpr int kMaxLeaves = 32;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowVecs = 8;   // a thread's row vectors a pass: R x (8 / R)
+constexpr int kRowVecs = 8;   // a thread's vectors of a chunk, whatever R is
 constexpr int kMaxRows = 4;
 constexpr int kMaxSlots = 256;         // partials a row; a warp folds them
 constexpr long long kMinBlocks = 2048;  // ~ 2 waves of the card's 132 SMs
+constexpr int kMinBlocksPerSM = 2;      // resident blocks (<= 128 registers)
 
 struct Leaves {
   const void* stack[kMaxLeaves];
@@ -81,8 +87,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Adds to acc[i] the squared distances of row r0 + i (i < rows) over the
 // share of thread `lane` of W cooperating threads in [base, base +
-// W * (kRowVecs / R) * V): the global's vectors are loaded once, then each
-// row's. Row U is the global alone (its row reads as zero).
+// W * kRowVecs * V): the global's vectors are loaded once, then each
+// row's, the same columns in the same order for every R. The call's
+// kRowVecs * V squares are summed apart and added to acc[i] once: on a
+// leaf of 2e9 elements a row a thread walks ~2 000 chunks, and tens of
+// thousands of squares added one by one to an f32 that grows to ~6e4
+// lose the smallest ones (their density peaks at zero), a bias that
+// grows with the row. Row U is the global alone (its row reads as zero).
 template <typename T, int V, int W, int R>
 __device__ __forceinline__ void accumulate(const T* __restrict__ stack,
                                            const T* __restrict__ glob,
@@ -91,7 +102,7 @@ __device__ __forceinline__ void accumulate(const T* __restrict__ stack,
                                            float (&acc)[R]) {
   using C = Cols<T, V>;
   using Raw = typename C::Raw;
-  constexpr int kVecs = kRowVecs / R;
+  constexpr int kVecs = kRowVecs;
   Raw g[kVecs];
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
@@ -110,6 +121,7 @@ __device__ __forceinline__ void accumulate(const T* __restrict__ stack,
       const long long c = base + ((long long)k * W + lane) * V;
       if (local && c < n) x[k] = C::load(row + c);
     }
+    float part = 0.0f;   // this call's squares, then one add into acc
 #pragma unroll
     for (int k = 0; k < kVecs; ++k) {
       const long long c = base + ((long long)k * W + lane) * V;
@@ -125,10 +137,11 @@ __device__ __forceinline__ void accumulate(const T* __restrict__ stack,
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           const float d = a[e] - b[e];
-          acc[i] = fmaf(d, d, acc[i]);
+          part = fmaf(d, d, part);
         }
       }
     }
+    acc[i] += part;
   }
 }
 
@@ -155,7 +168,7 @@ __device__ void packed_rows(const Leaves& t, int l, int lb, int U,
   } else {
     for (int v = 0; v < V; ++v)
       accumulate<T, 1, 32, R>(stack, glob, n,
-                              (long long)v * 32 * (kRowVecs / R), lane, r0,
+                              (long long)v * 32 * kRowVecs, lane, r0,
                               rows, U, acc);
   }
 #pragma unroll
@@ -175,7 +188,7 @@ __device__ void chunk_rows(const Leaves& t, int l, int lb, int U,
                            unsigned* __restrict__ tickets) {
   __shared__ float red[R][kWarps];
   __shared__ int last[R];
-  constexpr long long kChunk = (long long)kThreads * (kRowVecs / R) * V;
+  constexpr long long kChunk = (long long)kThreads * kRowVecs * V;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nb = t.slots[l];
   const int gi = lb / nb, b = lb - gi * nb;
@@ -236,9 +249,11 @@ __device__ void chunk_rows(const Leaves& t, int l, int lb, int U,
 
 // R rows a block (chunked leaves) or a warp (packed leaves): a template
 // argument, so the one-row kernel of a small cohort holds one row's
-// registers and keeps more blocks resident
+// registers. At most 128 registers a thread, so two blocks share an SM:
+// unbounded, the R = 4 kernel took more and ran one block an SM, short
+// of the loads in flight that the 1024-user rate needs
 template <typename T, int V, int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
     delta_norm_kernel(const __grid_constant__ Leaves t, int U,
                       float* __restrict__ out, float* __restrict__ part,
                       unsigned* __restrict__ tickets) {
@@ -261,8 +276,8 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 template <typename T, int R>
 long long leaf_blocks(long long n, long long rows, int* slots) {
   constexpr int V = 16 / sizeof(T);
-  constexpr long long kChunk = (long long)kThreads * (kRowVecs / R) * V;
-  constexpr long long kSpan = 32LL * (kRowVecs / R) * V;
+  constexpr long long kChunk = (long long)kThreads * kRowVecs * V;
+  constexpr long long kSpan = 32LL * kRowVecs * V;
   if (n <= kSpan) {
     *slots = 0;                           // packed: a warp per R rows
     return ceil_div(rows, (long long)kWarps * R);
@@ -309,7 +324,8 @@ int launch(const void* const* stack, const void* const* glob,
 }
 
 // R: the most rows a block (1, 2 or 4) that still leaves the grid
-// kMinBlocks blocks, so small cohorts keep one row a block
+// kMinBlocks blocks, so small cohorts keep one row a block. R changes the
+// grid, never a row's sum
 template <typename T>
 int launch_rows(const void* const* stack, const void* const* glob,
                 const long long* n, int count, int U, float* out,

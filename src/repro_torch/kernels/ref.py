@@ -20,10 +20,15 @@ def delta_norm_ref(w_local, w_global):
 
 def delta_norm_stacked_ref(stack, w_global):
     """Batched twin: ``stack`` (U, ...) against one ``w_global`` (...)
-    -> ``(d2 (U,), g2 ())`` f32. ``g2`` is computed once."""
+    -> ``(d2 (U,), g2 ())`` f32. ``g2`` is computed once. Each row is
+    summed on its own: a multi-row ``sum(dim=1)`` orders a row's
+    additions by the row count (torch's CPU reduction does), and a row's
+    result must not depend on the rows beside it."""
     wg = w_global.float()
     d = stack.float() - wg.unsqueeze(0)
-    d2 = torch.sum((d * d).reshape(stack.shape[0], -1), dim=1)
+    sq = (d * d).reshape(stack.shape[0], -1)
+    d2 = torch.stack([r.sum() for r in sq.unbind(0)]) if len(sq) \
+        else sq.sum(dim=1)
     return d2, torch.sum(wg * wg)
 
 

@@ -27,26 +27,34 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --sweep-seeds 4 \
       --ckpt /tmp/final.npz
 
-``--arch`` (the LLM finetune) belongs to a part of the reference that is
-not ported yet and raises ``NotImplementedError``.
+  # federated finetune of a reduced assigned arch on synthetic tokens
+  # (the dense and vlm families; the others raise NotImplementedError)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --rounds 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-27b \
+      --rounds 5 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.data import (make_classification_dataset, partition_iid,
-                              partition_noniid_shards)
+from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.data import (make_classification_dataset, make_token_stream,
+                              partition_iid, partition_noniid_shards)
 from repro_torch.device import resolve_device
 from repro_torch.engine import (ExperimentSpec, FLEngine, PAPER_STRATEGIES,
                                 SweepSpec, available_strategies,
                                 build_host_engine, make_accuracy_eval)
+from repro_torch.models.model import compute_loss, init_params
 from repro_torch.models.paper_models import get_paper_model
 
 
@@ -97,14 +105,49 @@ def build_paper_engine(args, **spec_fields) -> FLEngine:
                              device=device)
 
 
+def build_llm_engine(args, init=None, **spec_fields) -> FLEngine:
+    """Federated finetune of ``get_config(args.arch).reduced()`` on the
+    synthetic token streams of ``make_token_stream`` (``args.users``
+    users, ``args.llm_seqs_per_user`` sequences of ``args.llm_seq + 1``
+    tokens each), evaluated as ``-compute_loss`` on held-out tokens
+    (seed + 99; "metric up"). ``init``: a nested dict of numpy arrays in
+    the reference's layout that replaces the seed's params (a parity
+    test hands the reference's). Device and ``spec_fields`` as in
+    ``build_paper_engine``."""
+    device = resolve_device(getattr(args, "device", None))
+    cfg_model = get_config(args.arch).reduced()
+    seq = args.llm_seq
+    user_seqs = make_token_stream(
+        args.users, seq, args.llm_seqs_per_user, cfg_model.vocab_size,
+        noniid=not args.iid, seed=args.seed)
+    user_data = [{"tokens": s} for s in user_seqs]
+    test_tokens = np.concatenate(
+        make_token_stream(2, seq, 8, cfg_model.vocab_size,
+                          noniid=False, seed=args.seed + 99))
+    test = {"tokens": torch.from_numpy(test_tokens).to(device)}
+
+    loss_fn = functools.partial(compute_loss, cfg=cfg_model)
+
+    def eval_fn(params):
+        with torch.no_grad():
+            return -float(compute_loss(params, test, cfg_model))
+
+    params = (init_params(args.seed, cfg_model, device=device)
+              if init is None else params_from_numpy(init, device=device))
+    spec = dataclasses.replace(_spec_from_args(args), **spec_fields)
+    return build_host_engine(spec, params, loss_fn, user_data, eval_fn,
+                             round_mode=args.round_mode, device=device)
+
+
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="mlp", choices=["mlp", "cnn"])
     ap.add_argument("--dataset", default="fashion",
                     choices=["fashion", "cifar"])
-    ap.add_argument("--arch", default=None,
-                    help="(not ported) federated-finetune a reduced LLM "
-                         "arch instead of the paper model")
+    ap.add_argument("--arch", default=None, choices=ARCH_IDS,
+                    help="federated-finetune a reduced assigned arch "
+                         "instead of the paper model (dense and vlm "
+                         "families)")
     ap.add_argument("--strategy", default="priority-distributed",
                     choices=available_strategies() or PAPER_STRATEGIES)
     ap.add_argument("--rounds", type=int, default=100)
@@ -128,6 +171,8 @@ def make_parser() -> argparse.ArgumentParser:
                          "equal user datasets, else 'fused'")
     ap.add_argument("--n-train", type=int, default=6000)
     ap.add_argument("--n-test", type=int, default=1000)
+    ap.add_argument("--llm-seq", type=int, default=128)
+    ap.add_argument("--llm-seqs-per-user", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sweep-seeds", type=int, default=1,
                     help="run this many seed-varied copies of the cell "
@@ -141,12 +186,13 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Runs the cell the arguments name, prints the JSON summary and
+    returns ``(engine, summary)``."""
     args = make_parser().parse_args(argv)
-    if args.arch is not None:
-        raise NotImplementedError("--arch: the LLM stack is not ported yet")
 
     t0 = time.perf_counter()
-    engine = build_paper_engine(args)
+    engine = (build_llm_engine(args) if args.arch
+              else build_paper_engine(args))
     if args.sweep_seeds > 1:
         sweep = SweepSpec.grid(
             engine.spec, seed=range(args.seed,
@@ -186,6 +232,7 @@ def main(argv=None):
                        "train_loss": hist.train_loss}, f, indent=1)
     if args.ckpt:
         save_checkpoint(args.ckpt, final_params)
+    return engine, summary
 
 
 if __name__ == "__main__":

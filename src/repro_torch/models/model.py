@@ -1,0 +1,221 @@
+"""Model assembly: layer groups over layer-stacked params.
+
+Port of ``repro/models/model.py`` for the dense and vlm families. A
+model is a sequence of *layer groups*; each group's params are stacked
+over a leading layer axis, in the reference's layout and leaf order, so
+a JAX parameter tree carried across with ``convert.params_from_numpy``
+is this module's parameter tree. The reference's ``lax.scan`` over the
+stack is a Python loop over the layer index; the per-layer windows
+(gemma2's local / global layers) are Python ints.
+
+The MoE, SSM, hybrid and audio families, and the dry-run levers
+``flash_chunk_remat`` and ``shard_activations``, raise
+``NotImplementedError``. ``cfg.remat`` (activation checkpointing) only
+trades memory in a backward pass and is not reproduced: the values are
+the same.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import apply_block, init_block, \
+    make_block_cache
+from repro_torch.tree import tree_leaves, tree_map
+
+PORTED_FAMILIES = ("dense", "vlm")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}): the port runs the dense "
+            "and vlm families; MoE with MLA, then SSM, hybrid and audio "
+            "wait for their slices (ROADMAP.md Queue A item 4)")
+    for lever in ("flash_chunk_remat", "shard_activations"):
+        if getattr(cfg, lever):
+            raise NotImplementedError(
+                f"{lever}: a dry-run / hill-climb lever (ROADMAP.md Queue "
+                "A item 6), not ported; the port never ignores it")
+
+
+# ----------------------------------------------------------- group layout
+def layer_groups(cfg: ModelConfig, long_context: bool = False):
+    """Static group descriptors: (name, block_type, n_layers, windows)."""
+    check_ported(cfg)
+    win = cfg.layer_windows(0, long_context=long_context)
+    return [("blocks0", "dense", cfg.num_layers, win)]
+
+
+# ----------------------------------------------------------- init
+def init_params(key, cfg: ModelConfig, long_context: bool = False,
+                device=None):
+    """``key``: an int seed (a CPU ``torch.Generator`` draws, so one seed
+    gives the same params on every device), a ``torch.Generator`` (draws
+    on its device — a CUDA generator for a full-size model), or
+    ``torch.device("meta")`` (shapes and dtypes only). The params go to
+    ``device`` (``None`` = the CUDA device)."""
+    if isinstance(key, (int, np.integer)):
+        key = torch.Generator(device="cpu").manual_seed(int(key))
+    dev = resolve_device(device) if isinstance(key, torch.Generator) \
+        else torch.device(key)
+    dtype = getattr(torch, cfg.param_dtype)
+    params = {"embed": L.init_embedding(key, cfg, dtype),
+              "final_norm": L.init_norm(key, cfg, dtype),
+              "head": L.init_unembed(key, cfg, dtype)}
+    for name, btype, n, _ in layer_groups(cfg, long_context):
+        params[name] = init_block(key, cfg, btype, dtype, lead=(n,))
+    return tree_map(lambda p: p.to(dev), params)
+
+
+# ----------------------------------------------------------- layer loop
+def _layer(tree, i):
+    return tree_map(lambda a: a[i], tree)
+
+
+def _run_group(params_stack, x, *, cfg, block_type, windows, positions,
+               caches=None, chunk=1024):
+    """Apply a homogeneous block stack layer by layer. Returns (x,
+    new_caches (layer-stacked, or None), aux_sum)."""
+    new, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, w in enumerate(windows):
+        x, c, a = apply_block(
+            _layer(params_stack, i), x, cfg=cfg, block_type=block_type,
+            positions=positions, window=w,
+            cache=None if caches is None else _layer(caches, i),
+            chunk=chunk)
+        new.append(c)
+        aux = aux + a
+    if caches is None:
+        return x, None, aux
+    return x, tree_map(lambda *ls: torch.stack(ls), *new), aux
+
+
+def _positions(offset, length, device):
+    return offset + torch.arange(length, dtype=torch.int32, device=device)
+
+
+# ----------------------------------------------------------- forward
+def embed_inputs(params, tokens, cfg, *, prefix_embeds=None, offset=0):
+    """Token embedding (+ optional vision prefix, + abs positions)."""
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    if not cfg.use_rope:  # whisper-style absolute sinusoidal positions
+        x = x + L.sinusoidal_positions(
+            x.shape[1], cfg.d_model, offset, device=x.device)[None].to(x.dtype)
+    return x
+
+
+def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
+            long_context=False, chunk=1024, caches=None, offset=0,
+            return_hidden=False):
+    """Full-sequence forward. Returns (logits, new_caches, aux_loss).
+
+    ``caches`` non-None => prefill (cache written for later decode; the
+    caller's caches are left as they were).
+    ``return_hidden`` => first element is the final-normed hidden state
+    instead of logits (chunked-loss path).
+    """
+    groups = layer_groups(cfg, long_context)
+    x = embed_inputs(params, tokens, cfg, prefix_embeds=prefix_embeds,
+                     offset=offset)
+    x = x.to(cfg.activation_dtype)
+    pos = _positions(offset, x.shape[1], x.device)
+
+    new_caches = {} if caches is not None else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, btype, n, windows in groups:
+        g_caches = caches.get(name) if caches is not None else None
+        x, g_new, aux = _run_group(
+            params[name], x, cfg=cfg, block_type=btype, windows=windows,
+            positions=pos, caches=g_caches, chunk=chunk)
+        if new_caches is not None:
+            new_caches[name] = g_new
+        aux_total = aux_total + aux
+
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    if return_hidden:
+        return x, new_caches, aux_total
+    logits = L.unembed(params["embed"], params.get("head"), x, cfg)
+    return logits, new_caches, aux_total
+
+
+# ----------------------------------------------------------- loss / train
+def compute_loss(params, batch, cfg: ModelConfig, long_context=False,
+                 chunk=1024):
+    """Next-token CE (+ router aux) for one local training batch. Runs
+    under ``torch.func.vmap(torch.func.grad_and_value(...))``."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    prefix = batch.get("patches")
+
+    if cfg.loss_vocab_chunks > 1:
+        hidden, _, aux = forward(
+            params, inputs, cfg, prefix_embeds=prefix,
+            long_context=long_context, chunk=chunk, return_hidden=True)
+        if prefix is not None:
+            hidden = hidden[:, prefix.shape[1]:]
+        table = (params["embed"]["embedding"] if cfg.tie_embeddings
+                 else params["head"]["w_out"].T)
+        loss = L.chunked_cross_entropy(hidden, table, labels, cfg)
+    else:
+        logits, _, aux = forward(
+            params, inputs, cfg, prefix_embeds=prefix,
+            long_context=long_context, chunk=chunk)
+        if prefix is not None:
+            # vision prefix positions produce logits too; only text scored
+            logits = logits[:, prefix.shape[1]:]
+        loss = L.cross_entropy_loss(logits, labels, cfg.vocab_size)
+    return loss + aux
+
+
+# ----------------------------------------------------------- decode
+def make_caches(cfg: ModelConfig, batch, cache_len, *, long_context=False,
+                dtype=None, device=None):
+    """Layer-stacked decode caches for every group, on ``device``
+    (``None`` = the CUDA device; ``"meta"`` for shapes only)."""
+    dtype = dtype or cfg.activation_dtype
+    dev = resolve_device(device)
+    caches = {}
+    for name, btype, n, windows in layer_groups(cfg, long_context):
+        skel = make_block_cache(cfg, btype, batch, cache_len, dtype,
+                                device=dev)
+        caches[name] = tree_map(
+            lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape))
+            .contiguous(), skel)
+    return caches
+
+
+def decode_step(params, caches, token, index, cfg: ModelConfig, *,
+                long_context=False, chunk=1024):
+    """One-token decode. token: (B,) int; index: the absolute position
+    (an int or a 0-dim integer tensor). Returns (logits (B, V),
+    new_caches)."""
+    groups = layer_groups(cfg, long_context)
+    x = L.embed_tokens(params["embed"], token[:, None], cfg)
+    pos = (index.reshape(1).to(device=x.device, dtype=torch.int32)
+           if isinstance(index, torch.Tensor) else
+           torch.full((1,), int(index), dtype=torch.int32, device=x.device))
+    if not cfg.use_rope:
+        x = x + L.sinusoidal_positions_dynamic(
+            pos, cfg.d_model)[None].to(x.dtype)
+    x = x.to(cfg.activation_dtype)
+
+    new_caches = {}
+    for name, btype, n, windows in groups:
+        x, new_caches[name], _ = _run_group(
+            params[name], x, cfg=cfg, block_type=btype, windows=windows,
+            positions=pos, caches=caches[name], chunk=chunk)
+
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    logits = L.unembed(params["embed"], params.get("head"), x, cfg)
+    return logits[:, 0], new_caches
+
+
+def param_count(params) -> int:
+    return int(sum(p.numel() for p in tree_leaves(params)))

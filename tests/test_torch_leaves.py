@@ -38,6 +38,10 @@ LEAF_LISTS = {
     "ragged": [(1,), (3,), (7,), (2, 5), (513,), (4097,), (3, 129, 5),
                (8,)],
 }
+#: the reduced yi-9b's leaves (tree order; an --arch round's list)
+LLM_LEAVES = [(2, 256, 4, 64), (2, 4, 64, 256), (2, 256, 4, 64),
+              (2, 256, 4, 64), (2, 256), (2, 256), (2, 512, 256),
+              (2, 256, 512), (2, 256, 512), (512, 256), (256,), (256, 512)]
 #: more leaves than one launch takes on the card
 MANY = [(k % 7 + 1, 33 * (k % 5) + 8) for k in range(40)]
 #: [kind, beta1, beta2, server_lr, eps] — identity, FedAvgM, FedAdam
@@ -146,6 +150,30 @@ def test_delta_norm_leaves_global_row_is_exact():
 
 
 # ------------------------------------------------------ server_opt_leaves
+@pytest.mark.parametrize("leaves", list(LEAF_LISTS) + ["llm"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_delta_norm_leaves_row_bits_do_not_follow_the_row_count(leaves,
+                                                                dtype):
+    """A row's sums are the same bits reduced alone, in a chunk and
+    inside a wider stack (the sparse prepass reduces 256-row chunks, the
+    fused round the whole cohort; the card's kernel keeps this too)."""
+    shapes = LLM_LEAVES if leaves == "llm" else LEAF_LISTS[leaves]
+    U = 9
+    stacks, globs = _cohort(shapes, U, seed=23)
+    st = [arr_t(x, dtype) for x in stacks]
+    gl = [arr_t(g, dtype) for g in globs]
+    full, g2 = tops.delta_norm_leaves(st, gl)
+    alone = torch.cat([tops.delta_norm_leaves([x[u:u + 1] for x in st],
+                                              gl)[0] for u in range(U)], 1)
+    chunks = torch.cat([tops.delta_norm_leaves([x[lo:lo + 4] for x in st],
+                                               gl)[0]
+                        for lo in range(0, U, 4)], 1)
+    assert np.array_equal(bits(alone), bits(full))
+    assert np.array_equal(bits(chunks), bits(full))
+    assert np.array_equal(bits(tops.delta_norm_leaves(st[:1], gl[:1])[1]),
+                          bits(g2[:1]))
+
+
 @pytest.mark.parametrize("leaves", list(LEAF_LISTS))
 @pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -425,3 +425,24 @@ def test_sparse_refusals():
     eng = port(_kw())
     with pytest.raises(ValueError, match="exceed k_max"):
         eng.backend.sparse_train(eng.state, [0, 1, 2])
+
+
+def test_stale_sparse_sweeps_on_one_engine_start_from_ones():
+    """The port keeps a stale sparse sweep's priority cache on that
+    sweep's ``SweepState``, so every sweep starts from the all-ones
+    cache: two stale sweeps on one engine give equal first rounds (and
+    equal runs). A deliberate difference: the reference keeps one cache
+    per lane count on the backend (``src/repro/engine/backends.py:403``,
+    ``:1982-1989``), so there a second stale sweep of the same engine
+    starts from the priorities the first one left."""
+    kw = _kw(rounds=4, sparse_priority="stale")
+    eng = port(kw)
+    sw = teng.SweepSpec.grid(teng.ExperimentSpec(**kw), seed=[0, 1])
+    first, second = eng.run_sweep(sw), eng.run_sweep(sw)
+    for a, b in zip(first, second):
+        assert a.winners[0] == b.winners[0]
+        assert a.train_loss[0] == b.train_loss[0]
+        assert a.priorities[0] == b.priorities[0]
+        assert a.winners == b.winners and a.train_loss == b.train_loss
+    for e in range(len(sw.specs)):
+        assert bitwise_equal(first.lane_params(e), second.lane_params(e))

@@ -24,6 +24,12 @@ SPINE = [
     "faults/spec.py", "faults/injectors.py",
     "objectives/spec.py", "objectives/server.py",
     "checkpoint/fl_state.py",
+    "configs/base.py", "configs/registry.py", "configs/yi_9b.py",
+    "configs/gemma2_27b.py", "configs/whisper_small.py",
+    "configs/deepseek_v3_671b.py", "configs/phi3_mini_3_8b.py",
+    "configs/mamba2_370m.py", "configs/hymba_1_5b.py",
+    "configs/kimi_k2_1t.py", "configs/phi3_vision_4_2b.py",
+    "configs/phi4_mini_3_8b.py",
 ]
 
 #: The reprolint whitelist for rng construction matches the reference's
@@ -64,6 +70,11 @@ ALLOWED_HUNKS = {
          ["        from repro_torch.convert import params_to_numpy"]),
         (["            \"stale\": [(u, jax.device_get(p), n)"],
          ["            \"stale\": [(u, params_to_numpy(p), n)"])],
+    # activation_dtype is a torch dtype, not a jnp one
+    "configs/base.py": [
+        (["import jax.numpy as jnp"], ["import torch"]),
+        (["        return jnp.dtype(self.dtype)"],
+         ["        return getattr(torch, self.dtype)"])],
     # lane_params slices tensors of a nested dict, not a jax pytree
     "engine/types.py": [(
         ["        import jax",
@@ -139,7 +150,9 @@ def test_objective_descriptors_match_the_reference():
 
 
 PORT_MODULES = ["repro_torch.engine", "repro_torch.core",
-                "repro_torch.launch.train", "repro_torch.convert",
+                "repro_torch.launch.train", "repro_torch.launch.serve",
+                "repro_torch.launch.steps", "repro_torch.models.model",
+                "repro_torch.configs.registry", "repro_torch.convert",
                 "repro_torch.kernels.ops", "repro_torch.kernels.build",
                 "repro_torch.models.paper_models", "repro_torch.optim",
                 "repro_torch.data", "repro_torch.objectives",
@@ -227,6 +240,26 @@ def test_launch_train_default_device_needs_cuda():
     assert train.make_parser().parse_args([]).device == "cuda"
 
 
+def test_launch_serve_default_device_needs_cuda():
+    _no_cuda()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--batch", "1", "--prompt-len", "2", "--gen-len", "2"])
+    assert serve.make_parser().parse_args([]).device == "cuda"
+
+
+def test_build_llm_engine_default_device_needs_cuda():
+    _no_cuda()
+    from repro_torch.launch import train
+    args = train.make_parser().parse_args(
+        ["--arch", "yi-9b", "--users", "2", "--llm-seq", "4",
+         "--llm-seqs-per-user", "2", "--batch-size", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.build_llm_engine(args)
+    args.device = "cpu"
+    assert train.build_llm_engine(args).backend.device.type == "cpu"
+
+
 def test_accuracy_eval_default_device_needs_cuda():
     _no_cuda()
     import numpy as np
@@ -254,3 +287,16 @@ def test_kernel_build_fails_loudly_without_a_compiler(monkeypatch, tmp_path):
         build.dtype_code(torch.float16)
     with pytest.raises(RuntimeError, match="cudaError 9"):
         build.check_launch(9, "x")
+
+
+def test_engine_exports_the_reference_names():
+    """``repro_torch.engine.__all__`` holds every name of the reference's
+    ``__all__`` but ``SiloBackend`` (the cross-silo path, not ported
+    yet), and each name imports; compared as names only."""
+    import repro.engine as jeng
+    import repro_torch.engine as teng
+    missing = set(jeng.__all__) - set(teng.__all__)
+    assert missing == {"SiloBackend"}, missing
+    for name in teng.__all__:
+        assert hasattr(teng, name), name
+    from repro_torch.engine import SweepState, SweepTrainResult  # noqa: F401
