@@ -8,7 +8,7 @@ without CUDA (there is no CPU path here). It
 
   1. names the card (``nvidia-smi`` name and power limit) and the
      toolchain;
-  2. builds the ten hand-written ``sm_90a`` kernels (five sources)
+  2. builds the eleven hand-written ``sm_90a`` kernels (six sources)
      from ``src/repro_torch/kernels/csrc/``;
   3. holds every kernel against its plain PyTorch version on the card —
      f32 and bf16, ragged sizes and every leaf shape the driven paths
@@ -36,7 +36,10 @@ without CUDA (there is no CPU path here). It
      a winner, m = 1, 2, 64; the
      three contention passes bit for bit at every (B, M) pool
      shape the contention loop runs on, with forced expiry ties, dead
-     lanes and rows with no live lane — and times kernel, plain version
+     lanes and rows with no live lane; the LLM local step's fixed-order
+     token sum at every (rows, tokens, columns) shape the --arch paths
+     give it, and ragged ones, bit for bit, each row alone = the stack —
+     and times kernel, plain version
      and, where one exists, the single PyTorch library call (eager and
      from a CUDA graph, like the kernel) — the merges at K = 64 in f32 and
      bf16, a whole MLP SGD step against ``torch._foreach_add_`` and the
@@ -97,19 +100,27 @@ without CUDA (there is no CPU path here). It
      points, the active faults over three seeds); checkpoint / resume
      (``tools/kill_resume_smoke_torch.py`` on the card, a checkpointed
      fused, stacked and stale winner-sparse run of the MLP cell resumed
-     by fresh engines); then the dense LLM stack: the SGD step, Eq. 2
-     and the gather merge on the reduced yi-9b and gemma2-27b leaf tables
-     at 10 users, f32 and bf16 (each row's Eq. 2 bits the same alone as
-     in the stack), the federated finetune of each through
+     by fresh engines); then the LLM stack: the SGD step, Eq. 2 and the
+     gather merge on the reduced yi-9b, gemma2-27b, deepseek-v3 (56
+     leaves: two launches of each leaf-list kernel) and kimi-k2 leaf
+     tables at 10 users, f32 and bf16 (each row's Eq. 2 bits the same
+     alone as in the stack), the federated finetune of each through
      ``launch.train.main(["--arch", ...])`` for 5 rounds (10 users, k =
      2, 32 sequences of 128 tokens a user) against the same run on the
      CPU, its launches a round held to PERF.md's prediction, a steady
      round, peak memory (and its parts: what was held, the engine, one
-     local step, one evaluation) and the idle share, and yi-9b as a
-     3-lane sweep whose lane 0 is held to the run (its first local step
-     at 10 and at 30 rows compared aten op by aten op); ``launch.serve``
-     for the five dense and vlm archs (decode against ``forward`` within
-     1e-3); and
+     local step, one evaluation) and the idle share, and yi-9b and
+     deepseek-v3 as 3-lane sweeps whose lane 0 must be the run bit for
+     bit (the first local step at 10 and at 30 rows compared aten op by
+     aten op: no op's bits may follow the row count); the token sums'
+     routes (the kernel, its plain tree, torch's own sum) in turns on two
+     cells;
+     ``launch.serve`` for the seven dense, vlm and moe archs (decode
+     against ``forward`` within 1e-3); deepseek-v3 at its published
+     widths (4 layers, MTP kept, 26.7 B params in bf16): prefill and
+     decode timed against their bounds, the dropped share of its routing,
+     and decode against ``forward`` with nothing dropped, row by row
+     where the two routed alike; and
      yi-9b at its published dims in bf16, its 8.8 B params drawn on the
      card: 4 prompts of 512 tokens prefilled, 16 greedy tokens, every
      step's logits against ``forward``'s within the bar PERF.md states,
@@ -203,6 +214,7 @@ from repro_torch.kernels import server_opt as kso          # noqa: E402
 from repro_torch.launch import serve as launch_serve      # noqa: E402
 from repro_torch.launch import steps as launch_steps      # noqa: E402
 from repro_torch.launch import train as launch_train      # noqa: E402
+from repro_torch.models import blocks as llm_blocks       # noqa: E402
 from repro_torch.models import model as llm               # noqa: E402
 from repro_torch.models.paper_models import get_paper_model  # noqa: E402
 from repro_torch.objectives import ObjectiveSpec          # noqa: E402
@@ -247,6 +259,10 @@ KERNELS = {
                            replaces="src/repro/kernels/robust.py:57"),
     "server_opt": dict(source="src/repro_torch/kernels/csrc/server_opt.cu",
                        replaces="src/repro/kernels/server_opt.py:63"),
+    # no Pallas kernel stands behind it: the reference's sums over a
+    # user's tokens are XLA's (the loss mean; the norm scales' gradients)
+    "token_sum": dict(source="src/repro_torch/kernels/csrc/token_sum.cu",
+                      replaces="src/repro/models/layers.py:190"),
 }
 CONTENTION = ("contention_min", "contention_expiry", "contention_transition")
 LOOP_KERNEL = "contention_loop"
@@ -279,24 +295,45 @@ SERVER_KINDS = {0: [0, 0.9, 0.99, 0.5, 1e-3], 1: [1, 0.9, 0.0, 0.5, 1e-3],
                 2: [2, 0.9, 0.99, 0.1, 1e-3]}
 BIG = ref.CONTENTION_BIG
 SLOT_S = 20e-6
-#: the dense LLM stack: the --arch cells (phase tag -> arch), the serving
-#: archs (the dense and vlm families), the --arch cell's arguments beyond
+#: the LLM stack: the --arch cells (phase tag -> arch), the serving archs
+#: (the dense, vlm and moe families), the --arch cell's arguments beyond
 #: the launcher's defaults (--llm-seq 128 --llm-seqs-per-user 32 are its
-#: defaults, given for the record), and the launches a round of rows 1-3
-#: that PERF.md predicts (one local step of 12 / 13 leaves, one launch
-#: each; one Eq. 2 call; the merge once a leaf)
-LLM_CELLS = {"yi9b": "yi-9b", "gemma2": "gemma2-27b"}
+#: defaults, given for the record), and the launches a round that PERF.md
+#: predicts: rows 1-3 (one local step of L leaves, ceil(L / 32) launches
+#: of each leaf-list kernel; the merge once a leaf: L = 12 / 13 / 56 /
+#: 25), and ``token_sum`` (the local step's: one for the loss mean, two a
+#: MoE block, one a norm's scale in the backward; then the evaluation's
+#: forward, ``LLM_EVAL_TOKEN_SUMS``)
+LLM_CELLS = {"yi9b": "yi-9b", "gemma2": "gemma2-27b",
+             "deepseek": "deepseek-v3-671b", "kimi": "kimi-k2-1t-a32b"}
 SERVE_ARCHS = ("yi-9b", "gemma2-27b", "phi3-mini-3.8b", "phi4-mini-3.8b",
-               "phi-3-vision-4.2b")
+               "phi-3-vision-4.2b", "deepseek-v3-671b", "kimi-k2-1t-a32b")
 LLM_ARGV = ("--users", "10", "--k", "2", "--llm-seq", "128",
             "--llm-seqs-per-user", "32")
+#: deepseek's Eq. 3 N scaled by 2^10: its Eq. 2 product over 56 leaves
+#: starts near 3.4e4 (14 zero-initialised norm scales, each ratio capped
+#: at 1), so at N = 2048 every window is under a slot and every attempt
+#: collides (no delivery in 5 rounds on the CPU, in both packages)
+LLM_CELL_ARGV = {"deepseek": ("--cw-base", "2097152")}
 LLM_ROUND_LAUNCHES = {
-    "yi-9b": {"fused_sgd": 1, "delta_norm": 1, "gather_combine": 12},
-    "gemma2-27b": {"fused_sgd": 1, "delta_norm": 1, "gather_combine": 13}}
-LLM_KERNELS = ("fused_sgd", "delta_norm", "gather_combine")
-#: lanes of the --arch sweep (yi-9b): E x 12 leaves in one Eq. 2 call, more
-#: than one launch takes
+    "yi-9b": {"fused_sgd": 1, "delta_norm": 1, "gather_combine": 12,
+              "token_sum": 7},
+    "gemma2-27b": {"fused_sgd": 1, "delta_norm": 1, "gather_combine": 13,
+                   "token_sum": 11},
+    "deepseek-v3-671b": {"fused_sgd": 2, "delta_norm": 2,
+                         "gather_combine": 56, "token_sum": 28},
+    "kimi-k2-1t-a32b": {"fused_sgd": 1, "delta_norm": 1,
+                        "gather_combine": 25, "token_sum": 11}}
+LLM_EVAL_TOKEN_SUMS = {"yi-9b": 1, "gemma2-27b": 1, "deepseek-v3-671b": 6,
+                       "kimi-k2-1t-a32b": 3}
+LLM_KERNELS = ("fused_sgd", "delta_norm", "gather_combine", "token_sum")
+#: the --arch cells whose held-out loss must fall in 5 rounds
+HELD_OUT_ARCHS = ("yi-9b", "gemma2-27b")
+#: lanes of the --arch sweeps (E x L leaves in one Eq. 2 call, more than
+#: one launch takes), and the cells run as a sweep: lane 0 must equal the
+#: run bit for bit
 LLM_SWEEP_LANES = 3
+LLM_SWEEP_CELLS = ("yi9b", "deepseek")
 #: the full-width yi-9b serving check (PERF.md states the bar): every
 #: decode step's and the prefill's logits against forward's row, the
 #: largest gap over the row's logit range
@@ -1557,6 +1594,56 @@ def bench_sgd_step(U, dtype, reps):
     return row
 
 
+#: (R, N, C) shapes ``token_sum`` takes on the --arch paths: the reduced
+#: models' norm-scale gradients (d 256, and MLA's latent ranks 64 / 64),
+#: the loss mean (nll and mask: C = 2), the MoE's mean router probability
+#: (E = 4) and its aux sum (4 values), over a user's 4096 tokens, at the
+#: run's 10 rows and a 3-lane sweep's 30, and the evaluation's 2048 tokens
+#: (R = 1); then ragged N and C around the kernel's slices and lanes, and
+#: a long N
+TOKEN_SUM_SHAPES = [(10, 4096, 256), (30, 4096, 256), (10, 4096, 64),
+                    (30, 4096, 64), (10, 4096, 2), (30, 4096, 2),
+                    (10, 4096, 4), (30, 4096, 4), (10, 4, 1), (30, 4, 1),
+                    (1, 2048, 2), (1, 2048, 4), (1, 4, 1), (3, 37, 5),
+                    (2, 1, 33), (4, 31, 31), (5, 129, 40), (2, 33, 65),
+                    (1, 1 << 20, 3)]
+
+
+def check_token_sum():
+    """``token_sum`` against its plain version (the same tree of
+    elementwise adds on the card) at ``TOKEN_SUM_SHAPES``: bit for bit,
+    and every row's bits the same summed alone as in the stack. Returns
+    (max abs error, bit_equal)."""
+    worst = 0.0
+    for i, (R, N, C) in enumerate(TOKEN_SUM_SHAPES):
+        x = randn(6000 + i, (R, N, C), torch.float32)
+        got = ops.token_sum(x)
+        want = ref.token_sum_ref(x)
+        worst = max(worst, bit_check(f"token_sum {(R, N, C)}", got, want,
+                                     torch.float32))
+        alone = torch.cat([ops.token_sum(x[r:r + 1]) for r in range(R)])
+        if not same_bits(alone, got):
+            raise AssertionError(f"token_sum {(R, N, C)}: rows summed alone "
+                                 "differ from the stack's bits")
+    torch.cuda.empty_cache()
+    return worst, True
+
+
+def bench_token_sum(R=10, N=4096, C=256, reps=200):
+    """``token_sum`` at the --arch step's widest call (a norm scale's
+    gradient over a user's 4096 tokens, d 256, 10 users): the kernel,
+    the plain version (the tree of elementwise adds on the card) and
+    ``torch.sum(dim=1)`` (torch's own reduction, whose bits follow R);
+    the bound: the input read once, the output written once."""
+    nxt = rotating(lambda i: randn(6100 + i, (R, N, C), torch.float32), 8)
+    row = measure(lambda: ops.token_sum(nxt()),
+                  lambda: ref.token_sum_ref(nxt()),
+                  lambda: torch.sum(nxt(), dim=1),
+                  4 * R * C * (N + 1), R * C * N, reps, reps)
+    row.update(shape=[R, N, C])
+    return row
+
+
 def bench_grad_copy(U=10, batch=32):
     """The CNN's gradient copy: ``vmap(grad)`` hands a conv weight's
     gradient back as a permuted view (the weight is HWIO, the convolution
@@ -1867,8 +1954,10 @@ def training_launches(engine, hist):
 
 
 def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
-                    events=0, attempts=0, merges=None):
-    """``events`` / ``attempts``: the contention loop's events and pool
+                    events=0, attempts=0, merges=None, token_sums=0):
+    """``token_sums``: the ``token_sum`` launches of an LLM run (its local
+    steps' and evaluations' sums over tokens; none elsewhere).
+    ``events`` / ``attempts``: the contention loop's events and pool
     attempts in the run (0 on the numpy backend); each attempt launches
     the persistent loop kernel once, and the three per-event passes
     never run.
@@ -1909,7 +1998,8 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
             "aircomp_combine": leaves * kinds["aircomp"],
             "robust_combine": leaves * groups,
             "server_opt": (-(-leaves // kso.max_leaves()) * kinds["objective"]
-                           if server else 0)}
+                           if server else 0),
+            "token_sum": token_sums}
     if engine.spec.contention_backend == "device" and events < rounds:
         raise AssertionError(f"{name}: {events} contention events in "
                              f"{rounds} rounds")
@@ -3637,10 +3727,11 @@ def check_llm_leaf_table(label, shapes, U, dtype, seed, winners=(7, 2)):
 
 
 def phase_llm_kernels(U=10):
-    """Rows 1-3 on the reduced yi-9b and gemma2-27b leaf tables at U =
-    10 (an --arch round's cohort), f32 and bf16. Returns {kernel: {dtype:
+    """Rows 1-3 on the reduced leaf tables of the --arch cells at U = 10
+    (an --arch round's cohort; deepseek-v3's 56 leaves take two launches
+    of each leaf-list kernel), f32 and bf16. Returns {kernel: {dtype:
     (err, bit_equal)}} and delta_norm's relative error."""
-    worst = {k: {} for k in LLM_KERNELS}
+    worst = {k: {} for k in LLM_KERNELS if k != "token_sum"}
     rel, tables = 0.0, {}
     for tag, arch in LLM_CELLS.items():
         shapes = llm_leaves(arch)
@@ -3685,7 +3776,8 @@ def phase_llm_fl_round(tag, rounds=5):
     round, peak memory with its parts (``memory``), and the device's idle
     share from a profiled run. Returns the launches."""
     arch = LLM_CELLS[tag]
-    argv = ["--arch", arch, "--rounds", str(rounds), *LLM_ARGV]
+    argv = ["--arch", arch, "--rounds", str(rounds), *LLM_ARGV,
+            *LLM_CELL_ARGV.get(tag, ())]
     name = f"llm_fl_round_{tag}"
     torch.cuda.synchronize()
     ops.reset_launches()                      # just before the path
@@ -3727,17 +3819,25 @@ def phase_llm_fl_round(tag, rounds=5):
                eval_peak_mb=peak_above(
                    lambda: eng.eval_fn(eng.global_params)))
     del grad_fn, stack, batch
-    leaves, paths, merged = check_main_path(name, hist, eng, launches,
-                                            rounds, check_accuracy=False)
     want = {k: v * rounds for k, v in LLM_ROUND_LAUNCHES[arch].items()}
+    leaves, paths, merged = check_main_path(
+        name, hist, eng, launches, rounds, check_accuracy=False,
+        token_sums=want["token_sum"])
     if {k: launches[k] for k in want} != want or \
             {k: l_main[k] for k in want} != want:
         raise AssertionError(f"{name}: launches {launches} (main {l_main}), "
                              f"PERF.md predicts {want}")
-    if not hist.accuracy[-1] > hist.accuracy[0]:
-        raise AssertionError(f"{name}: the held-out loss did not fall: "
-                             f"{hist.accuracy}")
-    sweep = llm_sweep(name, args, hist, eng) if tag == "yi9b" else None
+    # learning: the winners' training loss falls in every cell; the
+    # held-out loss (IID tokens) in the dense cells. The MoE cells' held-out
+    # loss barely moves in 5 rounds (kimi's rose 0.003, the CPU's run alike:
+    # two non-IID winners a round pull the global their way)
+    if not hist.train_loss[-1] < hist.train_loss[0] or (
+            arch in HELD_OUT_ARCHS
+            and not hist.accuracy[-1] > hist.accuracy[0]):
+        raise AssertionError(f"{name}: no learning: training loss "
+                             f"{hist.train_loss}, held-out {hist.accuracy}")
+    sweep = llm_sweep(name, args, hist, eng) if tag in LLM_SWEEP_CELLS \
+        else None
     del eng
     torch.cuda.empty_cache()
     prof = profiled(f"llm_{tag}", launch_train.build_llm_engine(args),
@@ -3794,7 +3894,8 @@ class OpBits(TorchDispatchMode):
         ts = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
         if self.want is not None:
             ts = [cut_to(t, s) for t, s in zip(ts, self.want[len(self.got)][2])]
-        self.got.append((name, [bits_hash(t) for t in ts],
+        # on the card: an op may hand back a CPU tensor (a wrapped scalar)
+        self.got.append((name, [bits_hash(t).to(DEV) for t in ts],
                          [tuple(t.shape) for t in ts]))
         return out
 
@@ -3888,40 +3989,52 @@ def row_count_bits(eng, lanes):
 def llm_sweep(name, args, hist, eng):
     """The cell as a ``LLM_SWEEP_LANES``-seed sweep (``--sweep-seeds``):
     its launches held to ``sweep_expected`` (one Eq. 2 call over E x L
-    leaves a round: ceil(E * L / 32) launches), lane 0 against the
-    single run ``hist`` / ``eng`` of the same cell (winners equal, the
-    global within rtol 1e-5; bitwise reported, with ``row_count_bits``
-    at the sweep's width)."""
+    leaves a round: ceil(E * L / 32) launches; the local step's token
+    sums once for the E x U rows, the evaluation's once a lane), lane 0
+    against the single run ``hist`` / ``eng`` of the same cell: winners
+    equal and the global BIT FOR BIT (the reference's contract), and
+    ``row_count_bits`` at the sweep's width must find no op whose lane-0
+    bits differ."""
+    arch = args.arch
     base = launch_train.build_llm_engine(args)
     sw = SweepSpec.grid(base.spec, seed=range(args.seed, args.seed
                                               + LLM_SWEEP_LANES))
     res, dt, launches, round_s, _ = timed(base, lambda e: e.run_sweep(sw))
     merges = ["digital"] * sum(1 for h in res for w in h.winners if w)
     want = sweep_expected(base, res, merges, [])
+    rounds = len(hist.winners)
+    step = LLM_ROUND_LAUNCHES[arch]["token_sum"] - LLM_EVAL_TOKEN_SUMS[arch]
+    want["token_sum"] = (step + LLM_SWEEP_LANES
+                         * LLM_EVAL_TOKEN_SUMS[arch]) * rounds
     if launches != want:
         raise AssertionError(f"{name} sweep: launches {launches}, the code "
                              f"predicts {want}")
-    lane0 = res.lane_params(0)
-    pairs = list(zip(tree_leaves(lane0), tree_leaves(eng.global_params)))
-    if res[0].winners != hist.winners or not all(
-            torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in pairs):
-        raise AssertionError(f"{name} sweep: lane 0 differs from the run")
     rows = row_count_bits(eng, LLM_SWEEP_LANES)
     if not rows["repeat_equal"]:
         raise AssertionError(f"{name}: a local step's bits differ run to run")
-    rounds = len(hist.winners)
-    return dict(lanes=LLM_SWEEP_LANES, launches_per_round={
+    lane0 = res.lane_params(0)
+    pairs = list(zip(tree_leaves(lane0), tree_leaves(eng.global_params)))
+    out = dict(lanes=LLM_SWEEP_LANES, launches_per_round={
         k: launches[k] / rounds for k in LLM_KERNELS},
         lane0_bitwise=all(torch.equal(a, b) for a, b in pairs),
+        lane0_max_abs_gap=max(float((a - b).abs().max()) for a, b in pairs),
         row_count_bits=rows,
         median_later_round_s=statistics.median(round_s[1:]))
+    if res[0].winners != hist.winners or not out["lane0_bitwise"] \
+            or rows["differing"] or not rows["grads_equal"] \
+            or not rows["losses_equal"]:
+        emit(f"{name}_sweep_fault", **out)
+        raise AssertionError(f"{name} sweep: lane 0 is not the run bit for "
+                             f"bit (row_count_bits: {rows['differing']})")
+    return out
 
 
-def decode_gaps(params, cfg, prompts, res, prefix=None):
+def decode_gaps(params, cfg, prompts, res, prefix=None, per_row=None):
     """``generate``'s prefill and decode logits against ``forward`` over
     the prompt and the generated tokens: per step (the prefill first),
     the largest absolute gap and the largest gap over the row's logit
-    range; and the share of rows whose argmax agrees."""
+    range; and the share of rows whose argmax agrees. A ``per_row`` list
+    gets each step's (B,) gaps over the row's range."""
     P = 0 if prefix is None else prefix.shape[1]
     S = prompts.shape[1]
     toks = torch.cat([prompts, res["tokens"][:, :-1].to(prompts.dtype)], 1)
@@ -3935,6 +4048,8 @@ def decode_gaps(params, cfg, prompts, res, prefix=None):
         span = want.amax(dim=-1) - want.amin(dim=-1)
         absg.append(float(d.max()))
         relg.append(float((d / span).max()))
+        if per_row is not None:
+            per_row.append((d / span).cpu())
         agree.append(float((got.argmax(-1) == want.argmax(-1))
                            .float().mean()))
     del full
@@ -4160,6 +4275,284 @@ def phase_llm_serve_yi9b_full(seed=0):
     return worst
 
 
+#: the routes of the local step's token sums, timed in turns: the kernel
+#: (the port's route), the same tree as elementwise adds on the card (the
+#: plain version) and torch's own sum (the route before the fix, whose
+#: bits follow the row count)
+TOKEN_SUM_ROUTES = {"kernel": None, "tree": ref.token_sum_ref,
+                    "torch_sum": lambda x: torch.sum(x, dim=1)}
+
+
+@contextlib.contextmanager
+def token_sum_route(fn):
+    """``ops.token_sum`` replaced by ``fn`` (``None``: left as it is)."""
+    inner = ops.token_sum
+    if fn is not None:
+        ops.token_sum = fn
+    try:
+        yield
+    finally:
+        ops.token_sum = inner
+
+
+def phase_llm_token_sum_routes(rounds=5):
+    """What the fixed-order token sums cost: the yi-9b and deepseek-v3
+    --arch cells (``LLM_ARGV``, 5 rounds) on each of ``TOKEN_SUM_ROUTES``
+    in turns after an untimed run (kernel, tree, torch_sum, torch_sum,
+    tree, kernel, kernel, tree, torch_sum), the median later round of
+    each run and the median of each route's three; every route must pick
+    the same winners. The rule PERF.md states: the tree of elementwise
+    adds is the route unless it costs more than 10 % of the torch_sum
+    round; then the kernel."""
+    rows = {}
+    order = ("warm-up", "kernel", "tree", "torch_sum", "torch_sum", "tree",
+             "kernel", "kernel", "tree", "torch_sum")
+    for tag in ("yi9b", "deepseek"):
+        argv = ["--arch", LLM_CELLS[tag], "--rounds", str(rounds),
+                *LLM_ARGV, *LLM_CELL_ARGV.get(tag, ())]
+        args = launch_train.make_parser().parse_args(argv)
+        steady, winners = {k: [] for k in TOKEN_SUM_ROUTES}, None
+        for route in order:
+            with token_sum_route(TOKEN_SUM_ROUTES.get(route)):
+                eng = launch_train.build_llm_engine(args)
+                hist, _, _, _, round_s, _ = run_main_path(None, rounds,
+                                                          engine=eng)
+            if route in steady:
+                steady[route].append(statistics.median(round_s[1:]))
+            winners = winners or hist.winners
+            if hist.winners != winners:
+                raise AssertionError(f"llm_token_sum_routes {tag}: {route} "
+                                     "picked other winners")
+            del eng
+        base = statistics.median(steady["torch_sum"])
+        rows[tag] = dict(
+            median_later_round_s=steady,
+            cost_vs_torch_sum={k: statistics.median(v) / base - 1.0
+                               for k, v in steady.items()})
+        torch.cuda.empty_cache()
+    emit("llm_token_sum_routes", rounds=rounds, cells=rows,
+         order=", ".join(order))
+    return rows
+
+
+#: deepseek-v3 at its published widths (arXiv:2412.19437: d 7168, 128
+#: heads, MLA ranks q 1536 / kv 512, nope / rope / v 128 / 64 / 128, 256
+#: experts of 2048, top-8, 1 shared, vocab 129280), bf16, the depth cut
+#: from 61 layers to the 3 dense layers and 1 MoE layer, MTP kept (1
+#: depth, as published): 4 prompts of 512 tokens, 16 greedy tokens at the
+#: config's own capacity factor (timed); decode against forward at
+#: ``moe_capacity_factor = num_experts`` (no token dropped) on 4 prompts
+#: of 32, within ``bar`` of the row's logit range where the two paths
+#: routed the token alike, and of the router logits' range everywhere
+#: (``routed_parity``)
+DS_FULL = dict(layers=4, batch=4, prompt=512, gen=16, parity_prompt=32,
+               bar=0.05)
+
+
+@contextlib.contextmanager
+def moe_routing_log(log, keep=False):
+    """Every ``apply_moe`` call of the blocks records its routing:
+    tokens, assignments, the capacity, the assignments dropped beyond
+    it, and the experts hit (one host read a call: not for timed runs);
+    with ``keep``, also its router logits (T, E) and top-K ids on the
+    host."""
+    inner = llm_blocks.apply_moe
+
+    def spy(params, x, cfg, capacity_factor=None):
+        cf = cfg.moe_capacity_factor if capacity_factor is None \
+            else capacity_factor
+        E, K = cfg.num_experts, cfg.experts_per_token
+        T = x.shape[0] * x.shape[1]
+        A = T * K
+        cap = int(min(A, max(1, -(-A * cf // E))))
+        logits = x.reshape(T, -1).float() @ params["router"]
+        top = torch.topk(torch.softmax(logits, -1), K, dim=-1).indices
+        counts = torch.bincount(top.reshape(-1), minlength=E)
+        log.append(dict(tokens=T, assignments=A, cap=cap,
+                        dropped=int(torch.clamp(counts - cap, min=0).sum()),
+                        experts_hit=int((counts > 0).sum())))
+        if keep:
+            log[-1].update(logits=logits.cpu(), ids=top.cpu())
+        return inner(params, x, cfg, capacity_factor=capacity_factor)
+
+    llm_blocks.apply_moe = spy
+    try:
+        yield log
+    finally:
+        llm_blocks.apply_moe = inner
+
+
+def moe_serving_weights(shapes, cfg, experts):
+    """(elements, bytes) of the weights a serving forward reads for one
+    token batch when ``experts`` routed experts a MoE layer are hit:
+    every weight but the embedding table (rows only) and the MTP subtree
+    (training only); the routed experts' three matrices counted
+    ``experts`` / E; bf16 but the f32 router."""
+    elements = nbytes = 0
+    for path, shape in shapes.items():
+        if path.startswith(("mtp/", "embed/")):
+            continue
+        n = int(np.prod(shape))
+        if "/moe/" in path and "/shared/" not in path \
+                and path.rsplit("/", 1)[1] in ("w_gate", "w_up", "w_down"):
+            n = n * experts // cfg.num_experts
+        elements += n
+        nbytes += n * (4 if path.endswith("/router") else 2)
+    return elements, nbytes
+
+
+def phase_llm_serve_deepseek_full(seed=0):
+    """deepseek-v3 at its published widths (``DS_FULL``), bf16, params
+    drawn on the card from a CUDA generator (the expert leaves in slices
+    of ``layers.DRAW_SLICE``): 4 prompts of 512 tokens prefilled, 16
+    greedy tokens at the config's capacity factor (widened to 4 with a
+    cache, as the reference does), twice (the second timed; equal
+    tokens), and a third time with the routing logged (the dropped share
+    of the prefill and of the decode steps, the experts each step hits).
+    Bounds: the prefill by operations, 2 x the params a token uses (the
+    dense layers, attention, router, shared expert, K of the E routed
+    experts, the head) x tokens; a decode step by the bytes of the
+    weights it must read (the routed experts it hits, from the log),
+    beside the bytes the (E, cap) layout reads (every expert). Then the
+    decode profile, and decode against ``forward`` at capacity factor E
+    (nothing dropped) on 4 prompts of 32 tokens, row by row
+    (``routed_parity``): within ``DS_FULL["bar"]`` of the row's logit
+    range where both paths routed the token to the same experts, and of
+    the router logits' range for every row."""
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              num_layers=DS_FULL["layers"])
+    B, S, G = DS_FULL["batch"], DS_FULL["prompt"], DS_FULL["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = llm.init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = llm.param_count(params)
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in tree_leaves(params)) / 1e9
+    shapes = {"/".join(k): tuple(v.shape) for k, v in _paths(params)}
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=DEV, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    first = launch_serve.generate(params, cfg, prompts, G)
+    res = launch_serve.generate(params, cfg, prompts, G)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    with moe_routing_log([]) as log:
+        third = launch_serve.generate(params, cfg, prompts, G)
+    if not (torch.equal(first["tokens"], res["tokens"])
+            and torch.equal(third["tokens"], res["tokens"])):
+        raise AssertionError("llm_serve_deepseek_full: runs generated "
+                             "different tokens")
+    if len(log) != G or log[0]["tokens"] != B * S:
+        raise AssertionError(f"llm_serve_deepseek_full: {len(log)} MoE "
+                             f"calls logged for one prefill and {G - 1} "
+                             "steps")
+    steps = log[1:]
+    E, K = cfg.num_experts, cfg.experts_per_token
+    # the params a token uses: everything but the embedding table and MTP,
+    # the routed experts at K / E
+    active = moe_serving_weights(shapes, cfg, K)[0]
+    prefill_ops = 2.0 * active * B * S
+    prefill_bytes = moe_serving_weights(shapes, cfg,
+                                        log[0]["experts_hit"])[1]
+    prefill_bound = max(prefill_bytes / HBM_BYTES_PER_S,
+                        prefill_ops / BF16_FLOPS_PER_S) * 1e3
+    step_bytes = [moe_serving_weights(shapes, cfg, st["experts_hit"])[1]
+                  for st in steps]
+    layout_bytes = moe_serving_weights(shapes, cfg, E)[1]
+    decode_bound = statistics.mean(step_bytes) / HBM_BYTES_PER_S * 1e3
+    decode_prof = profile_decode(params, cfg, prompts, steps=2)
+    # decode against forward with nothing dropped
+    P = DS_FULL["parity_prompt"]
+    pcfg = dataclasses.replace(cfg, moe_capacity_factor=float(E))
+    torch.cuda.reset_peak_memory_stats()
+    with moe_routing_log([], keep=True) as glog:
+        pres = launch_serve.generate(params, pcfg, prompts[:, :P], G)
+    rows = []
+    with moe_routing_log([], keep=True) as flog:
+        absg, relg, agree = decode_gaps(params, pcfg, prompts[:, :P], pres,
+                                        per_row=rows)
+    parity = routed_parity(glog, flog[0], torch.stack(rows), B, P, K)
+    parity_peak = torch.cuda.max_memory_allocated() / 1e9
+    fields = dict(
+        arch="deepseek-v3-671b", layers=cfg.num_layers,
+        groups=[[n, b, k] for n, b, k, _ in llm.layer_groups(cfg)],
+        d_model=cfg.d_model, experts=E, top_k=K, params=n_params,
+        param_gb=param_gb, batch=B, prompt=S, gen=G,
+        capacity_factor=cfg.moe_capacity_factor, init_s=init_s,
+        init_peak_gb=init_peak, serve_peak_gb=serve_peak,
+        units="GB = 1e9 bytes",
+        prefill_ms=res["prefill_s"] * 1e3,
+        prefill_ms_first=first["prefill_s"] * 1e3,
+        prefill_active_params=active, prefill_ops=prefill_ops,
+        prefill_bound_ms=prefill_bound,
+        decode_ms_per_token=res["decode_s"] * 1e3 / (G - 1),
+        decode_bound_ms=decode_bound,
+        decode_step_weight_gb=[b / 1e9 for b in step_bytes],
+        decode_layout_weight_gb=layout_bytes / 1e9,
+        decode_layout_bound_ms=layout_bytes / HBM_BYTES_PER_S * 1e3,
+        routing_prefill=log[0],
+        prefill_dropped_share=log[0]["dropped"] / log[0]["assignments"],
+        decode_dropped_share=sum(st["dropped"] for st in steps)
+        / sum(st["assignments"] for st in steps),
+        decode_experts_hit=[st["experts_hit"] for st in steps],
+        parity_prompt=P, parity_capacity_factor=float(E),
+        max_abs_gap=absg, max_gap_over_range=relg, argmax_agree=agree,
+        bar=DS_FULL["bar"], parity=parity, parity_peak_gb=parity_peak,
+        decode_profile=decode_prof)
+    del params, first, res, third, pres
+    torch.cuda.empty_cache()
+    emit("llm_serve_deepseek_full", **fields)
+    bar = DS_FULL["bar"]
+    if parity["same_routing_max_gap"] > bar or parity["router_max_gap"] > bar:
+        raise AssertionError(
+            f"llm_serve_deepseek_full: decode against forward beyond {bar} "
+            f"of the row's range: logits {parity['same_routing_max_gap']} "
+            f"where the routing agrees, router logits "
+            f"{parity['router_max_gap']}")
+    return fields
+
+
+def routed_parity(glog, fwd, rel_rows, B, P, K):
+    """Decode against forward, row by row, split by the MoE layer's
+    routing. ``glog``: the generate's MoE calls (the prefill of B x P
+    tokens, then one a step), ``fwd``: the forward's call over B x (P +
+    steps - 1) tokens, ``rel_rows``: (steps, B) logit gaps over the
+    row's range. A row whose token the two paths routed to the same K
+    experts is held to the bar on its logits; every row is held to it on
+    its router logits (continuous, upstream of the top-K choice). A row
+    routed to other experts (a near-tie at the K-th expert that bf16
+    rounding tips) is counted, with its gaps and the forward's margin
+    between its K-th and (K+1)-th router logit."""
+    steps = rel_rows.shape[0]
+    L = P + steps - 1
+    same, router, flipped = [], [], []
+    for i in range(steps):
+        for b in range(B):
+            dec = glog[0] if i == 0 else glog[i]
+            at = b * P + P - 1 if i == 0 else b
+            ld, idd = dec["logits"][at], dec["ids"][at]
+            f = b * L + P - 1 + i
+            lf, idf = fwd["logits"][f], fwd["ids"][f]
+            span = float(lf.max() - lf.min())
+            rg = float((ld - lf).abs().max()) / span
+            router.append(rg)
+            gap = float(rel_rows[i, b])
+            if set(idd.tolist()) == set(idf.tolist()):
+                same.append(gap)
+                continue
+            top = torch.sort(lf, descending=True).values
+            flipped.append(dict(step=i, row=b, gap_over_range=gap,
+                                router_gap_over_range=rg,
+                                forward_margin=float(top[K - 1] - top[K])))
+    return dict(rows=steps * B, same_routing_rows=len(same),
+                same_routing_max_gap=max(same) if same else 0.0,
+                router_max_gap=max(router), flipped=flipped)
+
+
 def _paths(tree, prefix=()):
     """(key path, leaf) pairs of a nested dict, in tree order."""
     if isinstance(tree, dict):
@@ -4229,12 +4622,15 @@ def main():
     for i, (B, N) in enumerate(c_shapes):
         check_contention_at(B, N, seed=1000 + i)
     torch.cuda.empty_cache()
+    worst["token_sum"]["float32"], bit_equal["token_sum"] = check_token_sum()
     emit("kernels_agree", cases=[[list(s), U] for s, U in cases],
          max_abs_err=worst, bit_equal_to_plain=bit_equal,
          delta_norm_max_rel_err=dn_rel,
          tolerance="f32 rtol 1e-5 atol 1e-6; bf16 atol 0.02 (one ulp of "
                    "the output type); delta_norm sums rtol 1e-5; "
-                   "contention: bit-equal, all six outputs and dtypes",
+                   "contention: bit-equal, all six outputs and dtypes; "
+                   "token_sum: bit-equal, each row alone = the stack",
+         token_sum_shapes=[list(t) for t in TOKEN_SUM_SHAPES],
          merge_contracts="bitwise: zero weight masks inf/NaN rows, "
                          "all-zero weights return glob, pad width, "
                          "S=U ids vs S=K positions; server_opt kinds 0 "
@@ -4273,6 +4669,7 @@ def main():
     timed["server_opt"] = bench_server_opt(torch.float32, reps=200)
     timed["server_opt_bf16"] = bench_server_opt(torch.bfloat16, reps=200)
     timed["cnn_grad_copy_U10"] = bench_grad_copy()
+    timed["token_sum_U10"] = {"token_sum": bench_token_sum()}
     torch.cuda.empty_cache()
     # the contention passes at the paper cell's pool (1, 10), the 1000-
     # user pool (1, 512), (1, 128), the dense pool (64, 128) and a pool
@@ -4369,11 +4766,13 @@ def main():
     l_slay = phase_sweep_layers()
     phase_kill_resume()
 
-    # ---- the dense LLM stack: --arch rounds, serving, full-width leaves --
+    # ---- the LLM stack: --arch rounds, serving, full-width leaves -------
     llm_worst, llm_rel = phase_llm_kernels()
     l_llm = {tag: phase_llm_fl_round(tag) for tag in LLM_CELLS}
+    phase_llm_token_sum_routes()
     phase_llm_serve_reduced()
     full_worst = phase_llm_serve_yi9b_full()
+    phase_llm_serve_deepseek_full()
     for k, per in llm_worst.items():
         for key, (e, b) in per.items():
             worst[k][key] = max(worst[k][key], e)
@@ -4410,7 +4809,8 @@ def main():
     record = []
     path_of = {"fedavg_combine": l_srv, "aircomp_combine": l_air,
                "robust_combine": l_flt, "server_opt": l_dyn,
-               LOOP_KERNEL: l_dev, **{k: l_passes for k in CONTENTION}}
+               LOOP_KERNEL: l_dev, "token_sum": l_llm["yi9b"],
+               **{k: l_passes for k in CONTENTION}}
     timed_at = {
         **{k: ("contention_1x10", "int32 (1, 10): the paper cell's "
                "contention pool, 10 users") for k in CONTENTION},
@@ -4420,7 +4820,10 @@ def main():
                        "leaves at 10 users, one launch (a round's "
                        "priorities)"),
         "server_opt": ("server_opt", "f32: the MLP's four leaves, FedAdam, "
-                       "one launch (an objective merge)")}
+                       "one launch (an objective merge)"),
+        "token_sum": ("token_sum_U10", "f32 (10, 4096, 256): a norm scale's "
+                      "gradient over a user's 4096 tokens, 10 users (the "
+                      "--arch step's widest call)")}
     # the kernels of the winner-sparse path, and where each must run
     sparse_path = {"fused_sgd": (l_sp, l_sps, l_ssp),
                    "delta_norm": (l_sp, l_sps, l_ssp),
@@ -4450,7 +4853,8 @@ def main():
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             graph_ms=t["graph_ms"], library_graph_ms=t["library_graph_ms"],
-            max_abs_err_bf16=None if integer else worst[name]["bfloat16"],
+            max_abs_err_bf16=(None if integer or name == "token_sum"
+                              else worst[name]["bfloat16"]),
             # delta_norm's outputs are sums of ~1e5: its tolerance is
             # relative, and so is the error worth reading
             max_rel_err=(dn_rel if name == "delta_norm" else None),
@@ -4476,6 +4880,8 @@ def main():
             launches_sweep_U1000_sparse=l_ssp[name],
             launches_llm_yi9b=l_llm["yi9b"][name],
             launches_llm_gemma2=l_llm["gemma2"][name],
+            launches_llm_deepseek=l_llm["deepseek"][name],
+            launches_llm_kimi=l_llm["kimi"][name],
             timed_at=where))
     emit("total", seconds=time.perf_counter() - t_start,
          before_profile_s=t_checks)

@@ -15,18 +15,27 @@ from repro_torch.device import resolve_device
 from repro_torch.tree import tree_map
 
 
+#: leaves kept in f32 whatever ``dtype`` a conversion asks for: the MoE
+#: router is f32 whatever the param dtype (as ``init_moe`` draws it)
+F32_LEAVES = ("router",)
+
+
 def params_from_numpy(tree, device=None, dtype=None):
     """Nested dict of numpy arrays -> nested dict of tensors on
-    ``device`` (``None`` = the CUDA device). Each leaf is copied, so
-    the result never aliases the caller's arrays."""
+    ``device`` (``None`` = the CUDA device), cast to ``dtype`` when one
+    is given (``F32_LEAVES`` stay f32). Each leaf is copied, so the
+    result never aliases the caller's arrays."""
     dev = resolve_device(device)
 
-    def leaf(a):
-        t = torch.from_numpy(np.array(a, copy=True))
-        return t.to(device=dev, dtype=dtype) if dtype is not None \
-            else t.to(dev)
+    def convert(node, name=None):
+        if isinstance(node, dict):
+            return {k: convert(node[k], k) for k in sorted(node)}
+        t = torch.from_numpy(np.array(node, copy=True))
+        if dtype is not None and name not in F32_LEAVES:
+            return t.to(device=dev, dtype=dtype)
+        return t.to(dev)
 
-    return tree_map(leaf, tree)
+    return convert(tree)
 
 
 def params_to_numpy(tree):

@@ -68,6 +68,9 @@ SIGNATURES = {
         "repro_server_opt_leaves": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                                     _I, _P),
     },
+    "token_sum": {
+        "repro_token_sum": (_P, _P, _I, _LL, _I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -25,10 +25,12 @@ over-the-air merge, from alphas or from weights formed once a merge),
 step, every leaf in one launch; ``server_opt_combine`` is its one-leaf
 case), ``contention_loop`` (a whole CSMA contention attempt, the
 persistent event-loop kernel) and ``contention_event`` (the three
-per-event CSMA passes).
+per-event CSMA passes), and ``token_sum`` (the LLM local step's sums
+over a user's tokens in one fixed tree; ``models/layers.py::token_sum``
+wraps it for autograd and ``vmap``).
 
-No op is differentiated in the reference, so none has a backward
-kernel.
+No op of the reference's kernels is differentiated, so none has a
+backward kernel; ``token_sum``'s backward is a broadcast.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from repro_torch.kernels.fused_sgd import (fused_sgd_leaves_cuda_,
                                            max_leaves as fused_sgd_max_leaves)
 from repro_torch.kernels.gather import gather_combine_cuda
 from repro_torch.kernels.robust import robust_cuda
+from repro_torch.kernels.token_sum import token_sum_cuda
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"fused_sgd": 0, "delta_norm": 0,
@@ -59,7 +62,7 @@ LAUNCHES: Dict[str, int] = {"fused_sgd": 0, "delta_norm": 0,
                             "contention_transition": 0,
                             "contention_loop": 0,
                             "aircomp_combine": 0, "robust_combine": 0,
-                            "server_opt": 0}
+                            "server_opt": 0, "token_sum": 0}
 
 
 def reset_launches() -> None:
@@ -105,6 +108,19 @@ def delta_norm_leaves(stacks, globs):
         return parts[0]
     return (torch.cat([d2 for d2, _ in parts]),
             torch.cat([g2 for _, g2 in parts]))
+
+
+def token_sum(x):
+    """``x`` (R, N, C) f32 -> ``(R, C)``, each column's N values summed
+    in one fixed tree (``ref.token_sum_ref``) whose order follows N
+    alone: a row's bits do not depend on R or C. On a CUDA tensor ONE
+    launch, bit-equal to the plain version; on a CPU tensor the plain
+    version."""
+    if not x.is_cuda:
+        return ref.token_sum_ref(x)
+    out = token_sum_cuda(x.contiguous())
+    LAUNCHES["token_sum"] += 1
+    return out
 
 
 def delta_norm(w_local, w_global):

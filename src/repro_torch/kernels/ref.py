@@ -32,6 +32,20 @@ def delta_norm_stacked_ref(stack, w_global):
     return d2, torch.sum(wg * wg)
 
 
+def token_sum_ref(x):
+    """``x`` (R, N, C) f32 -> ``(R, C)``: each column's N values padded
+    with zeros to the next power of two and added in adjacent pairs,
+    level by level (``x[2i] + x[2i+1]``). Elementwise adds only, so row
+    r's bits follow its own N values and not R or C, on any device."""
+    R, N, C = x.shape
+    P = 1 << max(N - 1, 0).bit_length()
+    if P != N:
+        x = torch.cat([x, x.new_zeros((R, P - N, C))], dim=1)
+    while x.shape[1] > 1:
+        x = x[:, 0::2] + x[:, 1::2]
+    return x[:, 0]
+
+
 def delta_norm_leaves_ref(stacks, globs):
     """Every leaf at once: ``stacks[l]`` (U, ...) against ``globs[l]``
     (...) -> ``(d2 (L, U), g2 (L,))`` f32, ``delta_norm_stacked_ref``

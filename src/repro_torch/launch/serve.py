@@ -5,6 +5,8 @@ Runs a reduced assigned arch end to end (prefill + N decode steps), as
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
       --batch 4 --prompt-len 32 --gen-len 16 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b          # MLA latent cache, routed experts
 
 Params, prompts and the vlm patch embeddings are drawn from ``--seed``
 (in distribution only: ``jax.random`` cannot be replayed in torch).

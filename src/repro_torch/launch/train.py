@@ -28,10 +28,19 @@ Examples:
       --ckpt /tmp/final.npz
 
   # federated finetune of a reduced assigned arch on synthetic tokens
-  # (the dense and vlm families; the others raise NotImplementedError)
+  # (the dense, vlm and moe families; ssm, hybrid and audio raise
+  # NotImplementedError)
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --rounds 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-27b \
       --rounds 5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch kimi-k2-1t-a32b \
+      --rounds 5
+
+  # deepseek-v3 (MLA, MoE, MTP): its Eq. 2 product over 56 leaves starts
+  # near 3.4e4 (14 zero-initialised norm scales, each ratio capped at 1),
+  # so Eq. 3's N is scaled to keep windows above one slot
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch deepseek-v3-671b --cw-base 2097152 --rounds 5
 """
 from __future__ import annotations
 
@@ -146,7 +155,7 @@ def make_parser() -> argparse.ArgumentParser:
                     choices=["fashion", "cifar"])
     ap.add_argument("--arch", default=None, choices=ARCH_IDS,
                     help="federated-finetune a reduced assigned arch "
-                         "instead of the paper model (dense and vlm "
+                         "instead of the paper model (dense, vlm and moe "
                          "families)")
     ap.add_argument("--strategy", default="priority-distributed",
                     choices=available_strategies() or PAPER_STRATEGIES)

@@ -1,6 +1,6 @@
-"""Attention: GQA with a flash-style (chunked, online-softmax) loop.
+"""Attention: GQA / MLA with a flash-style (chunked, online-softmax) loop.
 
-Port of the GQA half of ``repro/models/attention.py``:
+Port of ``repro/models/attention.py``:
   * ``flash_attention`` walks the kv sequence in ``chunk``-sized blocks
     with a running (max, sumexp, acc) carry — the reference's
     ``lax.scan`` as a Python loop, with the same masks (invalid
@@ -12,9 +12,11 @@ Port of the GQA half of ``repro/models/attention.py``:
   * KV caches are ring buffers: write slot = position % cache_len at one
     token, a contiguous slab at more (``_cache_write``), and a stored
     position array drives the causal / window mask, so a windowed layer
-    can keep a cache of exactly ``window`` entries.
-
-MLA (DeepSeek latent attention) comes with the MoE slice and raises.
+    can keep a cache of exactly ``window`` entries;
+  * MLA (DeepSeek) uses the *absorbed* formulation: W_UK is folded into
+    the query and W_UV applied after the attention-weighted sum of the
+    latent, so the KV cache holds only (kv_lora_rank + rope_dim) per
+    token and no per-head K/V is ever materialised.
 """
 from __future__ import annotations
 
@@ -22,11 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import NEG_INF, truncated_normal_init
+from repro_torch.models.layers import (NEG_INF, apply_norm,
+                                       truncated_normal_init, zeros)
 from repro_torch.models.rope import apply_rope
-
-_MLA = ("MLA attention comes with the MoE slice (ROADMAP.md Queue A "
-        "item 4); the port runs the dense and vlm families")
 
 
 def _pad_to_multiple(x, multiple, axis, value=0):
@@ -118,16 +118,19 @@ def init_gqa(key, cfg, dtype, lead=()):
 
 
 def make_kv_cache(cfg, batch, cache_len, dtype, device=None):
+    pos = torch.full((cache_len,), -1, dtype=torch.int32, device=device)
     if cfg.attention_type == "mla":
-        raise NotImplementedError(_MLA)
+        d = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        return {"k": torch.zeros((batch, cache_len, 1, d), dtype=dtype,
+                                 device=device),
+                "pos": pos}
     Kv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
     return {
         "k": torch.zeros((batch, cache_len, Kv, Dh), dtype=dtype,
                          device=device),
         "v": torch.zeros((batch, cache_len, Kv, Dh), dtype=dtype,
                          device=device),
-        "pos": torch.full((cache_len,), -1, dtype=torch.int32,
-                          device=device),
+        "pos": pos,
     }
 
 
@@ -198,12 +201,74 @@ def apply_gqa(params, x, *, cfg, positions, window=None, cache=None,
 
 # ===================================================================== MLA
 def init_mla(key, cfg, dtype, lead=()):
-    raise NotImplementedError(_MLA)
+    D, H = cfg.d_model, cfg.num_heads
+    R, Rq = cfg.kv_lora_rank, cfg.q_lora_rank
+    Dn, Dr, Dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    p = {
+        "w_dkv": truncated_normal_init(key, (D, R), 1.0, dtype, lead),
+        "w_krope": truncated_normal_init(key, (D, Dr), 1.0, dtype, lead),
+        "w_uk": truncated_normal_init(key, (R, H, Dn), 1.0, dtype, lead),
+        "w_uv": truncated_normal_init(key, (R, H, Dv), 1.0, dtype, lead),
+        "wo": truncated_normal_init(key, (H, Dv, D), 1.0, dtype, lead),
+        "kv_norm_scale": zeros(key, (R,), dtype, lead),
+    }
+    if Rq:
+        p["w_dq"] = truncated_normal_init(key, (D, Rq), 1.0, dtype, lead)
+        p["w_uq"] = truncated_normal_init(key, (Rq, H, Dn + Dr), 1.0, dtype,
+                                          lead)
+        p["q_norm_scale"] = zeros(key, (Rq,), dtype, lead)
+    else:
+        p["wq"] = truncated_normal_init(key, (D, H, Dn + Dr), 1.0, dtype,
+                                        lead)
+    return p
+
+
+def _mla_latent(params, x, cfg, positions):
+    """Compressed latent + rope key for new tokens: (B,S,1,R+Dr). The
+    latent's norm is ``apply_norm``'s default rmsnorm, not ``cfg.norm``,
+    as in the reference."""
+    ckv = apply_norm({"scale": params["kv_norm_scale"]}, x @ params["w_dkv"])
+    krope = (x @ params["w_krope"])[:, :, None, :]           # (B,S,1,Dr)
+    krope = apply_rope(krope, positions[None, :], cfg.rope_theta)
+    return torch.cat([ckv[:, :, None, :], krope], dim=-1)
 
 
 def apply_mla(params, x, *, cfg, positions, window=None, cache=None,
               chunk=1024):
-    raise NotImplementedError(_MLA)
+    B, S, D = x.shape
+    H = cfg.num_heads
+    R, Dn, Dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+
+    if cfg.q_lora_rank:
+        cq = apply_norm({"scale": params["q_norm_scale"]}, x @ params["w_dq"])
+        q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    q_nope, q_rope = q[..., :Dn], q[..., Dn:]
+    q_rope = apply_rope(q_rope, positions[None, :], cfg.rope_theta)
+    # absorb W_UK into the query -> queries live in latent space
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, params["w_uk"])
+    q_eff = torch.cat([q_abs, q_rope], dim=-1)               # (B,S,H,R+Dr)
+
+    k_new = _mla_latent(params, x, cfg, positions)           # (B,S,1,R+Dr)
+    new_cache = cache
+    if cache is None:
+        k_eff, k_positions = k_new, positions
+    else:
+        new_cache = _cache_write(cache, k_new, None, positions)
+        k_eff, k_positions = new_cache["k"], new_cache["pos"]
+    v_eff = k_eff[..., :R]                                    # latent is V
+
+    qg = q_eff.reshape(B, S, 1, H, R + Dr)
+    # the head's own dims set the scale, not the latent's (R + Dr)
+    o = flash_attention(
+        qg, k_eff, v_eff, q_positions=positions, k_positions=k_positions,
+        causal=True, window=window, softcap=cfg.attn_logit_softcap,
+        chunk=chunk, scale=1.0 / np.sqrt(Dn + Dr),
+        chunk_remat=cfg.flash_chunk_remat and cache is None)  # (B,S,1,H,R)
+    o = torch.einsum("bshr,rhv->bshv", o.reshape(B, S, H, R), params["w_uv"])
+    y = torch.einsum("bshv,hvd->bsd", o, params["wo"])
+    return y, new_cache
 
 
 def init_attention(key, cfg, dtype, lead=()):

@@ -15,6 +15,13 @@ distribution only: ``jax.random`` cannot be replayed in torch.
 Nothing here writes in place or reads a tensor's value on the host, so
 the losses run under ``torch.func.vmap(torch.func.grad_and_value(...))``
 (a cohort's local step).
+
+Every sum over a user's tokens — the loss means, the norms' scale and
+bias gradients, the MoE's mean router probability — goes through
+``token_sum``: one fixed tree (``kernels.ops.token_sum``) whose order
+follows the token count alone. torch's own CUDA sum splits a user's
+additions by how many users share the launch, so a sweep's lane would
+leave its run's bits.
 """
 from __future__ import annotations
 
@@ -22,7 +29,76 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
+
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------- sums
+class _TokenSum(torch.autograd.Function):
+    """(R, N, C) f32 -> (R, C) through ``kops.token_sum`` (one fixed tree
+    a column); the backward broadcasts. Under ``vmap`` the batch axis
+    joins R, so a row's sum is a row of the same launch whatever the
+    batch."""
+
+    @staticmethod
+    def forward(x):
+        return kops.token_sum(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n = inputs[0].shape[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unsqueeze(1).expand(g.shape[0], ctx.n, g.shape[1])
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        if in_dims[0] is None:
+            return _TokenSum.apply(x), None
+        x = x.movedim(in_dims[0], 0)
+        B, R, N, C = x.shape
+        out = _TokenSum.apply(x.reshape(B * R, N, C))
+        return out.reshape(B, R, C), 0
+
+
+def token_sum(x, keep=0):
+    """``x`` summed over all but its last ``keep`` dims (f32 in, f32
+    out), in one fixed tree over the summed elements, row-major: the
+    bits follow those elements alone, never the rows beside them in a
+    launch or a ``vmap``."""
+    rest = tuple(x.shape[x.dim() - keep:])
+    C = int(np.prod(rest)) if rest else 1
+    out = _TokenSum.apply(x.reshape(1, -1, C))
+    return out.reshape(rest)
+
+
+class _ScaleShift(torch.autograd.Function):
+    """``x * (1 + scale) (+ bias)`` in f32, the norms' affine step, whose
+    backward takes ``d_scale`` and ``d_bias`` with ``token_sum`` (autograd
+    would reduce the broadcast with torch's sum)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, scale, bias):
+        y = x * (1.0 + scale)
+        return y if bias is None else y + bias
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, bias = inputs
+        ctx.save_for_backward(x, scale)
+        ctx.has_bias = bias is not None
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gx = g * (1.0 + scale) if need[0] else None
+        gs = token_sum(g * x, keep=1) if need[1] else None
+        gb = token_sum(g, keep=1) if ctx.has_bias and need[2] else None
+        return gx, gs, gb
 
 
 def _device(key):
@@ -30,12 +106,27 @@ def _device(key):
         torch.device(key)
 
 
+#: a leaf past this many elements is drawn in slices of it (an f32 draw of
+#: a whole full-width expert leaf would be 15 GB beside the params)
+DRAW_SLICE = 1 << 28
+
+
 def _trunc_normal(key, full, std, dtype):
     if not isinstance(key, torch.Generator):
         return torch.empty(full, dtype=dtype, device=_device(key))
-    out = torch.empty(full, dtype=torch.float32, device=key.device)
-    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=key)
-    return out.mul_(std).to(dtype)
+    n = int(np.prod(full))
+    if n <= DRAW_SLICE:
+        out = torch.empty(full, dtype=torch.float32, device=key.device)
+        torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=key)
+        return out.mul_(std).to(dtype)
+    out = torch.empty(full, dtype=dtype, device=key.device)
+    flat = out.view(-1)
+    for lo in range(0, n, DRAW_SLICE):
+        part = torch.empty(min(DRAW_SLICE, n - lo), dtype=torch.float32,
+                           device=key.device)
+        torch.nn.init.trunc_normal_(part, 0.0, 1.0, -2.0, 2.0, generator=key)
+        flat[lo:lo + part.numel()] = part.mul_(std)
+    return out
 
 
 def truncated_normal_init(key, shape, scale, dtype, lead=()):
@@ -68,9 +159,8 @@ def apply_norm(params, x, kind="rmsnorm", eps=1e-6):
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     # zero-centered scale (gemma convention: stored scale is (gamma - 1))
-    x = x * (1.0 + params["scale"].float())
-    if "bias" in params:
-        x = x + params["bias"].float()
+    bias = params["bias"].float() if "bias" in params else None
+    x = _ScaleShift.apply(x, params["scale"].float(), bias)
     return x.to(dt)
 
 
@@ -221,8 +311,14 @@ def chunked_cross_entropy(x, table, labels, cfg):
         gold = torch.where(in_chunk, g, gold)
     logz = m + torch.log(torch.clamp(s, min=1e-30))
     mask = (lab >= 0).float()
-    nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return _masked_mean(logz - gold, mask)
+
+
+def _masked_mean(nll, mask):
+    """sum(nll * mask) / max(sum(mask), 1), both sums in one
+    ``token_sum``."""
+    tot = token_sum(torch.stack([nll * mask, mask], dim=-1), keep=1)
+    return tot[0] / torch.clamp(tot[1], min=1.0)
 
 
 def cross_entropy_loss(logits, labels, vocab_size):
@@ -232,5 +328,4 @@ def cross_entropy_loss(logits, labels, vocab_size):
     labels_c = labels.clamp(0, vocab_size - 1).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels_c[..., None])[..., 0]
-    nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return _masked_mean(logz - gold, mask)

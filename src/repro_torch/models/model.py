@@ -1,20 +1,25 @@
 """Model assembly: layer groups over layer-stacked params.
 
-Port of ``repro/models/model.py`` for the dense and vlm families. A
-model is a sequence of *layer groups*; each group's params are stacked
+Port of ``repro/models/model.py`` for the dense, vlm and moe families.
+A model is a sequence of *layer groups*; each group's params are stacked
 over a leading layer axis, in the reference's layout and leaf order, so
 a JAX parameter tree carried across with ``convert.params_from_numpy``
 is this module's parameter tree. The reference's ``lax.scan`` over the
 stack is a Python loop over the layer index; the per-layer windows
-(gemma2's local / global layers) are Python ints.
+(gemma2's local / global layers) are Python ints. A MoE model's leading
+dense layers are their own group (``first_dense_layers``), and
+DeepSeek-V3's multi-token prediction adds the ``mtp`` subtree and its
+loss term.
 
-The MoE, SSM, hybrid and audio families, and the dry-run levers
+The SSM, hybrid and audio families, and the dry-run levers
 ``flash_chunk_remat`` and ``shard_activations``, raise
 ``NotImplementedError``. ``cfg.remat`` (activation checkpointing) only
 trades memory in a backward pass and is not reproduced: the values are
 the same.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -26,16 +31,18 @@ from repro_torch.models.blocks import apply_block, init_block, \
     make_block_cache
 from repro_torch.tree import tree_leaves, tree_map
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "moe")
+#: DeepSeek-V3's weight of the multi-token-prediction loss
+MTP_WEIGHT = 0.3
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}): the port runs the dense "
-            "and vlm families; MoE with MLA, then SSM, hybrid and audio "
-            "wait for their slices (ROADMAP.md Queue A item 4)")
+            f"family {cfg.family!r} ({cfg.name}): the port runs the dense, "
+            "vlm and moe families; SSM, hybrid and audio wait for their "
+            "slices (ROADMAP.md Queue A item 4)")
     for lever in ("flash_chunk_remat", "shard_activations"):
         if getattr(cfg, lever):
             raise NotImplementedError(
@@ -48,7 +55,20 @@ def layer_groups(cfg: ModelConfig, long_context: bool = False):
     """Static group descriptors: (name, block_type, n_layers, windows)."""
     check_ported(cfg)
     win = cfg.layer_windows(0, long_context=long_context)
+    if cfg.family == "moe":
+        fd = cfg.first_dense_layers
+        groups = [("blocks0", "dense", fd, win[:fd])] if fd else []
+        groups.append(("blocks1", "moe", cfg.num_layers - fd, win[fd:]))
+        return groups
     return [("blocks0", "dense", cfg.num_layers, win)]
+
+
+def _group_cfg(cfg, block_type):
+    """A MoE model's leading dense layers run a dense-FFN stand-in
+    config (no experts)."""
+    if cfg.family == "moe" and block_type == "dense":
+        return dataclasses.replace(cfg, num_experts=0)
+    return cfg
 
 
 # ----------------------------------------------------------- init
@@ -68,7 +88,16 @@ def init_params(key, cfg: ModelConfig, long_context: bool = False,
               "final_norm": L.init_norm(key, cfg, dtype),
               "head": L.init_unembed(key, cfg, dtype)}
     for name, btype, n, _ in layer_groups(cfg, long_context):
-        params[name] = init_block(key, cfg, btype, dtype, lead=(n,))
+        params[name] = init_block(key, _group_cfg(cfg, btype), btype, dtype,
+                                  lead=(n,))
+    if cfg.use_mtp:
+        params["mtp"] = {
+            "proj": L.truncated_normal_init(
+                key, (2 * cfg.d_model, cfg.d_model), 1.0, dtype),
+            "norm_h": L.init_norm(key, cfg, dtype),
+            "norm_e": L.init_norm(key, cfg, dtype),
+            "block": init_block(key, cfg, "moe", dtype),
+        }
     return tree_map(lambda p: p.to(dev), params)
 
 
@@ -81,10 +110,11 @@ def _run_group(params_stack, x, *, cfg, block_type, windows, positions,
                caches=None, chunk=1024):
     """Apply a homogeneous block stack layer by layer. Returns (x,
     new_caches (layer-stacked, or None), aux_sum)."""
+    gcfg = _group_cfg(cfg, block_type)
     new, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for i, w in enumerate(windows):
         x, c, a = apply_block(
-            _layer(params_stack, i), x, cfg=cfg, block_type=block_type,
+            _layer(params_stack, i), x, cfg=gcfg, block_type=block_type,
             positions=positions, window=w,
             cache=None if caches is None else _layer(caches, i),
             chunk=chunk)
@@ -148,8 +178,8 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
 # ----------------------------------------------------------- loss / train
 def compute_loss(params, batch, cfg: ModelConfig, long_context=False,
                  chunk=1024):
-    """Next-token CE (+ router aux) for one local training batch. Runs
-    under ``torch.func.vmap(torch.func.grad_and_value(...))``."""
+    """Next-token CE (+ router aux, + MTP) for one local training batch.
+    Runs under ``torch.func.vmap(torch.func.grad_and_value(...))``."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     prefix = batch.get("patches")
@@ -171,7 +201,31 @@ def compute_loss(params, batch, cfg: ModelConfig, long_context=False,
             # vision prefix positions produce logits too; only text scored
             logits = logits[:, prefix.shape[1]:]
         loss = L.cross_entropy_loss(logits, labels, cfg.vocab_size)
+
+    if cfg.use_mtp and prefix is None:
+        # DeepSeek-V3 multi-token prediction: one extra block predicting
+        # token t+2 from (h_t, emb_{t+1}).
+        loss = loss + MTP_WEIGHT * _mtp_loss(params, inputs, labels, cfg,
+                                             chunk)
     return loss + aux
+
+
+def _mtp_loss(params, inputs, labels, cfg, chunk):
+    # re-embed, as the reference does
+    x = L.embed_tokens(params["embed"], inputs, cfg).to(cfg.activation_dtype)
+    emb_next = torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
+    h = L.apply_norm(params["mtp"]["norm_h"], x, cfg.norm)
+    e = L.apply_norm(params["mtp"]["norm_e"], emb_next, cfg.norm)
+    z = torch.cat([h, e], dim=-1) @ params["mtp"]["proj"]
+    pos = _positions(0, z.shape[1], z.device)
+    z, _, aux = apply_block(
+        params["mtp"]["block"], z, cfg=cfg, block_type="moe",
+        positions=pos, window=0, chunk=chunk)
+    logits2 = L.unembed(params["embed"], params.get("head"),
+                        L.apply_norm(params["final_norm"], z, cfg.norm), cfg)
+    labels2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)],
+                        dim=1)
+    return L.cross_entropy_loss(logits2, labels2, cfg.vocab_size) + aux
 
 
 # ----------------------------------------------------------- decode

@@ -270,12 +270,21 @@ def test_gqa_decode_against_jax():
 
 
 def test_mla_raises_until_its_slice():
-    _, tc = _pair(attention_type="mla")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tatt.init_attention(torch.Generator().manual_seed(0), tc,
-                            torch.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tatt.make_kv_cache(tc, 1, 4, torch.float32, "cpu")
+    """MLA's slice has landed: its params and latent cache take the
+    reference's layout (``tests/test_torch_llm_moe.py`` holds its values
+    against JAX); the flash-chunk recompute lever still raises."""
+    jc, tc = _pair(attention_type="mla")
+    want = jax.eval_shape(lambda k: jatt.init_attention(k, jc, jnp.float32),
+                          jax.random.PRNGKey(0))
+    got = tatt.init_attention(torch.Generator().manual_seed(0), tc,
+                              torch.float32)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert tuple(got[k].shape) == tuple(want[k].shape), k
+    cache = tatt.make_kv_cache(tc, 1, 4, torch.float32, "cpu")
+    jcache = jatt.make_kv_cache(jc, 1, 4, jnp.float32)
+    assert sorted(cache) == sorted(jcache) == ["k", "pos"]
+    assert tuple(cache["k"].shape) == tuple(jcache["k"].shape)
     with pytest.raises(NotImplementedError, match="not ported"):
         tatt.flash_attention(torch.zeros(1, 1, 1, 1, 4),
                              torch.zeros(1, 2, 1, 4), torch.zeros(1, 2, 1, 4),

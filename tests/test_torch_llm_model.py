@@ -1,6 +1,7 @@
 """The port's LLM model (``repro_torch.models.model``, ``launch/steps.py``)
-against the JAX package's, on the CPU, for the dense and vlm archs at
-their reduced sizes (2 layers, d_model 256, f32).
+against the JAX package's, on the CPU, for the dense, vlm and moe archs
+at their reduced sizes (2 layers, d_model 256, f32; the MoE archs' 4
+experts at capacity factor 4: nothing dropped).
 
 Params are the JAX package's own ``init_params`` draws, moved to numpy
 and carried across with ``convert.params_from_numpy`` (the port keeps
@@ -32,9 +33,8 @@ from repro_torch.models import model as tm
 from repro_torch.tree import tree_leaves, tree_map
 
 ARCHS = ["yi-9b", "gemma2-27b", "phi3-mini-3.8b", "phi4-mini-3.8b",
-         "phi-3-vision-4.2b"]
-UNPORTED = ["deepseek-v3-671b", "kimi-k2-1t-a32b", "mamba2-370m",
-            "hymba-1.5b", "whisper-small"]
+         "phi-3-vision-4.2b", "deepseek-v3-671b", "kimi-k2-1t-a32b"]
+UNPORTED = ["mamba2-370m", "hymba-1.5b", "whisper-small"]
 TOL = dict(rtol=1e-5, atol=2e-5)
 B, S = 2, 12
 
@@ -121,10 +121,14 @@ def test_forward_logits_match_jax(arch, cases):
     c = case(cases, arch)
     pj, pt = c.prefix()
     toks = c.tokens[:, :-1]
-    want, _, _ = jm.forward(c.jp, jnp.asarray(toks), c.jc, prefix_embeds=pj)
+    want, _, jaux = jm.forward(c.jp, jnp.asarray(toks), c.jc,
+                               prefix_embeds=pj)
     got, _, aux = tm.forward(c.tp, torch.from_numpy(toks), c.tc,
                              prefix_embeds=pt)
-    assert got.shape == want.shape and float(aux) == 0.0
+    assert got.shape == want.shape
+    # the router's load-balance loss (0 without a MoE block)
+    assert (float(aux) == 0.0) == (c.jc.family != "moe")
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -177,7 +181,8 @@ def test_cohort_loss_runs_under_vmap_grad(cases):
                                        atol=1e-6 * float(b.abs().max()))
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b", "deepseek-v3-671b",
+                                  "kimi-k2-1t-a32b"])
 def test_decode_matches_forward_and_jax(arch, cases):
     """Incremental decode with the KV cache reproduces the full forward
     (``tests/test_decode_parity.py``'s check), and JAX's decode."""
@@ -197,14 +202,16 @@ def test_decode_matches_forward_and_jax(arch, cases):
     assert max(errs) < 1e-3, errs
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b", "deepseek-v3-671b",
+                                  "kimi-k2-1t-a32b"])
 def test_prefill_then_decode_matches_forward(arch, cases):
     c = case(cases, arch)
     toks = torch.from_numpy(c.tokens[:, :12])
     full, _, _ = tm.forward(c.tp, toks, c.tc)
     split = 8
     caches = tm.make_caches(c.tc, B, 32, device="cpu")
-    kept = {k: v.clone() for k, v in caches["blocks0"]["attn"].items()}
+    group = sorted(caches)[-1]
+    kept = {k: v.clone() for k, v in caches[group]["attn"].items()}
     pre, caches, _ = tm.forward(c.tp, toks[:, :split], c.tc, caches=caches)
     np.testing.assert_allclose(pre.numpy(), full[:, :split].numpy(),
                                rtol=2e-3, atol=2e-3)
@@ -213,7 +220,7 @@ def test_prefill_then_decode_matches_forward(arch, cases):
         np.testing.assert_allclose(logits.numpy(), full[:, i].numpy(),
                                    rtol=2e-3, atol=2e-3)
     # the prefill left the caller's (empty) caches as they were
-    fresh = tm.make_caches(c.tc, B, 32, device="cpu")["blocks0"]["attn"]
+    fresh = tm.make_caches(c.tc, B, 32, device="cpu")[group]["attn"]
     for k, v in kept.items():
         assert torch.equal(v, fresh[k])
 
@@ -314,7 +321,7 @@ def test_unported_levers_raise(lever, value, cases):
 def test_unported_blocks_and_frontends_raise():
     from repro_torch.models import blocks, frontends
     cfg = tget("yi-9b").reduced()
-    for btype in ("moe", "mamba", "hybrid", "encoder", "cross"):
+    for btype in ("mamba", "hybrid", "encoder", "cross"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             blocks.init_block(torch.Generator(), cfg, btype, torch.float32)
     with pytest.raises(NotImplementedError, match="audio"):

@@ -1,8 +1,12 @@
-"""The --arch slice as a whole: federated finetune of the reduced yi-9b
-through ``launch.train.build_llm_engine`` in both packages, from equal
-params (the JAX engine's own init, carried across as numpy) and the
-same token streams (``make_token_stream``, numpy): 4 users, k = 2,
-16-token sequences, 4 a user, batch 2, 3 rounds, on the CPU.
+"""The --arch slice as a whole: federated finetune of the reduced yi-9b,
+deepseek-v3-671b and kimi-k2-1t-a32b through
+``launch.train.build_llm_engine`` in both packages, from equal params
+(the JAX engine's own init, carried across as numpy) and the same token
+streams (``make_token_stream``, numpy): 4 users, k = 2, 16-token
+sequences, 4 a user, batch 2, 3 rounds, on the CPU. deepseek's cell
+scales Eq. 3's N (``--cw-base``) by 2^10: its Eq. 2 product over 56
+leaves starts near 3.4e4 (14 zero-initialised norm scales, each ratio
+capped at 1), and at N = 2048 every window is under one slot.
 
 Every history count exact; the global after every round within
 ``rtol=1e-5`` (port rule 4); the ``random-*`` strategies' winners equal
@@ -25,16 +29,22 @@ from repro_torch.tree import tree_leaves
 from torch_port_util import HISTORY_COUNTS, bitwise_equal, tree_f32
 
 ROUNDS = 3
-ARGV = ["--arch", "yi-9b", "--users", "4", "--k", "2", "--llm-seq", "16",
+ARGV = ["--users", "4", "--k", "2", "--llm-seq", "16",
         "--llm-seqs-per-user", "4", "--batch-size", "2", "--rounds",
         str(ROUNDS)]
+#: each arch's cell: the arch, and deepseek's scaled Eq. 3 N
+ARCH_ARGV = {"yi-9b": ["--arch", "yi-9b"],
+             "deepseek-v3-671b": ["--arch", "deepseek-v3-671b",
+                                  "--cw-base", "2097152"],
+             "kimi-k2-1t-a32b": ["--arch", "kimi-k2-1t-a32b"]}
 
 
-def _args(strategy, **over):
+def _args(strategy, arch="yi-9b", **over):
     """The same parsed arguments for both launchers (the port's parser
     has every flag the reference's has, plus --device and --round-mode)."""
     ns = vars(ttrain.make_parser().parse_args(
-        ARGV + ["--strategy", strategy, "--device", "cpu"]))
+        ARCH_ARGV[arch] + ARGV + ["--strategy", strategy, "--device",
+                                  "cpu"]))
     ns.update(over)
     return argparse.Namespace(**ns)
 
@@ -50,8 +60,8 @@ def _capture(engine, store, to_np):
     engine.eval_fn = ev
 
 
-def _pair(strategy):
-    args = _args(strategy)
+def _pair(strategy, arch):
+    args = _args(strategy, arch)
     je = jtrain.build_llm_engine(args)
     init = jax.tree.map(np.asarray, je._init_params)
     te = ttrain.build_llm_engine(args, init=init)
@@ -66,17 +76,20 @@ def runs():
     return {}
 
 
-def _run(runs, strategy):
-    if strategy not in runs:
-        runs[strategy] = _pair(strategy)
-    return runs[strategy]
+def _run(runs, strategy, arch="yi-9b"):
+    if (strategy, arch) not in runs:
+        runs[strategy, arch] = _pair(strategy, arch)
+    return runs[strategy, arch]
 
 
-@pytest.mark.parametrize("strategy", ["priority-distributed",
-                                      "random-distributed",
-                                      "random-centralized"])
-def test_arch_rounds_match_jax(strategy, runs):
-    jh, th, jg, tg, _ = _run(runs, strategy)
+@pytest.mark.parametrize("strategy,arch", [
+    pytest.param(s, "yi-9b", id=s) for s in ("priority-distributed",
+                                             "random-distributed",
+                                             "random-centralized")] + [
+    pytest.param("priority-distributed", a, id=f"{a}-priority-distributed")
+    for a in ("deepseek-v3-671b", "kimi-k2-1t-a32b")])
+def test_arch_rounds_match_jax(strategy, arch, runs):
+    jh, th, jg, tg, _ = _run(runs, strategy, arch)
     for name in HISTORY_COUNTS:
         assert getattr(th, name) == getattr(jh, name), name
     assert np.array_equal(th.selections, jh.selections)
@@ -102,15 +115,17 @@ def test_priority_distributed_priorities_match_jax(runs):
     assert (np.asarray(th.priorities) >= 1.0).all()
 
 
-def test_sweep_lane_equals_its_sequential_run():
+@pytest.mark.parametrize("arch", ["yi-9b", "deepseek-v3-671b"])
+def test_sweep_lane_equals_its_sequential_run(arch):
     """``--sweep-seeds 2``: lane 1 is the run of the same cell with the
-    spec's seed 1 (the lanes share the data and the init), bit for
-    bit."""
+    spec's seed 1 (the lanes share the data and the init), bit for bit:
+    the sweep's local step stacks 8 users where the run stacks 4, and no
+    user's sum over its tokens may follow that count."""
     from repro_torch.engine import SweepSpec
-    eng = ttrain.build_llm_engine(_args("priority-distributed"))
+    eng = ttrain.build_llm_engine(_args("priority-distributed", arch))
     res = eng.run_sweep(SweepSpec.grid(eng.spec, seed=range(0, 2)))
     # the seed-1 cell: the sweep's data and params, the spec's seed 1
-    one = ttrain.build_llm_engine(_args("priority-distributed"),
+    one = ttrain.build_llm_engine(_args("priority-distributed", arch),
                                   init=tree_f32(eng._init_params), seed=1)
     h = one.run()
     assert h.winners == res[1].winners
@@ -119,8 +134,8 @@ def test_sweep_lane_equals_its_sequential_run():
 
 
 def test_main_runs_on_the_cpu_and_prints_its_summary(capsys):
-    engine, summary = ttrain.main(ARGV + ["--device", "cpu",
-                                          "--sweep-seeds", "2"])
+    engine, summary = ttrain.main(ARCH_ARGV["yi-9b"] + ARGV + [
+        "--device", "cpu", "--sweep-seeds", "2"])
     printed = json.loads(capsys.readouterr().out)
     assert printed == summary
     assert summary["device"] == "cpu" and summary["sweep_cells"] == 2

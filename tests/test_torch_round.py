@@ -291,10 +291,10 @@ def test_unported_run_options_and_merge_contexts_raise(tmp_path):
 def test_launch_train_rejects_unported_flags():
     from repro_torch.launch import train
     # --sweep-seeds and --ckpt are ported (tests/test_torch_sweep.py);
-    # --arch runs the dense and vlm families (tests/test_torch_llm_round.py)
-    # and names the ROADMAP item for the others
-    for arch in ("hymba-1.5b", "mamba2-370m", "deepseek-v3-671b",
-                 "whisper-small"):
+    # --arch runs the dense, vlm and moe families
+    # (tests/test_torch_llm_round.py) and names the ROADMAP item for the
+    # others
+    for arch in ("hymba-1.5b", "mamba2-370m", "whisper-small"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train.main(["--device", "cpu", "--arch", arch, "--users", "2",
                         "--llm-seq", "4", "--llm-seqs-per-user", "2"])
