@@ -102,21 +102,24 @@ without CUDA (there is no CPU path here). It
      fused, stacked and stale winner-sparse run of the MLP cell resumed
      by fresh engines); then the LLM stack: the SGD step, Eq. 2 and the
      gather merge on the reduced yi-9b, gemma2-27b, deepseek-v3 (56
-     leaves: two launches of each leaf-list kernel) and kimi-k2 leaf
-     tables at 10 users, f32 and bf16 (each row's Eq. 2 bits the same
-     alone as in the stack), the federated finetune of each through
+     leaves: two launches of each leaf-list kernel), kimi-k2, mamba2-370m
+     and hymba-1.5b leaf tables at 10 users, f32 and bf16 (each row's
+     Eq. 2 bits the same alone as in the stack), the federated finetune
+     of each through
      ``launch.train.main(["--arch", ...])`` for 5 rounds (10 users, k =
      2, 32 sequences of 128 tokens a user) against the same run on the
      CPU, its launches a round held to PERF.md's prediction, a steady
      round, peak memory (and its parts: what was held, the engine, one
-     local step, one evaluation) and the idle share, and yi-9b and
-     deepseek-v3 as 3-lane sweeps whose lane 0 must be the run bit for
-     bit (the first local step at 10 and at 30 rows compared aten op by
-     aten op: no op's bits may follow the row count); the token sums'
-     routes (the kernel, its plain tree, torch's own sum) in turns on two
-     cells;
-     ``launch.serve`` for the seven dense, vlm and moe archs (decode
-     against ``forward`` within 1e-3); deepseek-v3 at its published
+     local step, one evaluation) and the idle share, and yi-9b,
+     deepseek-v3, mamba2-370m and hymba-1.5b as 3-lane sweeps whose lane
+     0 must be the run bit for bit (the first local step at 10 and at 30
+     rows compared aten op by aten op: no op's bits may follow the row
+     count); the token sums' routes (the kernel, its plain tree, torch's
+     own sum) in turns on two cells;
+     ``launch.serve`` for the nine dense, vlm, moe, ssm and hybrid archs
+     (decode against ``forward`` within 1e-3; hymba's 80-token prompt
+     past its 64-token window, and its long-context variant through a
+     64-entry ring cache that wraps); deepseek-v3 at its published
      widths (4 layers, MTP kept, 26.7 B params in bf16): prefill and
      decode timed against their bounds, the dropped share of its routing,
      and decode against ``forward`` with nothing dropped, row by row
@@ -127,7 +130,11 @@ without CUDA (there is no CPU path here). It
      prefill and decode timed against their bounds; then the SGD step,
      Eq. 2 and the gather merge on its full-width leaves at U = 2, one
      at a time (the 4.3 G-element ``w_gate`` stack, past 2^31, included;
-     the Eq. 2 sums also against their f64 values) —
+     the Eq. 2 sums also against their f64 values); mamba2-370m (48
+     layers) and hymba-1.5b (32) at their published widths and depth in
+     bf16: the same prompts through the chunked SSD prefill and the
+     single-step recurrence, decode against ``forward`` within the bars
+     of ``SSM_FULL``, prefill and decode against their bounds —
      with the launch counts set to zero just before each path and read
      just after;
   5. checks the result by the repository's own means: the pinned
@@ -296,24 +303,39 @@ SERVER_KINDS = {0: [0, 0.9, 0.99, 0.5, 1e-3], 1: [1, 0.9, 0.0, 0.5, 1e-3],
 BIG = ref.CONTENTION_BIG
 SLOT_S = 20e-6
 #: the LLM stack: the --arch cells (phase tag -> arch), the serving archs
-#: (the dense, vlm and moe families), the --arch cell's arguments beyond
-#: the launcher's defaults (--llm-seq 128 --llm-seqs-per-user 32 are its
-#: defaults, given for the record), and the launches a round that PERF.md
-#: predicts: rows 1-3 (one local step of L leaves, ceil(L / 32) launches
-#: of each leaf-list kernel; the merge once a leaf: L = 12 / 13 / 56 /
-#: 25), and ``token_sum`` (the local step's: one for the loss mean, two a
-#: MoE block, one a norm's scale in the backward; then the evaluation's
-#: forward, ``LLM_EVAL_TOKEN_SUMS``)
+#: (the dense, vlm, moe, ssm and hybrid families), the --arch cell's
+#: arguments beyond the launcher's defaults (--llm-seq 128
+#: --llm-seqs-per-user 32 are its defaults, given for the record), and the
+#: launches a round that PERF.md predicts: rows 1-3 (one local step of L
+#: leaves, ceil(L / 32) launches of each leaf-list kernel; the merge once
+#: a leaf: L = 12 / 13 / 56 / 25 / 11 / 22), and ``token_sum`` (the local
+#: step's: one for the loss mean, two a MoE block, one a norm's scale in
+#: the backward, six a Mamba-2 layer's parameters (``broadcast``'s five
+#: and the gated norm's scale); then the evaluation's forward,
+#: ``LLM_EVAL_TOKEN_SUMS``)
 LLM_CELLS = {"yi9b": "yi-9b", "gemma2": "gemma2-27b",
-             "deepseek": "deepseek-v3-671b", "kimi": "kimi-k2-1t-a32b"}
+             "deepseek": "deepseek-v3-671b", "kimi": "kimi-k2-1t-a32b",
+             "mamba2": "mamba2-370m", "hymba": "hymba-1.5b"}
 SERVE_ARCHS = ("yi-9b", "gemma2-27b", "phi3-mini-3.8b", "phi4-mini-3.8b",
-               "phi-3-vision-4.2b", "deepseek-v3-671b", "kimi-k2-1t-a32b")
+               "phi-3-vision-4.2b", "deepseek-v3-671b", "kimi-k2-1t-a32b",
+               "mamba2-370m", "hymba-1.5b")
+#: the reduced serving's prompt where it is not 32: hymba's beyond its
+#: local layer's 64-token window, so the window slides in the prefill and
+#: in every decode step
+SERVE_PROMPT = {"hymba-1.5b": 80}
+#: the ring cache's wrap: the long-context variant of the reduced
+#: hymba-1.5b windows every layer at 64 (its global layers at the
+#: long-context window), so a 64-entry ring serves it; a 32-token prefill,
+#: then a decode step a token to position 96, the ring's slots wrapping
+#: from position 64 on
+RING_WRAP = dict(arch="hymba-1.5b", prefill=32, cache=64)
 LLM_ARGV = ("--users", "10", "--k", "2", "--llm-seq", "128",
             "--llm-seqs-per-user", "32")
 #: deepseek's Eq. 3 N scaled by 2^10: its Eq. 2 product over 56 leaves
 #: starts near 3.4e4 (14 zero-initialised norm scales, each ratio capped
 #: at 1), so at N = 2048 every window is under a slot and every attempt
-#: collides (no delivery in 5 rounds on the CPU, in both packages)
+#: collides (no delivery in 5 rounds on the CPU, in both packages). The
+#: ssm and hybrid cells need none: their products start near 32 and 257
 LLM_CELL_ARGV = {"deepseek": ("--cw-base", "2097152")}
 LLM_ROUND_LAUNCHES = {
     "yi-9b": {"fused_sgd": 1, "delta_norm": 1, "gather_combine": 12,
@@ -323,21 +345,45 @@ LLM_ROUND_LAUNCHES = {
     "deepseek-v3-671b": {"fused_sgd": 2, "delta_norm": 2,
                          "gather_combine": 56, "token_sum": 28},
     "kimi-k2-1t-a32b": {"fused_sgd": 1, "delta_norm": 1,
-                        "gather_combine": 25, "token_sum": 11}}
+                        "gather_combine": 25, "token_sum": 11},
+    "mamba2-370m": {"fused_sgd": 1, "delta_norm": 1, "gather_combine": 11,
+                    "token_sum": 17},
+    "hymba-1.5b": {"fused_sgd": 1, "delta_norm": 1, "gather_combine": 22,
+                   "token_sum": 23}}
 LLM_EVAL_TOKEN_SUMS = {"yi-9b": 1, "gemma2-27b": 1, "deepseek-v3-671b": 6,
-                       "kimi-k2-1t-a32b": 3}
+                       "kimi-k2-1t-a32b": 3, "mamba2-370m": 1,
+                       "hymba-1.5b": 1}
 LLM_KERNELS = ("fused_sgd", "delta_norm", "gather_combine", "token_sum")
 #: the --arch cells whose held-out loss must fall in 5 rounds
-HELD_OUT_ARCHS = ("yi-9b", "gemma2-27b")
+HELD_OUT_ARCHS = ("yi-9b", "gemma2-27b", "mamba2-370m", "hymba-1.5b")
 #: lanes of the --arch sweeps (E x L leaves in one Eq. 2 call, more than
 #: one launch takes), and the cells run as a sweep: lane 0 must equal the
 #: run bit for bit
 LLM_SWEEP_LANES = 3
-LLM_SWEEP_CELLS = ("yi9b", "deepseek")
+LLM_SWEEP_CELLS = ("yi9b", "deepseek", "mamba2", "hymba")
 #: the full-width yi-9b serving check (PERF.md states the bar): every
 #: decode step's and the prefill's logits against forward's row, the
 #: largest gap over the row's logit range
 YI_FULL = dict(batch=4, prompt=512, gen=16, bar=0.05)
+#: the full-width SSM and hybrid serving checks (tag -> arch, and the
+#: bars on the bf16 decode's gap to the bf16 forward over the row's logit
+#: range: on the prefill and the first ``early`` decode steps, and on
+#: every step): published widths, every layer, bf16, yi-9b's prompts and
+#: tokens. Both are also held in f32 (decode = forward within
+#: ``SSM_F32_BAR``) and by accuracy (the bf16 decode no further off the f32
+#: logits than ``SSM_BF16_FACTOR`` x the bf16 forward is). hymba holds
+#: 0.05 on every step. mamba2's 48 random layers amplify bf16 rounding:
+#: its bf16 forward lies 0.13-0.28 of the range off the f32 logits, and
+#: the decode's gap to the bf16 forward grows a step at a time (PERF.md
+#: section 6; tests/test_torch_llm_ssm.py holds the port's bf16 drift to
+#: the reference's at 2, 8 and 16 layers), so it holds 0.05 on the prefill
+#: and 4 decode steps and 0.1 on every step
+SSM_FULL = {"mamba2": ("mamba2-370m", dict(early=4, early_bar=0.05,
+                                           bar=0.1)),
+            "hymba": ("hymba-1.5b", dict(early=0, early_bar=0.05,
+                                         bar=0.05))}
+SSM_F32_BAR = 1e-3
+SSM_BF16_FACTOR = 1.25
 #: the full-width leaves rows 1-3 run on one at a time (U = 2, bf16)
 YI_FULL_LEAVES = ("blocks0/mlp/w_gate", "blocks0/attn/wq", "embed/embedding")
 
@@ -3848,6 +3894,7 @@ def phase_llm_fl_round(tag, rounds=5):
          uploads_total=summary["uploads_total"], card_equals_cpu=True,
          global_max_rel_gap_vs_cpu=gap, winners=hist.winners,
          held_out_loss=[-a for a in hist.accuracy],
+         priorities_round0=[float(p) for p in hist.priorities[0]],
          launches=launches, launches_per_round={
              k: launches[k] / rounds for k in LLM_KERNELS},
          predicted_per_round=LLM_ROUND_LAUNCHES[arch],
@@ -4056,25 +4103,65 @@ def decode_gaps(params, cfg, prompts, res, prefix=None, per_row=None):
     return absg, relg, agree
 
 
+def ring_wrap_gaps(params, cfg, toks):
+    """``cfg``'s long-context variant (every layer windowed, within the
+    ring) decoded through a ring cache of ``RING_WRAP["cache"]`` entries:
+    the prefill of ``RING_WRAP["prefill"]`` tokens of ``toks``, then a
+    decode step a token to its end, past the ring's length. The largest
+    absolute gap to the long-context ``forward``'s row, per step (the
+    prefill first)."""
+    P, C = RING_WRAP["prefill"], RING_WRAP["cache"]
+    wins = cfg.layer_windows(0, long_context=True)
+    if not 0 < min(wins) <= max(wins) <= C < toks.shape[1]:
+        raise AssertionError(f"ring wrap: windows {wins}, ring {C}, "
+                             f"{toks.shape[1]} positions")
+    with torch.no_grad():
+        full = llm.forward(params, toks, cfg, long_context=True)[0]
+        caches = llm.make_caches(cfg, toks.shape[0], C, long_context=True,
+                                 device=toks.device)
+        pre, caches, _ = llm.forward(params, toks[:, :P], cfg,
+                                     caches=caches, long_context=True)
+        gaps = [float((pre - full[:, :P]).abs().max())]
+        for i in range(P, toks.shape[1]):
+            logits, caches = llm.decode_step(params, caches, toks[:, i], i,
+                                             cfg, long_context=True)
+            gaps.append(float((logits - full[:, i]).abs().max()))
+    return gaps
+
+
 def phase_llm_serve_reduced():
-    """``launch.serve`` for each dense and vlm arch (reduced, f32): 4
-    prompts of 32 tokens, 16 greedy tokens; every decode step's logits
-    and the prefill's against ``forward``'s row at that position within
-    1e-3 absolute (the bar of tests/test_decode_parity.py)."""
+    """``launch.serve`` for each arch of ``SERVE_ARCHS`` (reduced, f32): 4
+    prompts of 32 tokens (hymba's of 80, past its 64-token window), 16
+    greedy tokens; every decode step's logits and the prefill's against
+    ``forward``'s row at that position within 1e-3 absolute (the bar of
+    tests/test_decode_parity.py). hymba's 96 tokens also through its
+    long-context variant's wrapping ring cache (``ring_wrap_gaps``), at
+    the same bar."""
     rows = {}
     for arch in SERVE_ARCHS:
-        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32",
-                "--gen-len", "16"]
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len",
+                str(SERVE_PROMPT.get(arch, 32)), "--gen-len", "16"]
         (cfg, params, inputs, res), text = quiet(launch_serve.main, argv)
         absg, relg, agree = decode_gaps(params, cfg, inputs["tokens"], res,
                                         inputs["prefix_embeds"])
         if max(absg) >= 1e-3:
             raise AssertionError(f"llm_serve_reduced {arch}: decode against "
                                  f"forward {absg}")
-        rows[arch] = dict(prefill_ms=res["prefill_s"] * 1e3,
+        rows[arch] = dict(prompt=inputs["tokens"].shape[1],
+                          prefill_ms=res["prefill_s"] * 1e3,
                           decode_ms_per_token=res["decode_s"] * 1e3 / 15,
                           max_abs_gap=max(absg), argmax_agree=min(agree),
                           printed=text.strip().splitlines())
+        if arch == RING_WRAP["arch"]:
+            toks = torch.cat([inputs["tokens"], res["tokens"].to(
+                inputs["tokens"].dtype)], 1)
+            ring = ring_wrap_gaps(params, cfg, toks)
+            rows[arch]["ring_wrap"] = dict(RING_WRAP, end=toks.shape[1],
+                                           max_abs_gap=max(ring))
+            if max(ring) >= 1e-3:
+                raise AssertionError(f"llm_serve_reduced {arch}: the "
+                                     f"ring-cache decode against forward "
+                                     f"{ring}")
         del params, res
     emit("llm_serve_reduced", archs=rows, bar="1e-3 absolute, f32")
     torch.cuda.empty_cache()
@@ -4273,6 +4360,145 @@ def phase_llm_serve_yi9b_full(seed=0):
          full_leaf_max_abs_err={k: e for k, (e, _) in worst.items()},
          full_leaf_bit_equal={k: b for k, (_, b) in worst.items()})
     return worst
+
+
+def ssm_serving_work(cfg, shapes, B, S, G):
+    """What a full-width SSM / hybrid serving run must do, from the
+    shapes: the prefill's bf16 operations (2 a GEMM weight a token: every
+    leaf but an untied embedding table, whose rows are only gathered),
+    its f32 operations (the chunked SSD scan's four contractions, and the
+    hybrid layers' causal attention scores and sums within the window:
+    the reference's f32 math) and the bytes a decode step must move (the
+    weights it reads, the SSM and conv states read and written, the KV
+    cache read at the mean step's length)."""
+    L = cfg.num_layers
+    Din, N, H, P = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
+                    cfg.ssm_head_dim)
+    n_all = sum(int(np.prod(v)) for v in shapes.values())
+    table = 0 if cfg.tie_embeddings else int(np.prod(
+        shapes["embed/embedding"]))
+    bf16_ops = 2.0 * (n_all - table) * B * S
+    l = min(cfg.ssm_chunk, S)
+    chunks = -(-S // l)
+    # CB and the intra-chunk sum over the causal pairs (l (l + 1) / 2 of
+    # them: n and h p multiply-adds each), the chunk states and the
+    # chunk-start term (l h p n each)
+    pairs = l * (l + 1) / 2
+    f32_ops = 2.0 * L * B * chunks * (pairs * (N + Din) + 2 * l * Din * N)
+    kv_step = 0.0
+    if cfg.family == "hybrid":
+        Hq, Kv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        for w in cfg.layer_windows(S):
+            pairs = sum(min(i + 1, w or S) for i in range(S))
+            f32_ops += 2.0 * 2 * B * pairs * Hq * Dh
+            kv_step += 2.0 * B * min(S + G / 2, w or S + G) * Kv * Dh * 2
+    state = L * B * (H * P * N * 4 + (cfg.ssm_conv_width - 1)
+                     * (Din + 2 * N) * 2)
+    step_bytes = (n_all - table) * 2 + 2 * state + kv_step
+    return dict(prefill_bf16_ops=bf16_ops, prefill_f32_ops=f32_ops,
+                prefill_bound_ms=max(
+                    (n_all - table) * 2 / HBM_BYTES_PER_S,
+                    bf16_ops / BF16_FLOPS_PER_S + f32_ops / F32_FLOPS_PER_S)
+                * 1e3,
+                decode_step_gb=step_bytes / 1e9, state_gb=state / 1e9,
+                decode_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_llm_serve_ssm_full(tag, seed=0):
+    """``SSM_FULL[tag]`` at its published widths and depth (mamba2-370m:
+    48 Mamba-2 layers, d_model 1024; hymba-1.5b: 32 hybrid layers, d_model
+    1600), bf16, params drawn on the card from a CUDA generator seeded
+    with ``seed``: ``YI_FULL``'s 4 prompts of 512 tokens prefilled (the
+    chunked SSD scan over two 256-token chunks, into the caches), 16
+    greedy tokens by the single-step recurrence, twice (the second timed;
+    equal tokens); prefill and decode against their bounds
+    (``ssm_serving_work``), the decode profile (launches a step, the
+    device's idle share) and the peaks. Decode against ``forward``: the
+    bf16 run's prefill and step logits against the bf16 forward over its
+    tokens (within the arch's bars) and against the f32
+    forward of the same weights (no further off than ``SSM_BF16_FACTOR``
+    x the bf16 forward), and the same generation in f32 against the f32
+    forward within ``SSM_F32_BAR`` of the row's range."""
+    arch, bars = SSM_FULL[tag]
+    name = f"llm_serve_{tag}_full"
+    cfg = get_config(arch)
+    B, S, G = YI_FULL["batch"], YI_FULL["prompt"], YI_FULL["gen"]
+    V = cfg.vocab_size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = llm.init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    shapes = {"/".join(k): tuple(v.shape) for k, v in _paths(params)}
+    prompts = torch.randint(0, V, (B, S), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    first = launch_serve.generate(params, cfg, prompts, G)
+    res = launch_serve.generate(params, cfg, prompts, G)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.equal(first["tokens"], res["tokens"]):
+        raise AssertionError(f"{name}: two runs generated different tokens")
+    decode_prof = profile_decode(params, cfg, prompts, steps=2)
+    # the same weights in f32: its forward against the bf16 run's steps and
+    # the bf16 forward's rows on the same tokens, and its own generation
+    # against its own forward
+    p32 = tree_map(lambda t: t.float(), params)
+    c32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    _, gap16, _ = decode_gaps(params, cfg, prompts, res)
+    _, dec16_vs32, _ = decode_gaps(p32, c32, prompts, res)
+    toks = torch.cat([prompts, res["tokens"][:, :-1].to(prompts.dtype)], 1)
+    with torch.no_grad():
+        full = llm.forward(params, toks, cfg)[0]
+    _, fwd16_vs32, _ = decode_gaps(p32, c32, prompts, dict(
+        tokens=res["tokens"], prefill_logits=full[:, S - 1],
+        step_logits=[full[:, S + i] for i in range(G - 1)]))
+    del full
+    r32 = launch_serve.generate(p32, c32, prompts, G)
+    _, gap32, _ = decode_gaps(p32, c32, prompts, r32)
+    caches = llm.make_caches(cfg, B, S + G, device="meta")
+    fields = dict(
+        arch=arch, family=cfg.family, layers=cfg.num_layers,
+        d_model=cfg.d_model, ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state,
+        windows=sorted(set(cfg.layer_windows(S))),
+        params=llm.param_count(params),
+        param_gb=sum(p.numel() * p.element_size()
+                     for p in tree_leaves(params)) / 1e9,
+        cache_gb=sum(t.numel() * t.element_size()
+                     for t in tree_leaves(caches)) / 1e9,
+        batch=B, prompt=S, gen=G, init_s=init_s, init_peak_gb=init_peak,
+        serve_peak_gb=serve_peak, units="GB = 1e9 bytes",
+        prefill_ms=res["prefill_s"] * 1e3,
+        prefill_ms_first=first["prefill_s"] * 1e3,
+        decode_ms_per_token=res["decode_s"] * 1e3 / (G - 1),
+        **ssm_serving_work(cfg, shapes, B, S, G),
+        bf16_decode_vs_forward=gap16, bf16_bars=bars,
+        bf16_decode_vs_f32=dec16_vs32, bf16_forward_vs_f32=fwd16_vs32,
+        f32_decode_vs_forward=gap32, f32_bar=SSM_F32_BAR,
+        f32_tokens_equal_bf16=bool(torch.equal(r32["tokens"],
+                                               res["tokens"])),
+        decode_profile=decode_prof,
+        # the profiler slows the host: the idle share against the timed
+        # (unprofiled) decode step
+        decode_idle_share_timed=1.0 - decode_prof["device_busy_ms_per_step"]
+        / (res["decode_s"] * 1e3 / (G - 1)))
+    del params, p32, first, res, r32
+    torch.cuda.empty_cache()
+    emit(name, **fields)
+    early = gap16[:bars["early"] + 1]
+    if max(early) > bars["early_bar"] or max(gap16) > bars["bar"]:
+        raise AssertionError(f"{name}: bf16 decode logits beyond {bars} of "
+                             f"the row's range: {gap16}")
+    if max(dec16_vs32) > SSM_BF16_FACTOR * max(fwd16_vs32):
+        raise AssertionError(f"{name}: the bf16 decode lies further off the "
+                             f"f32 logits ({dec16_vs32}) than the bf16 "
+                             f"forward does ({fwd16_vs32})")
+    if max(gap32) > SSM_F32_BAR:
+        raise AssertionError(f"{name}: f32 decode logits beyond "
+                             f"{SSM_F32_BAR} of the row's range: {gap32}")
+    return fields
 
 
 #: the routes of the local step's token sums, timed in turns: the kernel
@@ -4773,6 +4999,8 @@ def main():
     phase_llm_serve_reduced()
     full_worst = phase_llm_serve_yi9b_full()
     phase_llm_serve_deepseek_full()
+    for tag in SSM_FULL:
+        phase_llm_serve_ssm_full(tag)
     for k, per in llm_worst.items():
         for key, (e, b) in per.items():
             worst[k][key] = max(worst[k][key], e)
@@ -4882,6 +5110,8 @@ def main():
             launches_llm_gemma2=l_llm["gemma2"][name],
             launches_llm_deepseek=l_llm["deepseek"][name],
             launches_llm_kimi=l_llm["kimi"][name],
+            launches_llm_mamba2=l_llm["mamba2"][name],
+            launches_llm_hymba=l_llm["hymba"][name],
             timed_at=where))
     emit("total", seconds=time.perf_counter() - t_start,
          before_profile_s=t_checks)

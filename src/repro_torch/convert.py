@@ -15,9 +15,10 @@ from repro_torch.device import resolve_device
 from repro_torch.tree import tree_map
 
 
-#: leaves kept in f32 whatever ``dtype`` a conversion asks for: the MoE
-#: router is f32 whatever the param dtype (as ``init_moe`` draws it)
-F32_LEAVES = ("router",)
+#: leaves kept in f32 whatever ``dtype`` a conversion asks for, as the
+#: reference's initialisers make them: the MoE router (``init_moe``) and
+#: the Mamba-2 layer's A_log, dt_bias and D_skip (``init_mamba2``)
+F32_LEAVES = ("router", "A_log", "dt_bias", "D_skip")
 
 
 def params_from_numpy(tree, device=None, dtype=None):

@@ -7,6 +7,9 @@ Runs a reduced assigned arch end to end (prefill + N decode steps), as
       --batch 4 --prompt-len 32 --gen-len 16 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v3-671b          # MLA latent cache, routed experts
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch hymba-1.5b --prompt-len 80  # attention + Mamba-2 heads, the
+                                         # window (64 reduced) sliding
 
 Params, prompts and the vlm patch embeddings are drawn from ``--seed``
 (in distribution only: ``jax.random`` cannot be replayed in torch).

@@ -28,9 +28,13 @@ Examples:
       --ckpt /tmp/final.npz
 
   # federated finetune of a reduced assigned arch on synthetic tokens
-  # (the dense, vlm and moe families; ssm, hybrid and audio raise
+  # (the dense, vlm, moe, ssm and hybrid families; audio raises
   # NotImplementedError)
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --rounds 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+      --rounds 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+      --rounds 5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-27b \
       --rounds 5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch kimi-k2-1t-a32b \
@@ -155,8 +159,8 @@ def make_parser() -> argparse.ArgumentParser:
                     choices=["fashion", "cifar"])
     ap.add_argument("--arch", default=None, choices=ARCH_IDS,
                     help="federated-finetune a reduced assigned arch "
-                         "instead of the paper model (dense, vlm and moe "
-                         "families)")
+                         "instead of the paper model (dense, vlm, moe, "
+                         "ssm and hybrid families)")
     ap.add_argument("--strategy", default="priority-distributed",
                     choices=available_strategies() or PAPER_STRATEGIES)
     ap.add_argument("--rounds", type=int, default=100)

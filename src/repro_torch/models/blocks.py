@@ -1,5 +1,5 @@
-"""Decoder blocks (port of ``repro/models/blocks.py``: the dense and MoE
-blocks).
+"""Decoder blocks (port of ``repro/models/blocks.py``: the dense, MoE,
+Mamba-2 and hybrid blocks).
 
 Every block type shares one apply signature, so the model loops over a
 layer-stacked param dict one layer at a time:
@@ -8,10 +8,12 @@ layer-stacked param dict one layer at a time:
                 window=..., cache=..., enc_out=...)
       -> (x_out, new_cache, aux_loss)
 
-``"dense"`` (with gemma2's post-norm sandwich, ``cfg.use_post_norm``)
-and ``"moe"`` (the routed FFN of ``models/moe.py``) are ported. The
-Mamba, hybrid, encoder and cross blocks come with their families'
-slices and raise.
+``"dense"`` (with gemma2's post-norm sandwich, ``cfg.use_post_norm``),
+``"moe"`` (the routed FFN of ``models/moe.py``), ``"mamba"`` (the
+Mamba-2 layer of ``models/ssm.py`` is the whole block) and ``"hybrid"``
+(Hymba: attention and Mamba-2 heads on the same normed input, their
+outputs normed and averaged, then the MLP) are ported. The encoder and
+cross blocks come with the audio family's slice and raise.
 """
 from __future__ import annotations
 
@@ -20,11 +22,12 @@ import torch
 from repro_torch.models.attention import apply_attention, init_attention, \
     make_kv_cache
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, \
-    init_norm
+    init_norm, zeros
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.ssm import apply_mamba2, init_mamba2, make_ssm_cache
 
 BLOCK_TYPES = ("dense", "moe", "mamba", "hybrid", "encoder", "cross")
-PORTED_BLOCKS = ("dense", "moe")
+PORTED_BLOCKS = ("dense", "moe", "mamba", "hybrid")
 
 
 def _check_block(block_type):
@@ -32,18 +35,25 @@ def _check_block(block_type):
         raise ValueError(f"unknown block type {block_type!r}")
     if block_type not in PORTED_BLOCKS:
         raise NotImplementedError(
-            f"block type {block_type!r}: the port runs the dense and MoE "
-            "blocks; SSM, hybrid and audio blocks wait for their slices "
-            "(ROADMAP.md Queue A item 4)")
+            f"block type {block_type!r}: the port runs the dense, MoE, "
+            "Mamba-2 and hybrid blocks; the audio blocks wait for their "
+            "slice (ROADMAP.md Queue A item 4)")
 
 
 def init_block(key, cfg, block_type, dtype, lead=()):
     """One block's params; ``lead`` stacks them (the layer axis)."""
     _check_block(block_type)
-    p = {"ln1": init_norm(key, cfg, dtype, lead),
-         "attn": init_attention(key, cfg, dtype, lead)}
+    p = {"ln1": init_norm(key, cfg, dtype, lead)}
+    if block_type == "mamba":
+        p["mamba"] = init_mamba2(key, cfg, dtype, lead)
+        return p
+    p["attn"] = init_attention(key, cfg, dtype, lead)
     if cfg.use_post_norm:
         p["ln1_post"] = init_norm(key, cfg, dtype, lead)
+    if block_type == "hybrid":
+        p["mamba"] = init_mamba2(key, cfg, dtype, lead)
+        p["attn_out_scale"] = zeros(key, (cfg.d_model,), dtype, lead)
+        p["ssm_out_scale"] = zeros(key, (cfg.d_model,), dtype, lead)
     p["ln2"] = init_norm(key, cfg, dtype, lead)
     if block_type == "moe":
         p["moe"] = init_moe(key, cfg, dtype, lead)
@@ -55,9 +65,15 @@ def init_block(key, cfg, block_type, dtype, lead=()):
 
 
 def make_block_cache(cfg, block_type, batch, cache_len, dtype, device=None):
-    """Decode-time cache skeleton for one layer."""
+    """Decode-time cache skeleton for one layer: ``attn`` (a KV ring
+    cache) and / or ``ssm`` (the conv and SSM states, no length axis)."""
     _check_block(block_type)
-    return {"attn": make_kv_cache(cfg, batch, cache_len, dtype, device)}
+    c = {}
+    if block_type != "mamba":
+        c["attn"] = make_kv_cache(cfg, batch, cache_len, dtype, device)
+    if block_type in ("mamba", "hybrid"):
+        c["ssm"] = make_ssm_cache(cfg, batch, dtype, device)
+    return c
 
 
 def _norm(p, x, cfg):
@@ -70,12 +86,28 @@ def apply_block(params, x, *, cfg, block_type, positions, window=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = dict(cache) if cache is not None else None
 
-    # ---------------- attention sublayer -----------------------------------
+    # ---------------- attention / mamba / hybrid sublayer -----------------
     h = _norm(params["ln1"], x, cfg)
+    if block_type == "mamba":
+        y, ssm_cache = apply_mamba2(
+            params["mamba"], h, cfg,
+            cache=None if cache is None else cache["ssm"])
+        if new_cache is not None:
+            new_cache["ssm"] = ssm_cache
+        return x + y, new_cache, aux
     y, attn_cache = apply_attention(
         params["attn"], h, cfg=cfg, positions=positions, window=window,
         cache=None if cache is None else cache.get("attn"), chunk=chunk)
-    if cfg.use_post_norm:
+    if block_type == "hybrid":
+        y_ssm, ssm_cache = apply_mamba2(
+            params["mamba"], h, cfg,
+            cache=None if cache is None else cache["ssm"])
+        # Hymba: per-channel normalized mean of the two heads' outputs
+        y = 0.5 * (apply_norm({"scale": params["attn_out_scale"]}, y)
+                   + apply_norm({"scale": params["ssm_out_scale"]}, y_ssm))
+        if new_cache is not None:
+            new_cache["ssm"] = ssm_cache
+    elif cfg.use_post_norm:
         y = _norm(params["ln1_post"], y, cfg)
     if new_cache is not None and "attn" in new_cache:
         new_cache["attn"] = attn_cache

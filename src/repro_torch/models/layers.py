@@ -17,7 +17,8 @@ the losses run under ``torch.func.vmap(torch.func.grad_and_value(...))``
 (a cohort's local step).
 
 Every sum over a user's tokens — the loss means, the norms' scale and
-bias gradients, the MoE's mean router probability — goes through
+bias gradients, the MoE's mean router probability, the gradient of a
+parameter ``broadcast`` over the tokens (the Mamba-2 layer's) — goes through
 ``token_sum``: one fixed tree (``kernels.ops.token_sum``) whose order
 follows the token count alone. torch's own CUDA sum splits a user's
 additions by how many users share the launch, so a sweep's lane would
@@ -101,6 +102,34 @@ class _ScaleShift(torch.autograd.Function):
         return gx, gs, gb
 
 
+class _Broadcast(torch.autograd.Function):
+    """A parameter ``p`` expanded over leading dims ``lead`` (a user's
+    tokens), whose backward sums those dims with ``token_sum`` in f32 and
+    casts back to ``p``'s dtype (autograd would reduce the broadcast with
+    torch's sum)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(p, lead):
+        return p.expand(tuple(lead) + tuple(p.shape))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        p = inputs[0]
+        ctx.keep, ctx.dtype = p.dim(), p.dtype
+
+    @staticmethod
+    def backward(ctx, g):
+        return token_sum(g.float(), keep=ctx.keep).to(ctx.dtype), None
+
+
+def broadcast(p, lead):
+    """``p`` broadcast to ``lead + p.shape``; its gradient is summed over
+    ``lead`` in ``token_sum``'s fixed tree, so a user's parameter
+    gradient keeps its bits whatever the rows beside it."""
+    return _Broadcast.apply(p, tuple(lead))
+
+
 def _device(key):
     return key.device if isinstance(key, torch.Generator) else \
         torch.device(key)
@@ -165,11 +194,12 @@ def apply_norm(params, x, kind="rmsnorm", eps=1e-6):
 
 
 def rmsnorm_gated(scale, x, z, eps=1e-6):
-    """Mamba-2 gated RMSNorm: rmsnorm(x * silu(z)) * (1 + scale)."""
+    """Mamba-2 gated RMSNorm: rmsnorm(x * silu(z)) * (1 + scale); the
+    scale's gradient through ``_ScaleShift``."""
     dt = x.dtype
     x = x.float() * F.silu(z.float())
     var = x.square().mean(dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    x = _ScaleShift.apply(x * torch.rsqrt(var + eps), scale.float(), None)
     return x.to(dt)
 
 

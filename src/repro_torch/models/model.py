@@ -1,17 +1,21 @@
 """Model assembly: layer groups over layer-stacked params.
 
-Port of ``repro/models/model.py`` for the dense, vlm and moe families.
+Port of ``repro/models/model.py`` for the dense, vlm, moe, ssm and
+hybrid families.
 A model is a sequence of *layer groups*; each group's params are stacked
 over a leading layer axis, in the reference's layout and leaf order, so
 a JAX parameter tree carried across with ``convert.params_from_numpy``
 is this module's parameter tree. The reference's ``lax.scan`` over the
 stack is a Python loop over the layer index; the per-layer windows
-(gemma2's local / global layers) are Python ints. A MoE model's leading
-dense layers are their own group (``first_dense_layers``), and
-DeepSeek-V3's multi-token prediction adds the ``mtp`` subtree and its
-loss term.
+(gemma2's local / global layers, hymba's three global layers among
+sliding-window ones; 0 for every Mamba-2 layer) are Python ints. A MoE
+model's leading dense layers are their own group
+(``first_dense_layers``), and DeepSeek-V3's multi-token prediction adds
+the ``mtp`` subtree and its loss term. A group's decode caches are
+layer-stacked dicts: a KV ring cache with a length axis, and / or the
+Mamba-2 conv and SSM states, which have none.
 
-The SSM, hybrid and audio families, and the dry-run levers
+The audio family, and the dry-run levers
 ``flash_chunk_remat`` and ``shard_activations``, raise
 ``NotImplementedError``. ``cfg.remat`` (activation checkpointing) only
 trades memory in a backward pass and is not reproduced: the values are
@@ -31,7 +35,7 @@ from repro_torch.models.blocks import apply_block, init_block, \
     make_block_cache
 from repro_torch.tree import tree_leaves, tree_map
 
-PORTED_FAMILIES = ("dense", "vlm", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 #: DeepSeek-V3's weight of the multi-token-prediction loss
 MTP_WEIGHT = 0.3
 
@@ -41,8 +45,8 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}): the port runs the dense, "
-            "vlm and moe families; SSM, hybrid and audio wait for their "
-            "slices (ROADMAP.md Queue A item 4)")
+            "vlm, moe, ssm and hybrid families; audio waits for its slice "
+            "(ROADMAP.md Queue A item 4)")
     for lever in ("flash_chunk_remat", "shard_activations"):
         if getattr(cfg, lever):
             raise NotImplementedError(
@@ -60,6 +64,10 @@ def layer_groups(cfg: ModelConfig, long_context: bool = False):
         groups = [("blocks0", "dense", fd, win[:fd])] if fd else []
         groups.append(("blocks1", "moe", cfg.num_layers - fd, win[fd:]))
         return groups
+    if cfg.family == "ssm":
+        return [("blocks0", "mamba", cfg.num_layers, [0] * cfg.num_layers)]
+    if cfg.family == "hybrid":
+        return [("blocks0", "hybrid", cfg.num_layers, win)]
     return [("blocks0", "dense", cfg.num_layers, win)]
 
 

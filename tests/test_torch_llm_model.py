@@ -1,7 +1,9 @@
 """The port's LLM model (``repro_torch.models.model``, ``launch/steps.py``)
-against the JAX package's, on the CPU, for the dense, vlm and moe archs
-at their reduced sizes (2 layers, d_model 256, f32; the MoE archs' 4
-experts at capacity factor 4: nothing dropped).
+against the JAX package's, on the CPU, for the dense, vlm, moe, ssm and
+hybrid archs at their reduced sizes (2 layers, d_model 256, f32; the MoE
+archs' 4 experts at capacity factor 4: nothing dropped; the SSM and
+hybrid archs over 40 tokens, a 32-token chunk and a padded tail). Their
+decode and layers are held in ``tests/test_torch_llm_ssm.py``.
 
 Params are the JAX package's own ``init_params`` draws, moved to numpy
 and carried across with ``convert.params_from_numpy`` (the port keeps
@@ -33,10 +35,18 @@ from repro_torch.models import model as tm
 from repro_torch.tree import tree_leaves, tree_map
 
 ARCHS = ["yi-9b", "gemma2-27b", "phi3-mini-3.8b", "phi4-mini-3.8b",
-         "phi-3-vision-4.2b", "deepseek-v3-671b", "kimi-k2-1t-a32b"]
-UNPORTED = ["mamba2-370m", "hymba-1.5b", "whisper-small"]
+         "phi-3-vision-4.2b", "deepseek-v3-671b", "kimi-k2-1t-a32b",
+         "mamba2-370m", "hymba-1.5b"]
+UNPORTED = ["whisper-small"]
 TOL = dict(rtol=1e-5, atol=2e-5)
 B, S = 2, 12
+#: the SSM and hybrid archs' sequence: past one 32-token SSD chunk
+SSM_S = 40
+#: gradient leaves held at ``TOL`` and not at 1e-5 of their largest
+#: magnitude: the Mamba-2 decay's gradient is a sum that cancels, where
+#: XLA's and torch's orders of the backward's reductions part by more
+#: than that (up to 3.2e-5 of it)
+GRAD_TOL_LEAVES = ("A_log",)
 
 
 def _paths(tree, prefix=()):
@@ -57,7 +67,8 @@ class Case:
         self.np = jax.tree.map(np.asarray, self.jp)
         self.tp = params_from_numpy(self.np, device="cpu")
         rng = np.random.default_rng(1)
-        self.tokens = rng.integers(0, self.jc.vocab_size, (B, S + 1)) \
+        n = SSM_S if self.jc.family in ("ssm", "hybrid") else S
+        self.tokens = rng.integers(0, self.jc.vocab_size, (B, n + 1)) \
             .astype(np.int32)
         self.patches = None
         if self.jc.family == "vlm":
@@ -139,13 +150,13 @@ def test_loss_and_gradient_match_jax(arch, cases):
     jl, jg = jax.value_and_grad(jm.compute_loss)(c.jp, jb, c.jc)
     tg, tl = torch.func.grad_and_value(tm.compute_loss)(c.tp, tb, c.tc)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
-    jleaves = jax.tree.leaves(jg)
-    tleaves = tree_leaves(tg)
-    assert len(jleaves) == len(tleaves)
-    for t, j in zip(tleaves, jleaves):
-        j = np.asarray(j)
-        np.testing.assert_allclose(t.numpy(), j, rtol=0,
-                                   atol=1e-5 * np.abs(j).max())
+    jleaves = list(_paths(jax.tree.map(np.asarray, jg)))
+    tleaves = list(_paths(tg))
+    assert [p for p, _ in tleaves] == [p for p, _ in jleaves]
+    for (path, t), (_, j) in zip(tleaves, jleaves):
+        tol = TOL if path[-1] in GRAD_TOL_LEAVES else dict(
+            rtol=0, atol=1e-5 * np.abs(j).max())
+        np.testing.assert_allclose(t.numpy(), j, **tol)
 
 
 def test_chunked_loss_equals_the_plain_loss():
@@ -321,7 +332,7 @@ def test_unported_levers_raise(lever, value, cases):
 def test_unported_blocks_and_frontends_raise():
     from repro_torch.models import blocks, frontends
     cfg = tget("yi-9b").reduced()
-    for btype in ("mamba", "hybrid", "encoder", "cross"):
+    for btype in ("encoder", "cross"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             blocks.init_block(torch.Generator(), cfg, btype, torch.float32)
     with pytest.raises(NotImplementedError, match="audio"):
