@@ -117,7 +117,8 @@ without CUDA (there is no CPU path here). It
      count); the token sums' routes (the kernel, its plain tree, torch's
      own sum) in turns on two cells;
      ``launch.serve`` for the nine dense, vlm, moe, ssm and hybrid archs
-     (decode against ``forward`` within 1e-3; hymba's 80-token prompt
+     and the audio one (decode against ``forward`` within 1e-3, whisper's
+     prefill only: see ``WHISPER_REDUCED``; hymba's 80-token prompt
      past its 64-token window, and its long-context variant through a
      64-entry ring cache that wraps); deepseek-v3 at its published
      widths (4 layers, MTP kept, 26.7 B params in bf16): prefill and
@@ -134,7 +135,20 @@ without CUDA (there is no CPU path here). It
      layers) and hymba-1.5b (32) at their published widths and depth in
      bf16: the same prompts through the chunked SSD prefill and the
      single-step recurrence, decode against ``forward`` within the bars
-     of ``SSM_FULL``, prefill and decode against their bounds —
+     of ``SSM_FULL``, prefill and decode against their bounds;
+     whisper-small (``launch.serve`` reduced: the prefill against
+     ``forward``, every decode step against the same decode on the CPU)
+     and at its published dims in bf16 (4 x 1500 frames through the
+     encoder, 64-token prompts, 16 tokens: the prefill against
+     ``forward``, the decode against the f32 decode of the same weights,
+     encoder, prefill and decode timed against their bounds); then the
+     cross-silo path: ``SiloBackend`` through ``FLEngine.run`` (the
+     reduced phi3-mini, 4 silos, 6 rounds) against the same run on the
+     CPU, its launches a round predicted exactly, and a bf16 merge
+     against the f32 one; then at phi3-mini's published widths, 2 layers,
+     bf16, 4 silos x 4 x 1024 tokens: every round's Eq. 2 against the
+     plain version and every merge against the plain formula, launches
+     a round exact, round ms, idle share and peak beside their bounds —
      with the launch counts set to zero just before each path and read
      just after;
   5. checks the result by the repository's own means: the pinned
@@ -205,9 +219,12 @@ from repro_torch.configs.registry import get_config       # noqa: E402
 from repro_torch.core import client as fl_client          # noqa: E402
 from repro_torch.core import server as fl_server          # noqa: E402
 from repro_torch.core.csma import CSMAConfig, CSMASimulator  # noqa: E402
-from repro_torch.engine import (ExperimentSpec, FLHistory,  # noqa: E402
-                                PAPER_STRATEGIES, SweepSpec,
-                                build_host_engine, get_strategy_class)
+from repro_torch.core.priority import priority_product     # noqa: E402
+from repro_torch.data import make_token_stream            # noqa: E402
+from repro_torch.engine import (ExperimentSpec, FLEngine,  # noqa: E402
+                                FLHistory, PAPER_STRATEGIES, SiloBackend,
+                                SweepSpec, build_host_engine,
+                                get_strategy_class)
 from repro_torch.engine import backends as fl_backends     # noqa: E402
 from repro_torch.engine.backends import (aircomp_noise,  # noqa: E402
                                          compact_weights)
@@ -222,6 +239,7 @@ from repro_torch.launch import serve as launch_serve      # noqa: E402
 from repro_torch.launch import steps as launch_steps      # noqa: E402
 from repro_torch.launch import train as launch_train      # noqa: E402
 from repro_torch.models import blocks as llm_blocks       # noqa: E402
+from repro_torch.models import frontends as llm_frontends  # noqa: E402
 from repro_torch.models import model as llm               # noqa: E402
 from repro_torch.models.paper_models import get_paper_model  # noqa: E402
 from repro_torch.objectives import ObjectiveSpec          # noqa: E402
@@ -318,7 +336,15 @@ LLM_CELLS = {"yi9b": "yi-9b", "gemma2": "gemma2-27b",
              "mamba2": "mamba2-370m", "hymba": "hymba-1.5b"}
 SERVE_ARCHS = ("yi-9b", "gemma2-27b", "phi3-mini-3.8b", "phi4-mini-3.8b",
                "phi-3-vision-4.2b", "deepseek-v3-671b", "kimi-k2-1t-a32b",
-               "mamba2-370m", "hymba-1.5b")
+               "mamba2-370m", "hymba-1.5b", "whisper-small")
+#: the reduced whisper's bars (``llm_serve_reduced``): the reference's
+#: ``decode_step`` adds concatenated sin / cos halves where ``forward``
+#: interleaves them (``models/layers.py``, ROADMAP's reference faults),
+#: so its decode misses ``forward`` by design; the prefill is held to
+#: ``forward`` (1e-3 absolute) and every decode step on the card to the
+#: same teacher-forced decode on the CPU (the CPU tests tie that one to
+#: the reference's ``decode_step``)
+WHISPER_REDUCED = dict(prefill_bar=1e-3, cpu_bar=1e-4)
 #: the reduced serving's prompt where it is not 32: hymba's beyond its
 #: local layer's 64-token window, so the window slides in the prefill and
 #: in every decode step
@@ -384,6 +410,38 @@ SSM_FULL = {"mamba2": ("mamba2-370m", dict(early=4, early_bar=0.05,
                                          bar=0.05))}
 SSM_F32_BAR = 1e-3
 SSM_BF16_FACTOR = 1.25
+#: whisper-small at its published dims (12 encoder + 12 decoder layers,
+#: d_model 768, 1500 frames, vocab 51865), bf16: 4 x 1500 frames, a
+#: 64-token prompt, 16 tokens. The prefill against ``forward`` within
+#: ``prefill_bar`` of the row's logit range; the bf16 decode against the
+#: f32 decode of the same weights, frames and tokens within ``f32_bar``
+#: (PERF.md states both before the call that first ran them)
+WHISPER_FULL = dict(batch=4, prompt=64, gen=16, prefill_bar=0.05,
+                    f32_bar=0.02)
+#: the cross-silo round (``SiloBackend`` through ``FLEngine.run``): the
+#: reference's demo and tests' arch, reduced; 4 silos, batch 4, 64-token
+#: sequences, 6 rounds, ``priority-distributed``, k = 1 (the demo's lr and
+#: counter threshold); and the launches a round PERF.md predicts: one
+#: local step of 12 leaves (one ``fused_sgd`` launch), one Eq. 2 call
+#: (one ``delta_norm`` launch), the step's six token sums (the loss mean,
+#: five norm scales' gradients); the merge is the reference's plain
+#: einsum, no kernel
+SILO = dict(arch="phi3-mini-3.8b", silos=4, batch=4, seq=64, rounds=6,
+            lr=3e-2, threshold=0.5, seed=0)
+SILO_ROUND_LAUNCHES = {"fused_sgd": 1, "delta_norm": 1, "token_sum": 6,
+                       "gather_combine": 0, "fedavg_combine": 0}
+#: the bf16 merge's bars against the f32 merge: 0.02 absolute, and 1e-2
+#: of the f32 merge's own update (its largest move off the global), so
+#: a merge that drops the update or takes another silo's fails
+SILO_BF16_ATOL = 0.02
+SILO_BF16_REL = 1e-2
+#: the cross-silo round at phi3-mini's published widths (d_model 3072,
+#: 32 heads of 96, d_ff 8192, vocab 32064 padded to 32256), its depth cut
+#: from 32 layers to 2 (the reduced cell's), bf16 as published; 4 silos,
+#: batch 4, 1024-token sequences, 4 rounds. Its launches a round are
+#: ``SILO_ROUND_LAUNCHES`` (12 leaves, 2 layers: the same six token sums)
+SILO_FULL = dict(arch="phi3-mini-3.8b", layers=2, silos=4, batch=4,
+                 seq=1024, rounds=4, lr=3e-2, threshold=0.5, seed=0)
 #: the full-width leaves rows 1-3 run on one at a time (U = 2, bf16)
 YI_FULL_LEAVES = ("blocks0/mlp/w_gate", "blocks0/attn/wq", "embed/embedding")
 
@@ -4076,17 +4134,20 @@ def llm_sweep(name, args, hist, eng):
     return out
 
 
-def decode_gaps(params, cfg, prompts, res, prefix=None, per_row=None):
+def decode_gaps(params, cfg, prompts, res, prefix=None, per_row=None,
+                frames=None):
     """``generate``'s prefill and decode logits against ``forward`` over
-    the prompt and the generated tokens: per step (the prefill first),
-    the largest absolute gap and the largest gap over the row's logit
-    range; and the share of rows whose argmax agrees. A ``per_row`` list
-    gets each step's (B,) gaps over the row's range."""
+    the prompt and the generated tokens (and the same vlm patches or
+    audio frames): per step (the prefill first), the largest absolute gap
+    and the largest gap over the row's logit range; and the share of rows
+    whose argmax agrees. A ``per_row`` list gets each step's (B,) gaps
+    over the row's range."""
     P = 0 if prefix is None else prefix.shape[1]
     S = prompts.shape[1]
     toks = torch.cat([prompts, res["tokens"][:, :-1].to(prompts.dtype)], 1)
     with torch.no_grad():
-        full, _, _ = llm.forward(params, toks, cfg, prefix_embeds=prefix)
+        full, _, _ = llm.forward(params, toks, cfg, prefix_embeds=prefix,
+                                 enc_frames=frames)
     absg, relg, agree = [], [], []
     for i, got in enumerate([res["prefill_logits"], *res["step_logits"]]):
         want = full[:, P + S - 1 + i, :cfg.vocab_size].float()
@@ -4101,6 +4162,28 @@ def decode_gaps(params, cfg, prompts, res, prefix=None, per_row=None):
                            .float().mean()))
     del full
     return absg, relg, agree
+
+
+def forced_decode(params, cfg, prompts, tokens, frames=None):
+    """The prefill of ``prompts`` into fresh caches on their device, then
+    a decode step a token of ``tokens`` (a generation's, teacher-forced):
+    the prefill's last logits and each step's, as ``generate`` lists
+    them (``[prefill, step 1, ...]``), so another device or dtype can be
+    held to a run's steps on the same inputs."""
+    B, S = prompts.shape
+    G = tokens.shape[1]
+    with torch.no_grad():
+        caches = llm.make_caches(
+            cfg, B, S + G, device=prompts.device,
+            enc_len=None if frames is None else frames.shape[1])
+        logits, caches, _ = llm.forward(params, prompts, cfg, caches=caches,
+                                        enc_frames=frames)
+        out = [logits[:, -1]]
+        for i in range(G - 1):
+            logits, caches = llm.decode_step(params, caches, tokens[:, i],
+                                             S + i, cfg)
+            out.append(logits)
+    return out
 
 
 def ring_wrap_gaps(params, cfg, toks):
@@ -4136,22 +4219,43 @@ def phase_llm_serve_reduced():
     ``forward``'s row at that position within 1e-3 absolute (the bar of
     tests/test_decode_parity.py). hymba's 96 tokens also through its
     long-context variant's wrapping ring cache (``ring_wrap_gaps``), at
-    the same bar."""
+    the same bar. whisper-small (an encoder over 64 stub frames, then the
+    cross-attention decoder) holds ``WHISPER_REDUCED``'s bars instead."""
     rows = {}
     for arch in SERVE_ARCHS:
         argv = ["--arch", arch, "--batch", "4", "--prompt-len",
                 str(SERVE_PROMPT.get(arch, 32)), "--gen-len", "16"]
         (cfg, params, inputs, res), text = quiet(launch_serve.main, argv)
+        frames = inputs["enc_frames"]
         absg, relg, agree = decode_gaps(params, cfg, inputs["tokens"], res,
-                                        inputs["prefix_embeds"])
-        if max(absg) >= 1e-3:
-            raise AssertionError(f"llm_serve_reduced {arch}: decode against "
-                                 f"forward {absg}")
+                                        inputs["prefix_embeds"],
+                                        frames=frames)
         rows[arch] = dict(prompt=inputs["tokens"].shape[1],
                           prefill_ms=res["prefill_s"] * 1e3,
                           decode_ms_per_token=res["decode_s"] * 1e3 / 15,
                           max_abs_gap=max(absg), argmax_agree=min(agree),
                           printed=text.strip().splitlines())
+        if cfg.is_encdec:
+            cpu = forced_decode(
+                tree_map(lambda t: t.cpu(), params), cfg,
+                inputs["tokens"].cpu(), res["tokens"].cpu(), frames.cpu())
+            card = [res["prefill_logits"], *res["step_logits"]]
+            vs_cpu = [float((a.cpu() - b).abs().max())
+                      for a, b in zip(card, cpu)]
+            rows[arch].update(
+                frames=list(frames.shape), prefill_vs_forward=absg[0],
+                decode_vs_cpu_decode=vs_cpu,
+                decode_vs_forward_reference_fault=absg[1:],
+                bars=WHISPER_REDUCED)
+            if absg[0] >= WHISPER_REDUCED["prefill_bar"] \
+                    or max(vs_cpu) >= WHISPER_REDUCED["cpu_bar"]:
+                raise AssertionError(
+                    f"llm_serve_reduced {arch}: prefill against forward "
+                    f"{absg[0]}, the card's decode against the CPU's "
+                    f"{vs_cpu}")
+        elif max(absg) >= 1e-3:
+            raise AssertionError(f"llm_serve_reduced {arch}: decode against "
+                                 f"forward {absg}")
         if arch == RING_WRAP["arch"]:
             toks = torch.cat([inputs["tokens"], res["tokens"].to(
                 inputs["tokens"].dtype)], 1)
@@ -4254,16 +4358,19 @@ def check_full_leaf(path, shape, U=2, seed=0, cols=1 << 27):
                      **sums)
 
 
-def profile_decode(params, cfg, prompts, steps):
-    """``steps`` decode steps after a prefill, under ``torch.profiler``:
-    the device's busy time and kernel launches a step, its idle share,
-    and the kernels that take most of it."""
+def profile_decode(params, cfg, prompts, steps, frames=None):
+    """``steps`` decode steps after a prefill (of an encoder-decoder's
+    ``frames`` too), under ``torch.profiler``: the device's busy time and
+    kernel launches a step, its idle share, and the kernels that take
+    most of it."""
     from torch.profiler import ProfilerActivity, profile
     S = prompts.shape[1]
     with torch.no_grad():
-        caches = llm.make_caches(cfg, prompts.shape[0], S + steps + 1,
-                                 device=DEV)
-        _, caches, _ = llm.forward(params, prompts, cfg, caches=caches)
+        caches = llm.make_caches(
+            cfg, prompts.shape[0], S + steps + 1, device=DEV,
+            enc_len=None if frames is None else frames.shape[1])
+        _, caches, _ = llm.forward(params, prompts, cfg, caches=caches,
+                                   enc_frames=frames)
         tok = prompts[:, -1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4501,10 +4608,424 @@ def phase_llm_serve_ssm_full(tag, seed=0):
     return fields
 
 
-#: the routes of the local step's token sums, timed in turns: the kernel
-#: (the port's route), the same tree as elementwise adds on the card (the
-#: plain version) and torch's own sum (the route before the fix, whose
-#: bits follow the row count)
+def whisper_serving_work(cfg, shapes, B, S, G):
+    """What a full-width whisper serving run must do, from the shapes.
+    The prefill: the encoder's GEMMs (2 operations a weight a frame), its
+    bidirectional attention (the reference's f32 math: QK^T and PV, 4
+    B H T^2 Dh a layer), the cross keys and values (2 a ``wk`` / ``wv``
+    weight a frame), the decoder's GEMMs over the prompt (the tied
+    table's unembedding included) and its f32 causal self- and cross
+    attention. A decode step's bytes: the decoder's weights but the
+    cross ``wk`` / ``wv`` (their keys are cached), the tied table, the
+    cross caches and the self caches at the mean step's length."""
+    T, L, Le = cfg.encoder_seq, cfg.num_layers, cfg.encoder_layers
+    H, Kv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    size = {k: int(np.prod(v)) for k, v in shapes.items()}
+    enc = sum(v for k, v in size.items() if k.startswith("encoder/"))
+    xkv = sum(v for k, v in size.items()
+              if k.startswith("blocks0/xattn/w") and k[-2:] in ("wk", "wv"))
+    dec = sum(v for k, v in size.items() if k.startswith("blocks0/")) - xkv
+    table = size["embed/embedding"]
+    enc_bf16 = 2.0 * enc * B * T
+    enc_f32 = 4.0 * B * H * T * T * Dh * Le
+    dec_bf16 = 2.0 * (xkv * B * T + (dec + table) * B * S)
+    dec_f32 = 4.0 * B * H * Dh * L * (S * (S + 1) / 2 + S * T)
+    all_bytes = sum(size.values()) * 2
+    cross = L * 2 * B * T * Kv * Dh * 2
+    step_bytes = ((dec + table) * 2 + cross
+                  + L * 2 * B * (S + G / 2) * Kv * Dh * 2)
+
+    def bound(nbytes, bf16, f32):
+        return max(nbytes / HBM_BYTES_PER_S,
+                   bf16 / BF16_FLOPS_PER_S + f32 / F32_FLOPS_PER_S) * 1e3
+
+    return dict(
+        encoder_bf16_ops=enc_bf16, encoder_f32_ops=enc_f32,
+        decoder_prefill_bf16_ops=dec_bf16, decoder_prefill_f32_ops=dec_f32,
+        encoder_bound_ms=bound(enc * 2, enc_bf16, enc_f32),
+        decoder_prefill_bound_ms=bound((dec + xkv + table) * 2, dec_bf16,
+                                       dec_f32),
+        prefill_bound_ms=bound(all_bytes, enc_bf16 + dec_bf16,
+                               enc_f32 + dec_f32),
+        cross_cache_gb=cross / 1e9, decode_step_gb=step_bytes / 1e9,
+        decode_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_llm_serve_whisper_full(seed=0):
+    """whisper-small at its published dims (12 encoder and 12 decoder
+    layers, d_model 768, 12 heads, d_ff 3072, vocab 51865), bf16, params
+    and 4 x 1500 frame embeddings drawn on the card from a CUDA generator
+    seeded with ``seed``: 64-token prompts prefilled (the encoder, then
+    the decoder writing its self and cross caches), 16 greedy tokens,
+    twice (the second timed; equal tokens). The prefill against
+    ``forward`` within ``WHISPER_FULL["prefill_bar"]`` of the row's logit
+    range; the bf16 run's prefill and steps against the f32 decode of the
+    same weights, frames and tokens within ``WHISPER_FULL["f32_bar"]``.
+    The encoder timed alone; prefill, encoder, decoder prefill and decode
+    against their bounds (``whisper_serving_work``); launches a decode
+    step, the device's idle share, the peaks."""
+    cfg = get_config("whisper-small")
+    B, S, G = WHISPER_FULL["batch"], WHISPER_FULL["prompt"], \
+        WHISPER_FULL["gen"]
+    V = cfg.vocab_size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = llm.init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    shapes = {"/".join(k): tuple(v.shape) for k, v in _paths(params)}
+    prompts = torch.randint(0, V, (B, S), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    frames = llm_frontends.audio_frame_embeddings(gen, B, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    first = launch_serve.generate(params, cfg, prompts, G, enc_frames=frames)
+    res = launch_serve.generate(params, cfg, prompts, G, enc_frames=frames)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.equal(first["tokens"], res["tokens"]):
+        raise AssertionError("llm_serve_whisper_full: two runs generated "
+                             "different tokens")
+    enc_ms = []
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            llm.encode_audio(params, frames, cfg)
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_prof = profile_decode(params, cfg, prompts, steps=2,
+                                 frames=frames)
+    absg, relg, _ = decode_gaps(params, cfg, prompts, res, frames=frames)
+    p32 = tree_map(lambda t: t.float(), params)
+    c32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    f32 = forced_decode(p32, c32, prompts, res["tokens"], frames.float())
+    vs_f32 = []
+    for got, want in zip([res["prefill_logits"], *res["step_logits"]], f32):
+        got, want = got[:, :V].float(), want[:, :V]
+        span = want.amax(dim=-1) - want.amin(dim=-1)
+        vs_f32.append(float(((got - want).abs().amax(dim=-1) / span).max()))
+    del p32, f32
+    caches = llm.make_caches(cfg, B, S + G, device="meta")
+    prefill_ms = res["prefill_s"] * 1e3
+    decode_ms = res["decode_s"] * 1e3 / (G - 1)
+    fields = dict(
+        arch="whisper-small", layers=cfg.num_layers,
+        encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+        frames=list(frames.shape), params=llm.param_count(params),
+        param_gb=sum(p.numel() * p.element_size()
+                     for p in tree_leaves(params)) / 1e9,
+        cache_gb=sum(t.numel() * t.element_size()
+                     for t in tree_leaves(caches)) / 1e9,
+        batch=B, prompt=S, gen=G, init_s=init_s, init_peak_gb=init_peak,
+        serve_peak_gb=serve_peak, units="GB = 1e9 bytes",
+        prefill_ms=prefill_ms, prefill_ms_first=first["prefill_s"] * 1e3,
+        encoder_ms=min(enc_ms), encoder_ms_runs=enc_ms,
+        decoder_prefill_ms=prefill_ms - min(enc_ms),
+        decode_ms_per_token=decode_ms,
+        **whisper_serving_work(cfg, shapes, B, S, G),
+        prefill_vs_forward_over_range=relg[0],
+        prefill_vs_forward_abs=absg[0],
+        decode_vs_forward_reference_fault=relg[1:],
+        bf16_vs_f32_decode=vs_f32, bars=WHISPER_FULL,
+        decode_profile=decode_prof,
+        decode_idle_share_timed=1.0 - decode_prof["device_busy_ms_per_step"]
+        / decode_ms)
+    del params, first, res
+    torch.cuda.empty_cache()
+    emit("llm_serve_whisper_full", **fields)
+    if relg[0] > WHISPER_FULL["prefill_bar"] \
+            or max(vs_f32) > WHISPER_FULL["f32_bar"]:
+        raise AssertionError(
+            f"llm_serve_whisper_full: prefill against forward {relg[0]} "
+            f"of the range, bf16 against f32 decode {vs_f32}")
+    return fields
+
+
+def silo_engine(device, merge_dtype="float32", rounds=None, cell=None,
+                init=None):
+    """A cross-silo cell (``SILO``, or ``cell``) on ``device``:
+    ``SiloBackend`` over ``make_token_stream``'s non-IID silos (the
+    reference demo's data) through ``FLEngine``; the reduced arch from
+    the seed (a CPU generator: the same on every device) unless the
+    cell cuts the published arch's depth (``layers``) and ``init`` draws
+    its params."""
+    c = cell or SILO
+    cfg = get_config(c["arch"])
+    cfg = dataclasses.replace(cfg, num_layers=c["layers"]) if "layers" in c \
+        else cfg.reduced()
+    S, B, R = c["silos"], c["batch"], rounds or c["rounds"]
+    data = make_token_stream(S, c["seq"], c["rounds"] * B, cfg.vocab_size,
+                             noniid=True, seed=c["seed"])
+    backend = SiloBackend(cfg, data, lr=c["lr"], batch_size=B,
+                          merge_dtype=merge_dtype, device=device)
+    spec = ExperimentSpec(rounds=R, k_per_round=1,
+                          strategy="priority-distributed",
+                          counter_threshold=c["threshold"], seed=c["seed"])
+    params = init(cfg) if init else llm.init_params(c["seed"], cfg,
+                                                    device=device)
+    return FLEngine(spec, backend, params)
+
+
+def expanded_over_silos(stacked):
+    """Whether every leaf of a silo stack is one tensor expanded over the
+    silo axis (stride 0): its replicas equal by construction."""
+    return all(p.stride(0) == 0 for p in tree_leaves(stacked))
+
+
+def stamped_run(eng):
+    """``eng.run()`` with each round stamped at its training (the device
+    synchronised) and the merges' stacks checked ``expanded_over_silos``;
+    the launches counted from zero just before the run and read just
+    after. Returns (history, launches, round ms, run s, peak MiB,
+    expanded after each merge)."""
+    be = eng.backend
+    expanded, stamps = [], []
+    merge, train = be.merge, be.train_round
+
+    def spy_merge(state, tr, winners, **kw):
+        out = merge(state, tr, winners, **kw)
+        expanded.append(expanded_over_silos(out))
+        return out
+
+    def spy_train(*a, **kw):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return train(*a, **kw)
+    be.merge, be.train_round = spy_merge, spy_train
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                      # just before the path
+    t0 = time.perf_counter()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)             # just after it
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    stamps.append(time.perf_counter())
+    be.merge, be.train_round = merge, train
+    round_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return hist, launches, round_ms, dt, peak, expanded
+
+
+def phase_silo_round():
+    """The cross-silo path: ``SiloBackend`` through ``FLEngine.run`` on
+    the card (``SILO``), each round stamped; its launches held to
+    ``SILO_ROUND_LAUNCHES`` (PERF.md's prediction) exactly; the same run
+    on the CPU: every history count equal, the globals within 1e-5 of
+    each leaf's largest magnitude; round ms, peak memory, and the
+    device's idle share from a profiled run of a fresh engine; then one
+    round with ``merge_dtype="bfloat16"`` against the f32 merge's
+    (``SILO_BF16_ATOL``, and ``SILO_BF16_REL`` of the f32 merge's move
+    off the global). The replicas after each merge are one tensor
+    expanded over the silo axis, equal by construction; that structure
+    is what is checked. Returns the launches."""
+    R = SILO["rounds"]
+    eng = silo_engine(DEV)
+    hist, launches, round_ms, dt, peak, expanded = stamped_run(eng)
+    t0 = time.perf_counter()
+    cpu = silo_engine("cpu")
+    chist = cpu.run()
+    cpu_s = time.perf_counter() - t0
+    for name in HISTORY_COUNTS:
+        if getattr(hist, name) != getattr(chist, name):
+            raise AssertionError(f"silo_round: {name} {getattr(hist, name)} "
+                                 f"on the card, {getattr(chist, name)} on "
+                                 "the CPU")
+    if not np.array_equal(hist.selections, chist.selections):
+        raise AssertionError("silo_round: selections differ from the CPU's")
+    gap = max(float((p.cpu() - q).abs().max() / q.abs().max().clamp(
+        min=1e-30)) for p, q in zip(tree_leaves(eng.global_params),
+                                     tree_leaves(cpu.global_params)))
+    del eng
+    want = {k: v * R for k, v in SILO_ROUND_LAUNCHES.items()}
+    got = {k: launches[k] for k in want}
+    prof = profiled("silo_round", silo_engine(DEV), lambda e: e.run(), R)
+    # one round with the deltas shipped in bf16, against the f32 merge
+    one = {m: silo_engine(DEV, m, rounds=1) for m in ("float32", "bfloat16")}
+    start = [p.clone() for p in tree_leaves(one["float32"].global_params)]
+    for e in one.values():
+        e.run()
+    m16, m32 = (tree_leaves(one[m].global_params)
+                for m in ("bfloat16", "float32"))
+    bf16_gap = max(float((p - q).abs().max()) for p, q in zip(m16, m32))
+    update = max(float((q - w).abs().max()) for q, w in zip(m32, start))
+    del one, start, m16, m32
+    fields = dict(
+        arch=SILO["arch"], cell=SILO, winners=hist.winners,
+        selections=hist.selections.tolist(),
+        uploads_total=hist.uploads_total, train_loss=hist.train_loss,
+        priorities_round0=hist.priorities[0], card_equals_cpu=True,
+        global_max_rel_gap_vs_cpu=gap, cpu_s=cpu_s,
+        replicas_expanded_after_each_merge=expanded,
+        launches=launches, predicted=want, run_s=dt, round_ms=round_ms,
+        median_later_round_ms=statistics.median(round_ms[1:]),
+        peak_mem_mb=peak, device_idle_share=prof["device_idle_share"],
+        launches_profiled=prof["launches"],
+        bf16_merge_max_abs_gap=bf16_gap, f32_merge_update_max_abs=update,
+        bf16_gap_over_update=bf16_gap / max(update, 1e-30),
+        bf16_atol=SILO_BF16_ATOL, bf16_rel_to_update=SILO_BF16_REL)
+    emit("silo_round", **fields)
+    if got != want:
+        raise AssertionError(f"silo_round: launches {got}, PERF.md "
+                             f"predicts {want}")
+    if not expanded or not all(expanded):
+        raise AssertionError(f"silo_round: replicas after the merges "
+                             f"{expanded}")
+    if gap > 1e-5:
+        raise AssertionError(f"silo_round: globals {gap} off the CPU's")
+    if update <= 0 or bf16_gap > SILO_BF16_ATOL \
+            or bf16_gap > SILO_BF16_REL * update:
+        raise AssertionError(f"silo_round: the bf16 merge {bf16_gap} off "
+                             f"the f32 one, whose update is {update}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def silo_round_work(cfg, shapes, S, B, T):
+    """What one cross-silo round must do, from the shapes. Operations:
+    the local step's GEMMs, 6 a weight a token (forward, the input's and
+    the weight's gradients) over every block weight and the head, bf16;
+    its causal attention in f32 as the model computes it (QK^T and PV, 4
+    Dh a query-key pair a head, times 3 with the backward). Bytes: the
+    global read, each silo's trained local written and read by Eq. 2,
+    the winner's local read, the merged global written. The memory floor:
+    the global, the S trained locals and their S gradients at once."""
+    H, Dh, L = cfg.num_heads, cfg.resolved_head_dim, cfg.num_layers
+    size = {k: int(np.prod(v)) for k, v in shapes.items()}
+    P = sum(size.values())
+    gemm = sum(v for k, v in size.items() if k.startswith("blocks")
+               and not k.endswith("/scale")) + size["head/w_out"]
+    tokens = S * B * T
+    bf16_ops = 6.0 * gemm * tokens
+    f32_ops = 12.0 * S * B * H * Dh * (T * (T + 1) / 2) * L
+    nbytes = (3 + 2 * S) * P * 2.0
+    ops_ms = (bf16_ops / BF16_FLOPS_PER_S + f32_ops / F32_FLOPS_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(params=P, gemm_params=gemm, tokens_a_round=tokens,
+                bf16_ops=bf16_ops, f32_ops=f32_ops, bytes=nbytes,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                weights_floor_gb=(1 + 2 * S) * P * 2 / 1e9)
+
+
+def phase_silo_round_full():
+    """The cross-silo round at phi3-mini's published widths
+    (``SILO_FULL``: the depth cut to 2 layers, bf16, 4 silos x 4 x 1024
+    tokens), params drawn on the card from a CUDA generator. Three fresh
+    engines from the same seed: the first checked a round at a time
+    (each silo's Eq. 2 against the plain ``delta_norm`` on the same
+    trained locals, rtol 1e-5; the merged global against the plain
+    formula ``(w + (w_u - w)) -> bf16`` of the winner u, or the global
+    where no silo won, bit for bit; losses and priorities finite); the
+    second counted (launches a round held to ``SILO_ROUND_LAUNCHES``
+    exactly) and stamped; the third under ``torch.profiler`` (the
+    device's idle share). Round ms, peak and weights against
+    ``silo_round_work``'s bounds. Returns the launches."""
+    c = SILO_FULL
+    R = c["rounds"]
+    cfg = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"])
+    shapes = {"/".join(k): tuple(v.shape)
+              for k, v in _paths(launch_steps.params_struct(cfg))}
+    work = silo_round_work(cfg, shapes, c["silos"], c["batch"], c["seq"])
+
+    def init(cfg):
+        gen = torch.Generator(device=DEV).manual_seed(c["seed"])
+        return llm.init_params(gen, cfg, device=DEV)
+
+    def make():
+        return silo_engine(DEV, cell=c, init=init)
+
+    torch.cuda.empty_cache()
+    eng = make()
+    be = eng.backend
+    checks = []
+    train, merge = be.train_round, be.merge
+
+    def spy_train(state, t, *a, **kw):
+        res = train(state, t, *a, **kw)
+        locs = tree_leaves(res.local_handle)
+        globs = tree_leaves(be.global_params(state))
+        d2, g2 = ref.delta_norm_leaves_ref(locs, globs)
+        plain = priority_product(d2, g2[:, None]).double().cpu().numpy()
+        got = np.asarray(res.priorities)
+        checks.append(dict(
+            round=t, losses=[res.losses[u] for u in sorted(res.losses)],
+            priorities=got.tolist(),
+            eq2_rel_gap_vs_plain=float(np.abs(got / plain - 1).max()),
+            merged=False))
+        return res
+
+    def spy_merge(state, tr, winners, **kw):
+        # the engine merges only a round with a winner (k = 1: alpha 1)
+        out = merge(state, tr, winners, **kw)
+        glob = tree_leaves(be.global_params(state))
+        local = [w[winners[0]] for w in tree_leaves(tr.local_handle)]
+        merged = tree_leaves(be.global_params(out))
+        checks[-1].update(
+            merged=True, winners=list(winners),
+            merge_equals_plain=all(
+                torch.equal(m, (g.float() + (w.float() - g.float()))
+                            .to(g.dtype))
+                for m, w, g in zip(merged, local, glob)),
+            merged_moved=sum(int((m != g).sum())
+                             for m, g in zip(merged, glob)),
+            merged_off_winner_local=sum(int((m != w).sum())
+                                        for m, w in zip(merged, local)),
+            expanded=expanded_over_silos(out))
+        return out
+    be.train_round, be.merge = spy_train, spy_merge
+    hist0 = eng.run()
+    del eng, be, train, merge
+    torch.cuda.empty_cache()
+    hist, launches, round_ms, dt, peak, expanded = stamped_run(make())
+    torch.cuda.empty_cache()
+    prof = profiled("silo_round_full", make(), lambda e: e.run(), R)
+    torch.cuda.empty_cache()
+    want = {k: v * R for k, v in SILO_ROUND_LAUNCHES.items()}
+    got = {k: launches[k] for k in want}
+    steady = statistics.median(round_ms[1:])
+    fields = dict(
+        arch=c["arch"], cell=c,
+        reduced=["num_layers: 32 -> 2 (every width as published)"],
+        **work, param_gb=work["params"] * 2 / 1e9,
+        winners=hist.winners, uploads_total=hist.uploads_total,
+        train_loss=hist.train_loss, same_winners_as_checked_run=(
+            hist.winners == hist0.winners),
+        checks=checks, launches=launches, predicted=want, run_s=dt,
+        round_ms=round_ms, median_later_round_ms=steady,
+        steady_round_over_bound=steady / work["bound_ms"],
+        peak_gb=peak * 2**20 / 1e9, units="GB = 1e9 bytes",
+        device_idle_share=prof["device_idle_share"],
+        device_busy_ms_a_round=prof["device_busy_ms"] / R,
+        port_kernels_ms_a_round=prof["port_kernels_ms"] / R,
+        device_launches_a_round=prof["launches"] / R,
+        replicas_expanded_after_each_merge=expanded)
+    emit("silo_round_full", **fields)
+    if got != want:
+        raise AssertionError(f"silo_round_full: launches {got}, PERF.md "
+                             f"predicts {want}")
+    merges = [ch for ch in checks if ch["merged"]]
+    if len(checks) != R or not merges or not expanded \
+            or not all(expanded):
+        raise AssertionError(f"silo_round_full: {len(checks)} rounds "
+                             f"checked, {len(merges)} merged, replicas "
+                             f"{expanded}")
+    for ch in checks:
+        if not (np.isfinite(ch["losses"]).all()
+                and np.isfinite(ch["priorities"]).all()
+                and min(ch["priorities"]) >= 1.0
+                and ch["eq2_rel_gap_vs_plain"] <= 1e-5
+                and (not ch["merged"] or (ch["merge_equals_plain"]
+                                          and ch["expanded"]))):
+            raise AssertionError(f"silo_round_full: round {ch}")
+    if hist.winners != hist0.winners:
+        raise AssertionError("silo_round_full: two runs from one seed "
+                             f"chose {hist0.winners} and {hist.winners}")
+    return launches
+
+
 TOKEN_SUM_ROUTES = {"kernel": None, "tree": ref.token_sum_ref,
                     "torch_sum": lambda x: torch.sum(x, dim=1)}
 
@@ -5001,6 +5522,11 @@ def main():
     phase_llm_serve_deepseek_full()
     for tag in SSM_FULL:
         phase_llm_serve_ssm_full(tag)
+    phase_llm_serve_whisper_full()
+
+    # ---- the cross-silo path --------------------------------------------
+    l_silo = phase_silo_round()
+    l_silo_full = phase_silo_round_full()
     for k, per in llm_worst.items():
         for key, (e, b) in per.items():
             worst[k][key] = max(worst[k][key], e)
@@ -5064,6 +5590,9 @@ def main():
     for name in LLM_KERNELS:
         if min(l[name] for l in l_llm.values()) < 1:
             raise AssertionError(f"{name}: never launched on an --arch run")
+    for name in ("fused_sgd", "delta_norm", "token_sum"):
+        if min(l_silo[name], l_silo_full[name]) < 1:
+            raise AssertionError(f"{name}: never launched on a silo run")
     for name, meta in KERNELS.items():
         integer = name in CONTENTION or name == LOOP_KERNEL
         launches = path_of.get(name, l_mlp)[name]
@@ -5112,6 +5641,8 @@ def main():
             launches_llm_kimi=l_llm["kimi"][name],
             launches_llm_mamba2=l_llm["mamba2"][name],
             launches_llm_hymba=l_llm["hymba"][name],
+            launches_silo=l_silo[name],
+            launches_silo_full=l_silo_full[name],
             timed_at=where))
     emit("total", seconds=time.perf_counter() - t_start,
          before_profile_s=t_checks)

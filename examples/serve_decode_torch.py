@@ -1,10 +1,12 @@
 """Batched serving example on the PyTorch / CUDA port: prefill + greedy
-decode with ring-buffer KV caches (and the Mamba-2 conv / SSM states) on
-a reduced assigned arch.
+decode with ring-buffer KV caches (and the Mamba-2 conv / SSM states, or
+whisper's cross caches over its encoded frames) on a reduced assigned
+arch.
 
   PYTHONPATH=src python examples/serve_decode_torch.py --arch hymba-1.5b
   PYTHONPATH=src python examples/serve_decode_torch.py \
       --arch mamba2-370m --device cpu
+  PYTHONPATH=src python examples/serve_decode_torch.py --arch whisper-small
 """
 import os
 import sys

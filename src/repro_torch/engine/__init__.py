@@ -2,8 +2,9 @@
 sweeps.
 
     from repro_torch.engine import (ExperimentSpec, SweepSpec, FLEngine,
-                                    HostBackend, build_host_engine,
-                                    register_strategy, create_strategy)
+                                    HostBackend, SiloBackend,
+                                    build_host_engine, register_strategy,
+                                    create_strategy)
 
     engine = build_host_engine(spec, params, loss_fn, user_data, eval_fn)
     history = engine.run()                       # one experiment
@@ -13,10 +14,10 @@ sweeps.
 Strategies plug in through the decorator registry (see
 ``repro_torch.engine.strategies`` for the paper's four plus the
 literature-derived extensions); backends implement the three-method
-contract in ``repro_torch.engine.backends``, and ``HostBackend`` the
-sweep contract (``SweepState``, ``SweepTrainResult``). Of the
-reference's exports only ``SiloBackend`` (the cross-silo path) is not
-ported yet.
+contract in ``repro_torch.engine.backends`` (``HostBackend``, the
+paper's simulation, and ``SiloBackend``, the cross-silo path), and
+``HostBackend`` the sweep contract (``SweepState``,
+``SweepTrainResult``). ``__all__`` is the reference's.
 """
 from repro_torch.channel import ChannelModel, ChannelSpec, MergeContext
 from repro_torch.engine.registry import (available_strategies,
@@ -29,8 +30,8 @@ from repro_torch.engine.types import (FLHistory, SelectionContext,
                                       SelectionResult, SweepResult,
                                       TrainResult)
 from repro_torch.engine.strategies import PAPER_STRATEGIES, Strategy
-from repro_torch.engine.backends import (Backend, HostBackend, SweepState,
-                                         SweepTrainResult, compact_weights,
+from repro_torch.engine.backends import (Backend, HostBackend, SiloBackend,
+                                         SweepState, SweepTrainResult,
                                          label_heterogeneity)
 from repro_torch.engine.engine import FLEngine, build_host_engine
 from repro_torch.engine.evals import make_accuracy_eval
@@ -44,6 +45,7 @@ __all__ = [
     "SelectionContext",
     "SelectionResult", "SweepResult", "TrainResult",
     "PAPER_STRATEGIES", "Strategy", "Backend", "HostBackend",
-    "SweepState", "SweepTrainResult", "compact_weights", "label_heterogeneity", "FLEngine",
-    "build_host_engine", "make_accuracy_eval",
+    "SiloBackend", "SweepState", "SweepTrainResult",
+    "label_heterogeneity", "FLEngine", "build_host_engine",
+    "make_accuracy_eval",
 ]

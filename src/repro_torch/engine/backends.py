@@ -8,7 +8,7 @@ the engine:
     merge(state, train_result, winners)             -> new state
     global_params(state)             -> params pytree (for eval)
 
-One implementation so far:
+Two implementations:
 
   HostBackend  the paper's simulation. Three round paths, the fastest
                that applies wins, and the sweep over the first:
@@ -110,6 +110,13 @@ One implementation so far:
                Cohort sharding (``mesh``) is not ported yet and raises
                ``NotImplementedError``. Nothing downgrades silently.
 
+  SiloBackend  the cross-silo path (``core/silo.py``): one FL user a
+               silo, every silo's local step in one ``vmap`` (the
+               ``fused_sgd`` and ``delta_norm`` kernels), and the
+               selection-gated merge  w <- w + sum_k alpha_k (w_k - w)
+               over the trained stack. The silo replicas are one merged
+               tensor expanded over the silo axis.
+
 Epoch batching stays on the host with each client's own rng stream, so
 fixed seeds give the reference's winner sequences. Contention stays on
 the host too (physical-medium simulation); backends never see the CSMA
@@ -134,6 +141,7 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.priority import (model_priority, priority_product,
                                        stacked_model_priorities)
 from repro_torch.core.rngs import client_rng
+from repro_torch.core.server import winner_alphas
 from repro_torch.device import resolve_device
 from repro_torch.engine.types import TrainResult
 from repro_torch.faults.robust import robust_merge
@@ -1557,3 +1565,89 @@ class HostBackend(Backend):
         continuing per round draws where a pure per-round run would."""
         for u, c in enumerate(self.clients):
             c._rng = st.rngs[e][u]
+
+
+class SiloBackend(Backend):
+    """Cross-silo path: one FL "user" per silo (``core/silo.py``).
+
+    Training and Eq. 2 run once a round as a merge-free
+    ``make_fl_round_step`` pass (``vmap`` over the silo axis on the
+    device, the fused SGD step, ``delta_norm``; nothing crosses between
+    silos); ``merge`` then applies ``make_silo_merge`` to the *already
+    trained* local stack with the selection's alpha weights, so only the
+    winners' deltas cross. Since the whole cohort trains in one step,
+    ``trains_before_selection`` strategies still train every silo —
+    selection gates only the merge traffic (the quantity the paper
+    meters). A round's batch is silo s's rows ``t * B .. (t + 1) * B``
+    (mod its length). No sweep, no round modes; AirComp and the fault
+    layer's robust merge are refused. ``device``: where the silos live
+    (``None`` is the CUDA device and raises without one; ``"cpu"`` runs
+    on the CPU).
+    """
+
+    def __init__(self, model_cfg, token_data: Sequence[np.ndarray], *,
+                 lr: float = 1e-2, batch_size: int = 4,
+                 long_context: bool = False, merge_dtype: str = "float32",
+                 device=None):
+        from repro_torch.core.silo import (make_fl_round_step,
+                                           make_silo_merge, stack_for_silos)
+        self.num_users = len(token_data)
+        self.heterogeneity = np.zeros(self.num_users)
+        self.device = resolve_device(device)
+        self._data = [np.asarray(d) for d in token_data]
+        self._batch_size = batch_size
+        self._stack = stack_for_silos
+        self._train = make_fl_round_step(
+            model_cfg, lr=lr, long_context=long_context, do_merge=False)
+        self._merge_stacked = make_silo_merge(merge_dtype)
+
+    def init_state(self, init_params):
+        """The silo-stacked state: ``init_params`` on the device, expanded
+        over the silo axis."""
+        return self._stack(tree_map(
+            lambda p: torch.as_tensor(p).detach().to(self.device),
+            init_params), self.num_users)
+
+    def num_examples(self, u):
+        return len(self._data[u])
+
+    def global_params(self, state):
+        return tree_map(lambda p: p[0], state)
+
+    def _round_batch(self, t):
+        B = self._batch_size
+        rows = []
+        for d in self._data:
+            idx = np.arange(t * B, (t + 1) * B) % len(d)
+            rows.append(d[idx])
+        return {"tokens": torch.from_numpy(np.stack(rows)).to(self.device)}
+
+    def train_round(self, state, t, train_ids, need_priority):
+        batch = self._round_batch(t)
+        # merge-free pass: per-silo losses + trained locals + priorities,
+        # no traffic between silos; the locals are kept for the merge
+        loss_vec, local, prios = self._train(
+            state, batch, torch.zeros((self.num_users,), device=self.device))
+        priorities = np.ones(self.num_users)
+        if need_priority:
+            priorities = prios.double().cpu().numpy().copy()
+        loss_np = loss_vec.detach().cpu().numpy()
+        return TrainResult(losses={u: float(loss_np[u]) for u in train_ids},
+                           priorities=priorities, local_handle=local)
+
+    def merge(self, state, train_result, winners, merge_ctx=None,
+              fault_ctx=None, attempts=None):
+        if merge_ctx is not None:
+            raise ValueError(
+                "SiloBackend implements only the digital cross-silo "
+                "merge; merge_backend='aircomp' needs HostBackend")
+        if fault_ctx is not None:
+            raise ValueError(
+                "SiloBackend implements no robust merge guard; "
+                "FaultSpec merge guards need HostBackend")
+        alphas = winner_alphas(self.num_users, winners,
+                               [self.num_examples(u) for u in winners])
+        with torch.no_grad():
+            return self._merge_stacked(
+                train_result.local_handle, self.global_params(state),
+                torch.from_numpy(alphas).to(self.device))

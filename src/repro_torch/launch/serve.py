@@ -10,9 +10,13 @@ Runs a reduced assigned arch end to end (prefill + N decode steps), as
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch hymba-1.5b --prompt-len 80  # attention + Mamba-2 heads, the
                                          # window (64 reduced) sliding
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch whisper-small               # encoder over stub frames, then
+                                         # the cross-attention decoder
 
-Params, prompts and the vlm patch embeddings are drawn from ``--seed``
-(in distribution only: ``jax.random`` cannot be replayed in torch).
+Params, prompts, the vlm patch embeddings and the audio frame
+embeddings are drawn from ``--seed`` (in distribution only:
+``jax.random`` cannot be replayed in torch).
 ``generate`` is the loop itself, for callers with their own params.
 """
 from __future__ import annotations
@@ -35,20 +39,27 @@ def _sync(device):
 
 
 @torch.no_grad()
-def generate(params, cfg, prompts, gen_len, *, prefix_embeds=None):
+def generate(params, cfg, prompts, gen_len, *, prefix_embeds=None,
+             enc_frames=None):
     """Prefill ``prompts`` (B, S) into fresh caches, then ``gen_len - 1``
-    greedy decode steps. Returns a dict: ``tokens`` (B, gen_len) — the
-    prefill's argmax, then each step's —, ``prefill_logits`` (B, V) at
-    the last prompt position, ``step_logits`` (one (B, V) a step),
-    ``prefill_s`` and ``decode_s`` (synchronised wall time)."""
+    greedy decode steps. ``enc_frames`` (B, T_enc, D), an
+    encoder-decoder's input: the prefill encodes it and writes the
+    cross caches (``T_enc`` entries), which every decode step reads.
+    Returns a dict: ``tokens`` (B, gen_len) — the prefill's argmax, then
+    each step's —, ``prefill_logits`` (B, V) at the last prompt
+    position, ``step_logits`` (one (B, V) a step), ``prefill_s`` and
+    ``decode_s`` (synchronised wall time)."""
     device = prompts.device
     B, S = prompts.shape
     prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
-    caches = make_caches(cfg, B, prefix + S + gen_len, device=device)
+    enc_len = None if enc_frames is None else enc_frames.shape[1]
+    caches = make_caches(cfg, B, prefix + S + gen_len, enc_len=enc_len,
+                         device=device)
     _sync(device)
     t0 = time.perf_counter()
     logits, caches, _ = forward(params, prompts, cfg, caches=caches,
-                                prefix_embeds=prefix_embeds)
+                                prefix_embeds=prefix_embeds,
+                                enc_frames=enc_frames)
     last = logits[:, -1]
     next_tok = torch.argmax(last[:, :cfg.vocab_size], dim=-1)
     _sync(device)
@@ -82,21 +93,27 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def serve(args):
-    """The reduced arch's params, prompts and (vlm) patches from
-    ``args.seed``, then ``generate``. Returns ``(cfg, params, inputs,
-    result)``, ``inputs`` the ``forward`` keywords of the prompt."""
+    """The reduced arch's params, prompts and (vlm) patches or (audio)
+    frames from ``args.seed``, then ``generate``. Returns ``(cfg,
+    params, inputs, result)``, ``inputs`` the ``forward`` keywords of
+    the prompt."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
     params = init_params(args.seed, cfg, device=device)
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, dtype=torch.int32).to(device)
-    prefix = None
+    prefix = frames = None
     if cfg.family == "vlm":
         prefix = frontends.vision_patch_embeddings(gen, args.batch,
                                                    cfg).to(device)
-    res = generate(params, cfg, prompts, args.gen_len, prefix_embeds=prefix)
-    return cfg, params, {"tokens": prompts, "prefix_embeds": prefix}, res
+    if cfg.family == "audio":
+        frames = frontends.audio_frame_embeddings(gen, args.batch,
+                                                  cfg).to(device)
+    res = generate(params, cfg, prompts, args.gen_len, prefix_embeds=prefix,
+                   enc_frames=frames)
+    return cfg, params, {"tokens": prompts, "prefix_embeds": prefix,
+                         "enc_frames": frames}, res
 
 
 def main(argv=None):

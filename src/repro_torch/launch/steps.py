@@ -101,6 +101,7 @@ def make_prefill_step(cfg: ModelConfig, long_context=False):
         logits, new_caches, _ = forward(
             params, batch["tokens"], cfg,
             prefix_embeds=batch.get("patches"),
+            enc_frames=batch.get("frames"),
             long_context=long_context, caches=caches)
         return logits[:, -1], new_caches
 

@@ -28,8 +28,9 @@ Examples:
       --ckpt /tmp/final.npz
 
   # federated finetune of a reduced assigned arch on synthetic tokens
-  # (the dense, vlm, moe, ssm and hybrid families; audio raises
-  # NotImplementedError)
+  # (the dense, vlm, moe, ssm and hybrid families; the audio family
+  # raises ValueError: the reference's round gives a user tokens only,
+  # and whisper's encoder needs frames)
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --rounds 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --rounds 5
@@ -127,8 +128,16 @@ def build_llm_engine(args, init=None, **spec_fields) -> FLEngine:
     the reference's layout that replaces the seed's params (a parity
     test hands the reference's). Device and ``spec_fields`` as in
     ``build_paper_engine``."""
-    device = resolve_device(getattr(args, "device", None))
     cfg_model = get_config(args.arch).reduced()
+    if cfg_model.is_encdec:
+        raise ValueError(
+            f"--arch {args.arch}: the reference's build_llm_engine gives "
+            "each user token streams only, and an encoder-decoder's loss "
+            "needs audio frames (batch['frames']); its federated round "
+            "fails there on its first loss. Whisper runs forward, "
+            "compute_loss with frames, and serving "
+            "(ROADMAP.md, reference faults)")
+    device = resolve_device(getattr(args, "device", None))
     seq = args.llm_seq
     user_seqs = make_token_stream(
         args.users, seq, args.llm_seqs_per_user, cfg_model.vocab_size,
@@ -160,7 +169,7 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default=None, choices=ARCH_IDS,
                     help="federated-finetune a reduced assigned arch "
                          "instead of the paper model (dense, vlm, moe, "
-                         "ssm and hybrid families)")
+                         "ssm and hybrid families; audio has no round)")
     ap.add_argument("--strategy", default="priority-distributed",
                     choices=available_strategies() or PAPER_STRATEGIES)
     ap.add_argument("--rounds", type=int, default=100)

@@ -1,5 +1,5 @@
-"""Decoder blocks (port of ``repro/models/blocks.py``: the dense, MoE,
-Mamba-2 and hybrid blocks).
+"""Encoder / decoder blocks (port of ``repro/models/blocks.py``: the
+dense, MoE, Mamba-2, hybrid, encoder and cross blocks).
 
 Every block type shares one apply signature, so the model loops over a
 layer-stacked param dict one layer at a time:
@@ -10,34 +10,34 @@ layer-stacked param dict one layer at a time:
 
 ``"dense"`` (with gemma2's post-norm sandwich, ``cfg.use_post_norm``),
 ``"moe"`` (the routed FFN of ``models/moe.py``), ``"mamba"`` (the
-Mamba-2 layer of ``models/ssm.py`` is the whole block) and ``"hybrid"``
+Mamba-2 layer of ``models/ssm.py`` is the whole block), ``"hybrid"``
 (Hymba: attention and Mamba-2 heads on the same normed input, their
-outputs normed and averaged, then the MLP) are ported. The encoder and
-cross blocks come with the audio family's slice and raise.
+outputs normed and averaged, then the MLP), ``"encoder"`` (Whisper's
+encoder layer: the dense block with bidirectional attention) and
+``"cross"`` (Whisper's decoder layer: causal self-attention, then
+attention over the encoder's output through ``ln_x`` / ``xattn``, then
+the MLP). A cross block's keys and values are projected from
+``enc_out`` when it is given (training, prefill: the prefill stores
+them in the cache's ``cross_k`` / ``cross_v``) and read from the cache
+otherwise (decode); that cache has the encoder's length and no ring.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import apply_attention, init_attention, \
-    make_kv_cache
+from repro_torch.models.attention import apply_attention, apply_gqa, \
+    init_attention, init_gqa, make_kv_cache
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, \
     init_norm, zeros
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import apply_mamba2, init_mamba2, make_ssm_cache
 
 BLOCK_TYPES = ("dense", "moe", "mamba", "hybrid", "encoder", "cross")
-PORTED_BLOCKS = ("dense", "moe", "mamba", "hybrid")
 
 
 def _check_block(block_type):
     if block_type not in BLOCK_TYPES:
         raise ValueError(f"unknown block type {block_type!r}")
-    if block_type not in PORTED_BLOCKS:
-        raise NotImplementedError(
-            f"block type {block_type!r}: the port runs the dense, MoE, "
-            "Mamba-2 and hybrid blocks; the audio blocks wait for their "
-            "slice (ROADMAP.md Queue A item 4)")
 
 
 def init_block(key, cfg, block_type, dtype, lead=()):
@@ -54,6 +54,9 @@ def init_block(key, cfg, block_type, dtype, lead=()):
         p["mamba"] = init_mamba2(key, cfg, dtype, lead)
         p["attn_out_scale"] = zeros(key, (cfg.d_model,), dtype, lead)
         p["ssm_out_scale"] = zeros(key, (cfg.d_model,), dtype, lead)
+    if block_type == "cross":
+        p["ln_x"] = init_norm(key, cfg, dtype, lead)
+        p["xattn"] = init_gqa(key, cfg, dtype, lead)
     p["ln2"] = init_norm(key, cfg, dtype, lead)
     if block_type == "moe":
         p["moe"] = init_moe(key, cfg, dtype, lead)
@@ -64,15 +67,22 @@ def init_block(key, cfg, block_type, dtype, lead=()):
     return p
 
 
-def make_block_cache(cfg, block_type, batch, cache_len, dtype, device=None):
+def make_block_cache(cfg, block_type, batch, cache_len, dtype, device=None,
+                     enc_len: int = 0):
     """Decode-time cache skeleton for one layer: ``attn`` (a KV ring
-    cache) and / or ``ssm`` (the conv and SSM states, no length axis)."""
+    cache), ``ssm`` (the conv and SSM states, no length axis), and for a
+    cross block ``cross_k`` / ``cross_v`` (``enc_len`` entries, no ring);
+    an encoder block keeps none."""
     _check_block(block_type)
     c = {}
-    if block_type != "mamba":
+    if block_type in ("dense", "moe", "hybrid", "cross"):
         c["attn"] = make_kv_cache(cfg, batch, cache_len, dtype, device)
     if block_type in ("mamba", "hybrid"):
         c["ssm"] = make_ssm_cache(cfg, batch, dtype, device)
+    if block_type == "cross":
+        shape = (batch, enc_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return c
 
 
@@ -97,7 +107,8 @@ def apply_block(params, x, *, cfg, block_type, positions, window=None,
         return x + y, new_cache, aux
     y, attn_cache = apply_attention(
         params["attn"], h, cfg=cfg, positions=positions, window=window,
-        cache=None if cache is None else cache.get("attn"), chunk=chunk)
+        cache=None if cache is None else cache.get("attn"),
+        causal=block_type != "encoder", chunk=chunk)
     if block_type == "hybrid":
         y_ssm, ssm_cache = apply_mamba2(
             params["mamba"], h, cfg,
@@ -112,6 +123,22 @@ def apply_block(params, x, *, cfg, block_type, positions, window=None,
     if new_cache is not None and "attn" in new_cache:
         new_cache["attn"] = attn_cache
     x = x + y
+
+    # ---------------- cross attention (whisper decoder) --------------------
+    if block_type == "cross":
+        h = _norm(params["ln_x"], x, cfg)
+        if enc_out is not None:  # train / prefill: (re)compute cross kv
+            ck = torch.einsum("btd,dhk->bthk", enc_out, params["xattn"]["wk"])
+            cv = torch.einsum("btd,dhk->bthk", enc_out, params["xattn"]["wv"])
+            if new_cache is not None:
+                new_cache["cross_k"], new_cache["cross_v"] = ck, cv
+        else:
+            ck, cv = cache["cross_k"], cache["cross_v"]
+        kpos = torch.arange(ck.shape[1], dtype=torch.int32, device=ck.device)
+        y, _ = apply_gqa(params["xattn"], h, cfg=cfg, positions=positions,
+                         kv_override=(ck, cv, kpos), causal=False,
+                         chunk=chunk)
+        x = x + y
 
     # ---------------- FFN sublayer -----------------------------------------
     h = _norm(params["ln2"], x, cfg)

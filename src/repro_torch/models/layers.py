@@ -130,6 +130,120 @@ def broadcast(p, lead):
     return _Broadcast.apply(p, tuple(lead))
 
 
+# ------------------------------------------------------ per-user calls
+def _rows(info, in_dims, fn, args):
+    """``fn`` over each row of the batch dimension of a ``vmap`` rule's
+    physical ``args`` (a user of the cohort), each row in a call of its
+    own on contiguous operands, the outputs stacked on dim 0."""
+    args = [a if d is None else a.movedim(d, 0) for a, d in zip(args, in_dims)]
+    outs = [fn(*(a.contiguous() if d is None else a[i].contiguous()
+                 for a, d in zip(args, in_dims)))
+            for i in range(info.batch_size)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+class _PerUser(torch.autograd.Function):
+    """``fn(*args)``, whose ``vmap`` rule calls ``fn`` once a row of the
+    batch dimension, and whose backward is ``vjp(g, *args)``, a row at a
+    time too (``_PerUserVjp``)."""
+
+    @staticmethod
+    def forward(fn, vjp, *args):
+        return fn(*(a.contiguous() for a in args))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.vjp = inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None) + tuple(_PerUserVjp.apply(ctx.vjp, g,
+                                                      *ctx.saved_tensors))
+
+    @staticmethod
+    def vmap(info, in_dims, fn, vjp, *args):
+        if all(d is None for d in in_dims[2:]):
+            return fn(*args), None
+        return _rows(info, in_dims[2:], fn, args), 0
+
+
+class _PerUserVjp(torch.autograd.Function):
+    """``vjp(g, *args)`` (a tuple, one gradient an arg), a row of the
+    batch dimension at a time under ``vmap``. First order only."""
+
+    @staticmethod
+    def forward(vjp, g, *args):
+        return tuple(vjp(g.contiguous(), *(a.contiguous() for a in args)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("per_user: no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, vjp, g, *args):
+        outs = _rows(info, in_dims[1:], lambda *a: tuple(vjp(*a)),
+                     (g,) + args)
+        return outs, (0,) * len(outs)
+
+
+def per_user(fn, vjp, *args):
+    """``fn(*args)`` (tensors in, one tensor out; ``vjp(g, *args)`` its
+    gradients, in elementwise ops and GEMMs) such that a user's rows keep
+    their bits whatever the rows beside them. On the CPU under ``vmap``
+    (a cohort's local step, a sweep's E x U rows) each row of the batch
+    dimension runs in a call of its own on contiguous operands, forward
+    and backward: torch's CPU kernels split one call over threads by its
+    element count, at offsets off the SIMD width where a chunk's tail
+    takes a scalar path (``silu``'s ``exp``), and MKL's batched GEMM
+    orders a contraction of 1024 or more by the batch count. The
+    backward is ``vjp`` itself, not autograd's: functorch may decompose
+    a fused backward kernel (``silu_backward``) in one context and not in
+    another. Anywhere else (the card, ``meta``) it is ``fn(*args)`` with
+    autograd's backward: there an elementwise op and a GEMM compute a row
+    alike at any row count (``chip_smoke.py``'s ``row_count_bits``).
+
+    On the CPU every call takes this path, inside ``vmap`` or not, so the
+    CPU has no second derivative of these ops: ``vjp`` is a plain
+    function, not differentiated again, and ``_PerUserVjp`` raises in its
+    backward. Nothing in the port differentiates a gradient (the local
+    step is first order); a caller that needs a Hessian-vector product
+    runs it on the card. The per-row calls cost CPU time (an ``--arch``
+    round's CPU run is about a quarter slower), a trade-off ROADMAP
+    Queue B keeps open."""
+    if not all(a.device.type == "cpu" for a in args):
+        return fn(*args)
+    return _PerUser.apply(fn, vjp, *args)
+
+
+def _silu_vjp(g, x):
+    s = torch.sigmoid(x)
+    return (g * (s * (1.0 + x * (1.0 - s))),)
+
+
+def silu(x):
+    """``F.silu`` through ``per_user``."""
+    return per_user(F.silu, _silu_vjp, x)
+
+
+def _matmul_vjp(g, x, w):
+    gx = g @ w.transpose(0, 1)
+    gw = x.reshape(-1, x.shape[-1]).transpose(0, 1) \
+        @ g.reshape(-1, g.shape[-1])
+    return gx, gw
+
+
+def matmul(x, w):
+    """``x @ w`` (``w`` 2-D, a user's weight) through ``per_user``."""
+    return per_user(torch.matmul, _matmul_vjp, x, w)
+
+
 def _device(key):
     return key.device if isinstance(key, torch.Generator) else \
         torch.device(key)
@@ -197,7 +311,7 @@ def rmsnorm_gated(scale, x, z, eps=1e-6):
     """Mamba-2 gated RMSNorm: rmsnorm(x * silu(z)) * (1 + scale); the
     scale's gradient through ``_ScaleShift``."""
     dt = x.dtype
-    x = x.float() * F.silu(z.float())
+    x = x.float() * silu(z.float())
     var = x.square().mean(dim=-1, keepdim=True)
     x = _ScaleShift.apply(x * torch.rsqrt(var + eps), scale.float(), None)
     return x.to(dt)
@@ -219,16 +333,30 @@ def init_mlp(key, cfg, dtype, d_ff=None, lead=()):
     }
 
 
-def _gelu(x):
+_GELU_K, _GELU_C = float(np.sqrt(2.0 / np.pi)), 0.044715
+
+
+def _gelu_tanh(x):
     # jax.nn.gelu's default is the tanh approximation
     return F.gelu(x, approximate="tanh")
+
+
+def _gelu_vjp(g, x):
+    t = torch.tanh(_GELU_K * (x + _GELU_C * x * x * x))
+    d = 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * _GELU_K \
+        * (1.0 + 3.0 * _GELU_C * x * x)
+    return (g * d,)
+
+
+def _gelu(x):
+    return per_user(_gelu_tanh, _gelu_vjp, x)
 
 
 def apply_mlp(params, x, activation="swiglu"):
     up = x @ params["w_up"]
     if activation in ("swiglu", "geglu"):
         gate = x @ params["w_gate"]
-        act = F.silu if activation == "swiglu" else _gelu
+        act = silu if activation == "swiglu" else _gelu
         h = act(gate) * up
     else:
         h = _gelu(up)

@@ -1,25 +1,31 @@
 """Model assembly: layer groups over layer-stacked params.
 
-Port of ``repro/models/model.py`` for the dense, vlm, moe, ssm and
-hybrid families.
+Port of ``repro/models/model.py`` for every family: dense, vlm, moe,
+ssm, hybrid and audio.
 A model is a sequence of *layer groups*; each group's params are stacked
 over a leading layer axis, in the reference's layout and leaf order, so
 a JAX parameter tree carried across with ``convert.params_from_numpy``
 is this module's parameter tree. The reference's ``lax.scan`` over the
 stack is a Python loop over the layer index; the per-layer windows
 (gemma2's local / global layers, hymba's three global layers among
-sliding-window ones; 0 for every Mamba-2 layer) are Python ints. A MoE
-model's leading dense layers are their own group
+sliding-window ones; 0 for every Mamba-2 layer and every Whisper layer)
+are Python ints. A MoE model's leading dense layers are their own group
 (``first_dense_layers``), and DeepSeek-V3's multi-token prediction adds
-the ``mtp`` subtree and its loss term. A group's decode caches are
-layer-stacked dicts: a KV ring cache with a length axis, and / or the
-Mamba-2 conv and SSM states, which have none.
+the ``mtp`` subtree and its loss term. An encoder-decoder (Whisper)
+adds the ``encoder`` stack and ``enc_norm``: ``encode_audio`` runs the
+frame embeddings (``enc_frames``, ``batch["frames"]``) with sinusoidal
+positions through the bidirectional encoder, and each decoder layer
+attends to its output. A group's decode caches are layer-stacked dicts:
+a KV ring cache with a length axis, the Mamba-2 conv and SSM states,
+which have none, and a cross block's encoder keys and values
+(``enc_len`` entries). Like the reference, ``forward`` and the encoder
+add interleaved sin / cos positions, and ``decode_step`` the
+concatenated halves of ``layers.sinusoidal_positions_dynamic``.
 
-The audio family, and the dry-run levers
-``flash_chunk_remat`` and ``shard_activations``, raise
-``NotImplementedError``. ``cfg.remat`` (activation checkpointing) only
-trades memory in a backward pass and is not reproduced: the values are
-the same.
+The dry-run levers ``flash_chunk_remat`` and ``shard_activations``
+raise ``NotImplementedError``. ``cfg.remat`` (activation checkpointing)
+only trades memory in a backward pass and is not reproduced: the values
+are the same.
 """
 from __future__ import annotations
 
@@ -35,18 +41,12 @@ from repro_torch.models.blocks import apply_block, init_block, \
     make_block_cache
 from repro_torch.tree import tree_leaves, tree_map
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 #: DeepSeek-V3's weight of the multi-token-prediction loss
 MTP_WEIGHT = 0.3
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}): the port runs the dense, "
-            "vlm, moe, ssm and hybrid families; audio waits for its slice "
-            "(ROADMAP.md Queue A item 4)")
     for lever in ("flash_chunk_remat", "shard_activations"):
         if getattr(cfg, lever):
             raise NotImplementedError(
@@ -59,6 +59,8 @@ def layer_groups(cfg: ModelConfig, long_context: bool = False):
     """Static group descriptors: (name, block_type, n_layers, windows)."""
     check_ported(cfg)
     win = cfg.layer_windows(0, long_context=long_context)
+    if cfg.family in ("dense", "vlm"):
+        return [("blocks0", "dense", cfg.num_layers, win)]
     if cfg.family == "moe":
         fd = cfg.first_dense_layers
         groups = [("blocks0", "dense", fd, win[:fd])] if fd else []
@@ -68,7 +70,9 @@ def layer_groups(cfg: ModelConfig, long_context: bool = False):
         return [("blocks0", "mamba", cfg.num_layers, [0] * cfg.num_layers)]
     if cfg.family == "hybrid":
         return [("blocks0", "hybrid", cfg.num_layers, win)]
-    return [("blocks0", "dense", cfg.num_layers, win)]
+    if cfg.family == "audio":
+        return [("blocks0", "cross", cfg.num_layers, [0] * cfg.num_layers)]
+    raise ValueError(cfg.family)
 
 
 def _group_cfg(cfg, block_type):
@@ -98,6 +102,10 @@ def init_params(key, cfg: ModelConfig, long_context: bool = False,
     for name, btype, n, _ in layer_groups(cfg, long_context):
         params[name] = init_block(key, _group_cfg(cfg, btype), btype, dtype,
                                   lead=(n,))
+    if cfg.is_encdec:
+        params["encoder"] = init_block(key, cfg, "encoder", dtype,
+                                       lead=(cfg.encoder_layers,))
+        params["enc_norm"] = L.init_norm(key, cfg, dtype)
     if cfg.use_mtp:
         params["mtp"] = {
             "proj": L.truncated_normal_init(
@@ -115,7 +123,7 @@ def _layer(tree, i):
 
 
 def _run_group(params_stack, x, *, cfg, block_type, windows, positions,
-               caches=None, chunk=1024):
+               caches=None, enc_out=None, chunk=1024):
     """Apply a homogeneous block stack layer by layer. Returns (x,
     new_caches (layer-stacked, or None), aux_sum)."""
     gcfg = _group_cfg(cfg, block_type)
@@ -125,7 +133,7 @@ def _run_group(params_stack, x, *, cfg, block_type, windows, positions,
             _layer(params_stack, i), x, cfg=gcfg, block_type=block_type,
             positions=positions, window=w,
             cache=None if caches is None else _layer(caches, i),
-            chunk=chunk)
+            enc_out=enc_out, chunk=chunk)
         new.append(c)
         aux = aux + a
     if caches is None:
@@ -138,6 +146,20 @@ def _positions(offset, length, device):
 
 
 # ----------------------------------------------------------- forward
+def encode_audio(params, frames, cfg, chunk=1024):
+    """Whisper encoder over stub frame embeddings (B, T_enc, D):
+    interleaved sinusoidal positions added, the bidirectional encoder
+    stack, then ``enc_norm``."""
+    T = frames.shape[1]
+    x = frames + L.sinusoidal_positions(
+        T, cfg.d_model, device=frames.device)[None].to(frames.dtype)
+    x, _, _ = _run_group(
+        params["encoder"], x, cfg=cfg, block_type="encoder",
+        windows=[0] * cfg.encoder_layers,
+        positions=_positions(0, T, x.device), chunk=chunk)
+    return L.apply_norm(params["enc_norm"], x, cfg.norm)
+
+
 def embed_inputs(params, tokens, cfg, *, prefix_embeds=None, offset=0):
     """Token embedding (+ optional vision prefix, + abs positions)."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
@@ -150,10 +172,12 @@ def embed_inputs(params, tokens, cfg, *, prefix_embeds=None, offset=0):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
-            long_context=False, chunk=1024, caches=None, offset=0,
-            return_hidden=False):
+            enc_frames=None, long_context=False, chunk=1024, caches=None,
+            offset=0, return_hidden=False):
     """Full-sequence forward. Returns (logits, new_caches, aux_loss).
 
+    ``enc_frames`` (B, T_enc, D): an encoder-decoder's stub frame
+    embeddings, encoded once (``encode_audio``) for every cross block.
     ``caches`` non-None => prefill (cache written for later decode; the
     caller's caches are left as they were).
     ``return_hidden`` => first element is the final-normed hidden state
@@ -164,6 +188,8 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
                      offset=offset)
     x = x.to(cfg.activation_dtype)
     pos = _positions(offset, x.shape[1], x.device)
+    enc_out = (encode_audio(params, enc_frames, cfg, chunk)
+               if cfg.is_encdec else None)
 
     new_caches = {} if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -171,7 +197,7 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
         g_caches = caches.get(name) if caches is not None else None
         x, g_new, aux = _run_group(
             params[name], x, cfg=cfg, block_type=btype, windows=windows,
-            positions=pos, caches=g_caches, chunk=chunk)
+            positions=pos, caches=g_caches, enc_out=enc_out, chunk=chunk)
         if new_caches is not None:
             new_caches[name] = g_new
         aux_total = aux_total + aux
@@ -191,10 +217,11 @@ def compute_loss(params, batch, cfg: ModelConfig, long_context=False,
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     prefix = batch.get("patches")
+    frames = batch.get("frames")
 
     if cfg.loss_vocab_chunks > 1:
         hidden, _, aux = forward(
-            params, inputs, cfg, prefix_embeds=prefix,
+            params, inputs, cfg, prefix_embeds=prefix, enc_frames=frames,
             long_context=long_context, chunk=chunk, return_hidden=True)
         if prefix is not None:
             hidden = hidden[:, prefix.shape[1]:]
@@ -203,14 +230,14 @@ def compute_loss(params, batch, cfg: ModelConfig, long_context=False,
         loss = L.chunked_cross_entropy(hidden, table, labels, cfg)
     else:
         logits, _, aux = forward(
-            params, inputs, cfg, prefix_embeds=prefix,
+            params, inputs, cfg, prefix_embeds=prefix, enc_frames=frames,
             long_context=long_context, chunk=chunk)
         if prefix is not None:
             # vision prefix positions produce logits too; only text scored
             logits = logits[:, prefix.shape[1]:]
         loss = L.cross_entropy_loss(logits, labels, cfg.vocab_size)
 
-    if cfg.use_mtp and prefix is None:
+    if cfg.use_mtp and prefix is None and frames is None:
         # DeepSeek-V3 multi-token prediction: one extra block predicting
         # token t+2 from (h_t, emb_{t+1}).
         loss = loss + MTP_WEIGHT * _mtp_loss(params, inputs, labels, cfg,
@@ -238,15 +265,19 @@ def _mtp_loss(params, inputs, labels, cfg, chunk):
 
 # ----------------------------------------------------------- decode
 def make_caches(cfg: ModelConfig, batch, cache_len, *, long_context=False,
-                dtype=None, device=None):
-    """Layer-stacked decode caches for every group, on ``device``
-    (``None`` = the CUDA device; ``"meta"`` for shapes only)."""
+                dtype=None, enc_len=None, device=None):
+    """Layer-stacked decode caches for every group (+ cross kv of
+    ``enc_len`` entries, by default ``cfg.encoder_seq`` for an
+    encoder-decoder), on ``device`` (``None`` = the CUDA device;
+    ``"meta"`` for shapes only)."""
     dtype = dtype or cfg.activation_dtype
     dev = resolve_device(device)
+    if enc_len is None:
+        enc_len = cfg.encoder_seq if cfg.is_encdec else 0
     caches = {}
     for name, btype, n, windows in layer_groups(cfg, long_context):
         skel = make_block_cache(cfg, btype, batch, cache_len, dtype,
-                                device=dev)
+                                device=dev, enc_len=enc_len)
         caches[name] = tree_map(
             lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape))
             .contiguous(), skel)

@@ -21,10 +21,8 @@ so a user's bits do not follow the users beside it in a ``vmap``.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
-
-from repro_torch.models.layers import (apply_mlp, init_mlp, token_sum,
-                                       truncated_normal_init)
+from repro_torch.models.layers import (apply_mlp, init_mlp, silu,
+                                       token_sum, truncated_normal_init)
 
 
 def init_moe(key, cfg, dtype, lead=()):
@@ -155,7 +153,7 @@ def apply_moe(params, x, cfg, capacity_factor=None):
     # -- per-expert FFN (batched over E) -----------------------------------
     h = torch.bmm(buf, params["w_gate"])
     u = torch.bmm(buf, params["w_up"])
-    h = F.silu(h) * u
+    h = silu(h) * u
     out_buf = torch.bmm(h, params["w_down"]).reshape(E * cap, D)
 
     # -- combine back -------------------------------------------------------

@@ -37,8 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (NEG_INF, _device, broadcast,
-                                       rmsnorm_gated, truncated_normal_init,
-                                       zeros)
+                                       matmul, rmsnorm_gated, silu,
+                                       truncated_normal_init, zeros)
 
 
 def _filled(key, values, lead):
@@ -173,7 +173,7 @@ def _causal_conv(xbc, conv_w, conv_b, conv_state=None):
     for i in range(1, W):
         out = out + xp[:, i:i + S] * w[:, :, i]
     new_state = xp[:, S:]
-    return F.silu(out + broadcast(conv_b, (B, S))), new_state
+    return silu(out + broadcast(conv_b, (B, S))), new_state
 
 
 def _pad_tokens(t, pad):
@@ -187,7 +187,7 @@ def apply_mamba2(params, x, cfg, cache=None):
     Din, N, H, P = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
                     cfg.ssm_head_dim)
 
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = matmul(x, params["in_proj"])
     z = zxbcdt[..., :Din]
     xbc = zxbcdt[..., Din:2 * Din + 2 * N]
     dt_raw = zxbcdt[..., -H:].float()

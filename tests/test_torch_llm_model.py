@@ -1,9 +1,11 @@
 """The port's LLM model (``repro_torch.models.model``, ``launch/steps.py``)
-against the JAX package's, on the CPU, for the dense, vlm, moe, ssm and
-hybrid archs at their reduced sizes (2 layers, d_model 256, f32; the MoE
-archs' 4 experts at capacity factor 4: nothing dropped; the SSM and
-hybrid archs over 40 tokens, a 32-token chunk and a padded tail). Their
-decode and layers are held in ``tests/test_torch_llm_ssm.py``.
+against the JAX package's, on the CPU, for the dense, vlm, moe, ssm,
+hybrid and audio archs at their reduced sizes (2 layers, d_model 256,
+f32; the MoE archs' 4 experts at capacity factor 4: nothing dropped; the
+SSM and hybrid archs over 40 tokens, a 32-token chunk and a padded tail;
+whisper over 64 stub frames). The SSM and hybrid archs' decode and
+layers are held in ``tests/test_torch_llm_ssm.py``, whisper's in
+``tests/test_torch_llm_audio.py``.
 
 Params are the JAX package's own ``init_params`` draws, moved to numpy
 and carried across with ``convert.params_from_numpy`` (the port keeps
@@ -36,8 +38,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 ARCHS = ["yi-9b", "gemma2-27b", "phi3-mini-3.8b", "phi4-mini-3.8b",
          "phi-3-vision-4.2b", "deepseek-v3-671b", "kimi-k2-1t-a32b",
-         "mamba2-370m", "hymba-1.5b"]
-UNPORTED = ["whisper-small"]
+         "mamba2-370m", "hymba-1.5b", "whisper-small"]
 TOL = dict(rtol=1e-5, atol=2e-5)
 B, S = 2, 12
 #: the SSM and hybrid archs' sequence: past one 32-token SSD chunk
@@ -59,7 +60,8 @@ def _paths(tree, prefix=()):
 
 class Case:
     """One arch's reduced config in both packages, the JAX params and
-    their port copy, and a batch of tokens (and vlm patches)."""
+    their port copy, and a batch of tokens (and vlm patches, or audio
+    frames)."""
 
     def __init__(self, arch):
         self.jc, self.tc = jget(arch).reduced(), tget(arch).reduced()
@@ -75,6 +77,11 @@ class Case:
             self.patches = (0.02 * rng.standard_normal(
                 (B, self.jc.num_prefix_tokens, self.jc.d_model))) \
                 .astype(np.float32)
+        self.frames = None
+        if self.jc.family == "audio":
+            self.frames = (0.02 * rng.standard_normal(
+                (B, self.jc.encoder_seq, self.jc.d_model))) \
+                .astype(np.float32)
 
     def batches(self):
         jb = {"tokens": jnp.asarray(self.tokens)}
@@ -82,7 +89,15 @@ class Case:
         if self.patches is not None:
             jb["patches"] = jnp.asarray(self.patches)
             tb["patches"] = torch.from_numpy(self.patches)
+        if self.frames is not None:
+            jb["frames"] = jnp.asarray(self.frames)
+            tb["frames"] = torch.from_numpy(self.frames)
         return jb, tb
+
+    def enc_frames(self):
+        if self.frames is None:
+            return None, None
+        return jnp.asarray(self.frames), torch.from_numpy(self.frames)
 
     def prefix(self):
         if self.patches is None:
@@ -131,11 +146,12 @@ def test_param_layout_matches_jax_at_full_and_reduced_dims(arch):
 def test_forward_logits_match_jax(arch, cases):
     c = case(cases, arch)
     pj, pt = c.prefix()
+    fj, ft = c.enc_frames()
     toks = c.tokens[:, :-1]
     want, _, jaux = jm.forward(c.jp, jnp.asarray(toks), c.jc,
-                               prefix_embeds=pj)
+                               prefix_embeds=pj, enc_frames=fj)
     got, _, aux = tm.forward(c.tp, torch.from_numpy(toks), c.tc,
-                             prefix_embeds=pt)
+                             prefix_embeds=pt, enc_frames=ft)
     assert got.shape == want.shape
     # the router's load-balance loss (0 without a MoE block)
     assert (float(aux) == 0.0) == (c.jc.family != "moe")
@@ -309,12 +325,17 @@ def test_init_params_from_a_seed_is_device_independent_in_distribution():
     assert float(emb.abs().max()) <= 2.0 / np.sqrt(cfg.d_model) + 1e-7
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = tget(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_families_raise():
+    """Every family of the reference is ported; a family neither package
+    knows raises the reference's ``ValueError`` in both. (The name is
+    the one this test had while a family was still unported.)"""
+    cfg = dataclasses.replace(tget("yi-9b").reduced(), family="speech")
+    with pytest.raises(ValueError, match="speech"):
+        jm.layer_groups(dataclasses.replace(jget("yi-9b").reduced(),
+                                            family="speech"))
+    with pytest.raises(ValueError, match="speech"):
         tm.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="speech"):
         tm.make_caches(cfg, 1, 4, device="cpu")
 
 
@@ -330,13 +351,38 @@ def test_unported_levers_raise(lever, value, cases):
 
 
 def test_unported_blocks_and_frontends_raise():
+    """Every block type and frontend is ported: the audio blocks build
+    the reference's leaves and shapes (the encoder block's are the dense
+    block's; the cross block adds ``ln_x`` and ``xattn``), their caches
+    (a cross cache of ``enc_len`` entries), and the frame and patch
+    embeddings draw 0.02 x a standard normal of their spec's shape; an
+    unknown block type raises. (The name is the one this test had while
+    the audio blocks still raised.)"""
+    from repro.models import blocks as jblocks
     from repro_torch.models import blocks, frontends
-    cfg = tget("yi-9b").reduced()
+    cfg, jc = tget("whisper-small").reduced(), jget("whisper-small").reduced()
     for btype in ("encoder", "cross"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocks.init_block(torch.Generator(), cfg, btype, torch.float32)
-    with pytest.raises(NotImplementedError, match="audio"):
-        frontends.audio_frame_spec(1, cfg)
+        got = dict(_paths(blocks.init_block(torch.device("meta"), cfg, btype,
+                                            torch.float32, lead=(2,))))
+        want = dict(_paths(jax.eval_shape(lambda: jax.vmap(
+            lambda k: jblocks.init_block(k, jc, btype, jnp.float32))(
+                jax.random.split(jax.random.PRNGKey(0), 2)))))
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert tuple(got[k].shape) == tuple(v.shape), k
+        cache = blocks.make_block_cache(cfg, btype, 3, 8, torch.float32,
+                                        device="meta", enc_len=5)
+        jcache = jblocks.make_block_cache(jc, btype, 3, 8, jnp.float32,
+                                          enc_len=5)
+        assert {k: tuple(v.shape) for k, v in _paths(cache)} == \
+            {k: tuple(v.shape) for k, v in _paths(jcache)}
+    with pytest.raises(ValueError, match="unknown block"):
+        blocks.init_block(torch.Generator(), cfg, "conformer", torch.float32)
+    shape, dtype = frontends.audio_frame_spec(3, cfg)
+    assert shape == (3, 64, 256) and dtype == torch.float32
+    x = frontends.audio_frame_embeddings(torch.Generator().manual_seed(0),
+                                         3, cfg)
+    assert x.shape == shape and abs(float(x.std()) - 0.02) < 0.002
     vlm = tget("phi-3-vision-4.2b").reduced()
     shape, dtype = frontends.vision_patch_spec(3, vlm)
     assert shape == (3, 16, 256) and dtype == torch.float32

@@ -118,32 +118,22 @@ def test_priority_distributed_priorities_match_jax(runs):
     assert (np.asarray(th.priorities) >= 1.0).all()
 
 
-#: the archs whose sweep lane is held bit for bit on one CPU thread only
-ONE_THREAD_ARCHS = ("mamba2-370m", "hymba-1.5b")
-
-
+@pytest.mark.parametrize("threads", [None, 4], ids=["default-threads",
+                                                  "4-threads"])
 @pytest.mark.parametrize("arch", ["yi-9b", "deepseek-v3-671b",
                                   "mamba2-370m", "hymba-1.5b"])
-def test_sweep_lane_equals_its_sequential_run(arch):
+def test_sweep_lane_equals_its_sequential_run(arch, threads):
     """``--sweep-seeds 2``: lane 1 is the run of the same cell with the
     spec's seed 1 (the lanes share the data and the init), bit for bit:
     the sweep's local step stacks 8 users where the run stacks 4, and no
-    user's sum over its tokens may follow that count.
-
-    The SSM and hybrid archs run on one CPU thread (``ONE_THREAD_ARCHS``,
-    an open fault in ROADMAP Queue C): torch's CPU elementwise kernels
-    cut a tensor of more than 32768 elements into one chunk a thread at
-    offsets that need not fall on the SIMD width, and a chunk's last
-    elements take the scalar path, whose ``exp`` (in ``silu``) can
-    differ from the vectorised one in the last bit. So at the Mamba-2
-    conv's 544 channels an element's bits follow the stack's size
-    through the thread split (on the card an elementwise op computes
-    every element alike, and ``chip_smoke.py``'s ``row_count_bits``
-    holds the card's local step to that)."""
+    user's bits may follow that count — neither through a sum over its
+    tokens nor through torch's CPU thread split (``layers.per_user``:
+    the activations and Mamba-2's ``in_proj`` run a user a call on the
+    CPU). At torch's default thread count and at 4 threads."""
     from repro_torch.engine import SweepSpec
-    threads = torch.get_num_threads()
-    if arch in ONE_THREAD_ARCHS:
-        torch.set_num_threads(1)
+    before = torch.get_num_threads()
+    if threads is not None:
+        torch.set_num_threads(threads)
     try:
         eng = ttrain.build_llm_engine(_args("priority-distributed", arch))
         res = eng.run_sweep(SweepSpec.grid(eng.spec, seed=range(0, 2)))
@@ -153,7 +143,7 @@ def test_sweep_lane_equals_its_sequential_run(arch):
                                       seed=1)
         h = one.run()
     finally:
-        torch.set_num_threads(threads)
+        torch.set_num_threads(before)
     assert h.winners == res[1].winners
     assert h.train_loss == res[1].train_loss
     assert bitwise_equal(one.global_params, res.lane_params(1))

@@ -293,13 +293,13 @@ def test_kernel_build_fails_loudly_without_a_compiler(monkeypatch, tmp_path):
 
 
 def test_engine_exports_the_reference_names():
-    """``repro_torch.engine.__all__`` holds every name of the reference's
-    ``__all__`` but ``SiloBackend`` (the cross-silo path, not ported
-    yet), and each name imports; compared as names only."""
+    """``repro_torch.engine.__all__`` is the reference's ``__all__``,
+    ``SiloBackend`` (the cross-silo path) included, and each name
+    imports; compared as names only."""
     import repro.engine as jeng
     import repro_torch.engine as teng
-    missing = set(jeng.__all__) - set(teng.__all__)
-    assert missing == {"SiloBackend"}, missing
+    assert teng.__all__ == jeng.__all__
     for name in teng.__all__:
         assert hasattr(teng, name), name
-    from repro_torch.engine import SweepState, SweepTrainResult  # noqa: F401
+    from repro_torch.engine import (SiloBackend, SweepState,  # noqa: F401
+                                    SweepTrainResult)
