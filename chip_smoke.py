@@ -17,7 +17,8 @@ without CUDA (there is no CPU path here). It
      including the masked non-finite row and the all-zero-weight merge,
      and the AirComp and robust merges' bit-level contracts with the
      plain merge; the server step of the objectives layer in its three
-     kinds (identity, FedAvgM, FedAdam) with its passthrough contracts;
+     kinds (identity, FedAvgM, FedAdam) with its passthrough contracts,
+     FedAvgM bit-equal to ``optim.sgd_momentum_update``;
      the merges' shared row walk where its vector path splits (gather,
      FedAvg, AirComp with a noise plane, and robust; ragged and skewed
      operands, K = 1, 5, 9, 10, 17, 65 around its groups of rows in
@@ -110,7 +111,10 @@ without CUDA (there is no CPU path here). It
      2, 32 sequences of 128 tokens a user) against the same run on the
      CPU, its launches a round held to PERF.md's prediction, a steady
      round, peak memory (and its parts: what was held, the engine, one
-     local step, one evaluation) and the idle share, and yi-9b,
+     local step, one evaluation) and the idle share, the cell with
+     ``cfg.remat`` off and on in turns (2 rounds a fresh engine: peaks,
+     round seconds, the same bits; for yi-9b and mamba2 the local step
+     aten op by aten op at the sweep's width with ``remat`` on), and yi-9b,
      deepseek-v3, mamba2-370m and hymba-1.5b as 3-lane sweeps whose lane
      0 must be the run bit for bit (the first local step at 10 and at 30
      rows compared aten op by aten op: no op's bits may follow the row
@@ -148,11 +152,15 @@ without CUDA (there is no CPU path here). It
      against the f32 one; then at phi3-mini's published widths, 2 layers,
      bf16, 4 silos x 4 x 1024 tokens: every round's Eq. 2 against the
      plain version and every merge against the plain formula, launches
-     a round exact, round ms, idle share and peak beside their bounds —
+     a round exact, round ms, idle share and peak beside their bounds,
+     and the memory levers off, as published (``remat``) and with
+     ``flash_chunk_remat`` too, fresh engines in turns: peaks and round
+     ms, losses, priorities, winners and globals bit-equal —
      with the launch counts set to zero just before each path and read
      just after;
   5. checks the result by the repository's own means: the pinned
-     winners of ``tests/winner_pins.json``, the card against the CPU run
+     winners of ``tests/winner_pins.json`` (``tools/check_winner_pins_torch.py
+     --device cuda``: 50 lanes, twins bit-equal), the card against the CPU run
      of the same rounds (channel, AirComp with and without receiver
      noise, fault and active-objective lanes included, and the stacked,
      ragged and ``random-centralized`` lanes, seeds 0 and 1, the stacked
@@ -187,6 +195,7 @@ power limit, then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -243,6 +252,7 @@ from repro_torch.models import frontends as llm_frontends  # noqa: E402
 from repro_torch.models import model as llm               # noqa: E402
 from repro_torch.models.paper_models import get_paper_model  # noqa: E402
 from repro_torch.objectives import ObjectiveSpec          # noqa: E402
+from repro_torch.optim import sgd_momentum_update         # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map        # noqa: E402
 
 DEV = torch.device("cuda")
@@ -556,8 +566,9 @@ def check_kernels_at(shape, U, dtype, seed):
 
 def check_server_opt_at(shape, dtype, seed):
     """The server step in each kind against its plain version (all three
-    outputs), and its contracts bitwise: kind 0, and kind 1 with beta1 =
-    0 and server_lr = 1, return avg's bits; server_lr = 0.5 is not a
+    outputs), and its contracts bitwise: kind 1 is
+    ``optim.sgd_momentum_update`` on ``old - avg``; kind 0, and kind 1
+    with beta1 = 0 and server_lr = 1, return avg's bits; server_lr = 0.5 is not a
     passthrough; m passes through under kind 0 and v under kinds 0 and
     1. Returns (worst error, every output bit-equal)."""
     avg, old, m = (randn(seed + i, shape, dtype) for i in range(3))
@@ -574,6 +585,17 @@ def check_server_opt_at(shape, dtype, seed):
                 or kind == 0 and not torch.equal(got[1], m):
             raise AssertionError(f"server_opt kind {kind}: m / v did not "
                                  "pass through")
+    # kind 1 (FedAvgM) is optim.sgd_momentum_update on the pseudo-gradient
+    # old - avg, bit for bit: the same f32 ops on the f32 copies, cast back
+    k1 = SERVER_KINDS[1]
+    out, nm, _ = ops.server_opt_combine(avg, old, m, v, k1)
+    a32, o32, m32 = avg.float(), old.float(), m.float()
+    wp, wm = sgd_momentum_update({"p": o32}, {"p": o32 - a32}, {"p": m32},
+                                 lr=k1[3], momentum=k1[1])
+    if not (torch.equal(out, wp["p"].to(avg.dtype))
+            and torch.equal(nm, wm["p"].to(m.dtype))):
+        raise AssertionError(f"server_opt kind 1 {tuple(shape)} {dtype}: not "
+                             "sgd_momentum_update's bits")
     for consts, inert in (([0, 0.9, 0.99, 0.5, 1e-3], True),
                           ([1, 0.0, 0.0, 1.0, 1e-3], True),
                           ([1, 0.0, 0.0, 0.5, 1e-3], False)):
@@ -2240,27 +2262,38 @@ def pin_scenario(strategy, seed, device, rounds=4, noise_draw=None,
     return hist, engine.global_params
 
 
+@functools.lru_cache(maxsize=None)
+def load_tool(name):
+    """A script of ``tools/`` as a module (loaded once)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
 def pin_engine(strategy, seed, device, rounds=4, **spec):
-    """The pin scenario's engine (see ``pin_scenario``)."""
-    rng = np.random.default_rng(7)
-    user_data = []
-    for u in range(8):
-        probs = np.ones(4) / 4
-        probs[u % 4] += 1.0
-        probs /= probs.sum()
-        user_data.append({
-            "x": rng.normal(size=(64, 16)).astype(np.float32),
-            "y": rng.choice(4, 64, p=probs)})
+    """The pin scenario's engine (see ``pin_scenario``):
+    ``tools/check_winner_pins_torch.py``'s."""
+    return load_tool("check_winner_pins_torch").pin_engine(
+        strategy, seed, device, rounds, **spec)
 
-    def loss_fn(params, batch):
-        logp = torch.log_softmax(batch["x"] @ params["w"] + params["b"], -1)
-        return -logp.gather(-1, batch["y"].long()[:, None]).mean()
 
-    params = {"w": torch.zeros(16, 4, device=device),
-              "b": torch.zeros(4, device=device)}
-    spec = ExperimentSpec(rounds=rounds, strategy=strategy, seed=seed,
-                          **spec)
-    return build_host_engine(spec, params, loss_fn, user_data, device=device)
+def phase_pins_tool():
+    """``tools/check_winner_pins_torch.py --device cuda`` (its ``main``,
+    in this process): the pin scenario's 50 lanes — the paper strategies
+    x seeds 0 and 1 and their channel-off, faults-off, sparse and inert
+    objective twins — equal ``tests/winner_pins.json`` on the card, each
+    twin's globals bit-equal to its plain lane's."""
+    t0 = time.perf_counter()
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = load_tool("check_winner_pins_torch").main(["--device", "cuda"])
+    lines = said.getvalue().strip().splitlines()
+    emit("pins_tool", rc=rc, result=json.loads(lines[0]), said=lines[1:],
+         seconds=time.perf_counter() - t0)
+    if rc != 0:
+        raise AssertionError("pins_tool: " + said.getvalue())
 
 
 def pin_sweep_lanes(pins):
@@ -3655,11 +3688,7 @@ def phase_kill_resume(rounds=4):
     per-round "run" payload, the latter with its priority cache), each
     resumed run bit-identical to the uninterrupted one."""
     t0 = time.perf_counter()
-    spec = importlib.util.spec_from_file_location(
-        "kill_resume_smoke_torch",
-        os.path.join(ROOT, "tools", "kill_resume_smoke_torch.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = load_tool("kill_resume_smoke_torch")
     said = io.StringIO()
     with contextlib.redirect_stdout(said):
         rc = tool.main(["--device", "cuda"])    # its children: processes
@@ -3943,6 +3972,7 @@ def phase_llm_fl_round(tag, rounds=5):
     sweep = llm_sweep(name, args, hist, eng) if tag in LLM_SWEEP_CELLS \
         else None
     del eng
+    remat = llm_remat_turns(name, tag, args)
     torch.cuda.empty_cache()
     prof = profiled(f"llm_{tag}", launch_train.build_llm_engine(args),
                     lambda e: e.run(), rounds)
@@ -3960,9 +3990,68 @@ def phase_llm_fl_round(tag, rounds=5):
          median_later_round_s=statistics.median(round_s[1:]),
          device_idle_share=prof["device_idle_share"], peak_mem_mb=peak,
          memory=mem,
-         printed_summary=json.loads(text), sweep=sweep)
+         printed_summary=json.loads(text), sweep=sweep, remat=remat)
     torch.cuda.empty_cache()
     return launches
+
+
+#: the --arch cells whose local step ``row_count_bits`` also reads with
+#: ``remat`` on
+REMAT_ROW_BITS = ("yi9b", "mamba2")
+
+
+def llm_remat_turns(name, tag, args, rounds=2):
+    """The cell for ``rounds`` rounds with ``cfg.remat`` off and on (the
+    lever ``reduced()`` turns off), a fresh engine each, in turns (off,
+    on, off, on): each run's peak and its second round's seconds, one
+    local step's peak above what was held, the launches; the lever on
+    must give the lever off's winners, training losses and global bit for
+    bit, and, for ``REMAT_ROW_BITS``, ``row_count_bits`` at the sweep's
+    width no op whose bits follow the row count."""
+    a = argparse.Namespace(**{**vars(args), "rounds": rounds})
+    runs, first, rows = {}, {}, None
+    for lever in (False, True, False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = launch_train.build_llm_engine(a, cfg_fields=dict(remat=lever))
+        hist, _, launches, round_s, _ = timed(eng, lambda e: e.run())
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        grad_fn, stack, batch = cohort_step(eng)
+        step_peak = peak_above(lambda: grad_fn(stack, batch))
+        del grad_fn, stack, batch
+        key = "on" if lever else "off"
+        r = runs.setdefault(key, dict(round_s=[], peak_mb=[],
+                                      local_step_peak_mb=[],
+                                      launches={k: launches[k]
+                                                for k in LLM_KERNELS}))
+        r["round_s"].append(round_s[-1])
+        r["peak_mb"].append(peak)
+        r["local_step_peak_mb"].append(step_peak)
+        if key not in first:
+            first[key] = (hist, [p.cpu() for p in
+                                 tree_leaves(eng.global_params)])
+        if lever and rows is None and tag in REMAT_ROW_BITS:
+            rows = row_count_bits(eng, LLM_SWEEP_LANES)
+        del eng
+    (h0, g0), (h1, g1) = first["off"], first["on"]
+    out = dict(rounds=rounds, order=["off", "on", "off", "on"], **runs,
+               bits_equal=(h1.winners == h0.winners
+                           and h1.train_loss == h0.train_loss
+                           and all(torch.equal(x, y)
+                                   for x, y in zip(g1, g0))),
+               round_s_on_over_off=statistics.mean(runs["on"]["round_s"])
+               / statistics.mean(runs["off"]["round_s"]),
+               local_step_peak_on_over_off=statistics.mean(
+                   runs["on"]["local_step_peak_mb"]) / statistics.mean(
+                   runs["off"]["local_step_peak_mb"]),
+               row_count_bits=rows)
+    if not out["bits_equal"] or rows is not None and (
+            rows["differing"] or not rows["grads_equal"]
+            or not rows["losses_equal"] or not rows["repeat_equal"]):
+        emit(f"{name}_remat_fault", **out)
+        raise AssertionError(f"{name}: remat on is not the lever off's "
+                             "bits")
+    return out
 
 
 def bits_hash(t):
@@ -4750,11 +4839,12 @@ def silo_engine(device, merge_dtype="float32", rounds=None, cell=None,
     reference demo's data) through ``FLEngine``; the reduced arch from
     the seed (a CPU generator: the same on every device) unless the
     cell cuts the published arch's depth (``layers``) and ``init`` draws
-    its params."""
+    its params; the cell's ``levers`` replace config fields."""
     c = cell or SILO
     cfg = get_config(c["arch"])
     cfg = dataclasses.replace(cfg, num_layers=c["layers"]) if "layers" in c \
         else cfg.reduced()
+    cfg = dataclasses.replace(cfg, **c.get("levers", {}))
     S, B, R = c["silos"], c["batch"], rounds or c["rounds"]
     data = make_token_stream(S, c["seq"], c["rounds"] * B, cfg.vocab_size,
                              noniid=True, seed=c["seed"])
@@ -4921,8 +5011,9 @@ def phase_silo_round_full():
     where no silo won, bit for bit; losses and priorities finite); the
     second counted (launches a round held to ``SILO_ROUND_LAUNCHES``
     exactly) and stamped; the third under ``torch.profiler`` (the
-    device's idle share). Round ms, peak and weights against
-    ``silo_round_work``'s bounds. Returns the launches."""
+    device's idle share) — all three with the config as published
+    (``remat`` on); then ``silo_levers``. Round ms, peak and weights
+    against ``silo_round_work``'s bounds. Returns the launches."""
     c = SILO_FULL
     R = c["rounds"]
     cfg = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"])
@@ -4983,6 +5074,7 @@ def phase_silo_round_full():
     torch.cuda.empty_cache()
     prof = profiled("silo_round_full", make(), lambda e: e.run(), R)
     torch.cuda.empty_cache()
+    levers = silo_levers(c, init)
     want = {k: v * R for k, v in SILO_ROUND_LAUNCHES.items()}
     got = {k: launches[k] for k in want}
     steady = statistics.median(round_ms[1:])
@@ -5001,7 +5093,7 @@ def phase_silo_round_full():
         device_busy_ms_a_round=prof["device_busy_ms"] / R,
         port_kernels_ms_a_round=prof["port_kernels_ms"] / R,
         device_launches_a_round=prof["launches"] / R,
-        replicas_expanded_after_each_merge=expanded)
+        replicas_expanded_after_each_merge=expanded, levers=levers)
     emit("silo_round_full", **fields)
     if got != want:
         raise AssertionError(f"silo_round_full: launches {got}, PERF.md "
@@ -5023,7 +5115,55 @@ def phase_silo_round_full():
     if hist.winners != hist0.winners:
         raise AssertionError("silo_round_full: two runs from one seed "
                              f"chose {hist0.winners} and {hist.winners}")
+    if not all(v["bits_equal_to_off"] for v in levers.values()) or any(
+            v["launches"] != want for v in levers.values()):
+        raise AssertionError(f"silo_round_full: the levers {levers}")
     return launches
+
+
+#: ``silo_round_full``'s memory levers: (i) off, (ii) the config as
+#: published (``remat``), (iii) ``remat`` and ``flash_chunk_remat``
+SILO_LEVERS = {"off": dict(remat=False, flash_chunk_remat=False),
+               "remat": dict(remat=True, flash_chunk_remat=False),
+               "remat+flash": dict(remat=True, flash_chunk_remat=True)}
+
+
+def silo_levers(c, init):
+    """The full-width silo cell ``c`` with each of ``SILO_LEVERS``, a
+    fresh engine from the same seed each, in turns (i, ii, iii, iii, ii,
+    i): each lever's peak and steady round ms (the median of rounds 2 on,
+    ``stamped_run``) and its ms over (i)'s; the losses, priorities,
+    winners and merged global of (ii) and (iii) against (i)'s bits."""
+    runs, first = {}, {}
+    order = list(SILO_LEVERS) + list(SILO_LEVERS)[::-1]
+    for tag in order:
+        torch.cuda.empty_cache()
+        eng = silo_engine(DEV, cell={**c, "levers": SILO_LEVERS[tag]},
+                          init=init)
+        hist, launches, round_ms, _, peak, _ = stamped_run(eng)
+        r = runs.setdefault(tag, dict(steady_ms=[], peak_gb=[],
+                                      launches={k: launches[k] for k in
+                                                SILO_ROUND_LAUNCHES}))
+        r["steady_ms"].append(statistics.median(round_ms[1:]))
+        r["peak_gb"].append(peak * 2**20 / 1e9)
+        if tag not in first:
+            first[tag] = (hist, [p.cpu() for p in
+                                 tree_leaves(eng.global_params)])
+        del eng
+    torch.cuda.empty_cache()
+    h0, g0 = first["off"]
+    for tag, r in runs.items():
+        h, g = first[tag]
+        r["ms"] = statistics.mean(r["steady_ms"])
+        r["ms_over_off"] = r["ms"] / statistics.mean(
+            runs["off"]["steady_ms"])
+        r["bits_equal_to_off"] = (
+            h.winners == h0.winners and h.train_loss == h0.train_loss
+            and all(np.array_equal(np.asarray(a), np.asarray(b))
+                    for a, b in zip(h.priorities, h0.priorities))
+            and all(torch.equal(a, b) for a, b in zip(g, g0)))
+        r["levers"] = SILO_LEVERS[tag]
+    return runs
 
 
 TOKEN_SUM_ROUTES = {"kernel": None, "tree": ref.token_sum_ref,
@@ -5383,7 +5523,9 @@ def main():
                          "S=U ids vs S=K positions; server_opt kinds 0 "
                          "and 1 (beta1 0, server_lr 1) return avg, "
                          "server_lr 0.5 does not, m / v pass through "
-                         "where the law keeps them",
+                         "where the law keeps them; kind 1 (beta1 0.9, "
+                         "server_lr 0.5) = optim.sgd_momentum_update on "
+                         "old - avg",
          small_cohort_cases="fused_sgd_leaves and delta_norm_leaves on the "
                             "MLP's and the CNN's leaf lists at U = 1, 2, 64; "
                             "gather (positions, k_pad max(m, 2)), AirComp "
@@ -5442,6 +5584,7 @@ def main():
     del engine
     torch.cuda.empty_cache()
     phase_reference_small()
+    phase_pins_tool()
     phase_determinism()
     l_loop = phase_loops_in_turns()
 

@@ -11,6 +11,11 @@ The reduction streams every parameter once per model pair; its inner
 ``||w_k - w||^2, ||w||^2`` pass is the ``delta_norm`` CUDA kernel
 (``repro_torch.kernels``), ONE launch for every leaf of the model, with
 the plain PyTorch version for tensors on the CPU.
+
+``contention_window`` and ``backoff_time`` are Eq. (3): ``W = N /
+priority`` and the backoff ``R * W`` with ``R ~ U(0, 1)`` drawn from an
+explicit ``torch.Generator`` (the reference draws ``R`` with threefry, so
+the two agree in distribution, not draw for draw).
 """
 from __future__ import annotations
 
@@ -90,3 +95,13 @@ def priority_product(d2, g2):
 def contention_window(priority, N: float):
     """Eq. (3): W = N / priority."""
     return N / priority
+
+
+def backoff_time(priority, N: float, generator: torch.Generator):
+    """Eq. (3): ``T_backoff = R * W``, ``R ~ U(0, 1)`` an f32 draw of
+    ``generator`` (on its device), ``W = contention_window(priority,
+    N)``; on ``priority``'s device."""
+    R = torch.rand((), generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return R.to(torch.as_tensor(priority).device) \
+        * contention_window(priority, N)

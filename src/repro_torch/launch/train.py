@@ -119,16 +119,20 @@ def build_paper_engine(args, **spec_fields) -> FLEngine:
                              device=device)
 
 
-def build_llm_engine(args, init=None, **spec_fields) -> FLEngine:
+def build_llm_engine(args, init=None, cfg_fields=None,
+                     **spec_fields) -> FLEngine:
     """Federated finetune of ``get_config(args.arch).reduced()`` on the
     synthetic token streams of ``make_token_stream`` (``args.users``
     users, ``args.llm_seqs_per_user`` sequences of ``args.llm_seq + 1``
     tokens each), evaluated as ``-compute_loss`` on held-out tokens
     (seed + 99; "metric up"). ``init``: a nested dict of numpy arrays in
     the reference's layout that replaces the seed's params (a parity
-    test hands the reference's). Device and ``spec_fields`` as in
+    test hands the reference's). ``cfg_fields`` replaces fields of the
+    reduced config (``dict(remat=True)``: the memory lever that
+    ``reduced()`` turns off). Device and ``spec_fields`` as in
     ``build_paper_engine``."""
-    cfg_model = get_config(args.arch).reduced()
+    cfg_model = dataclasses.replace(get_config(args.arch).reduced(),
+                                    **(cfg_fields or {}))
     if cfg_model.is_encdec:
         raise ValueError(
             f"--arch {args.arch}: the reference's build_llm_engine gives "

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (NEG_INF, apply_norm,
+from repro_torch.models.layers import (NEG_INF, apply_norm, recompute,
                                        truncated_normal_init, zeros)
 from repro_torch.models.rope import apply_rope
 
@@ -48,14 +48,13 @@ def flash_attention(q, k, v, *, q_positions, k_positions, causal=True,
     window: None or 0 for full attention, or a scalar w (an int or a
       0-dim tensor) masking keys with q_pos - k_pos >= w; a tensor 0
       also means full attention.
-    ``chunk_remat`` (recompute each chunk's softmax in the backward pass)
-    is a memory lever of the reference's dry-run and is not ported: it
-    raises.
+    ``chunk_remat`` runs each kv chunk's step (scores, mask, running
+    max, the ``l`` / ``acc`` update) through ``layers.recompute``, as the
+    reference's ``jax.checkpoint`` of its scan step: the backward pass
+    recomputes a chunk's (B, S, Kv, G, chunk) scores instead of keeping
+    them. With one kv chunk, under the layer's own remat, it saves
+    nothing more than that remat does.
     """
-    if chunk_remat:
-        raise NotImplementedError(
-            "flash_chunk_remat belongs to the dry-run / hill-climb levers "
-            "(ROADMAP.md Queue A item 6) and is not ported")
     B, S, Kv, G, Dh = q.shape
     if scale is None:
         scale = 1.0 / np.sqrt(Dh)
@@ -67,7 +66,6 @@ def flash_attention(q, k, v, *, q_positions, k_positions, causal=True,
     n_chunks = k.shape[1] // chunk
 
     qf = q.float() * scale
-    qp = q_positions[None, :, None]                            # (1,S,1)
     if isinstance(window, torch.Tensor):
         w_eff = torch.where(window > 0, window,
                             torch.full_like(window, 2**30))
@@ -75,14 +73,9 @@ def flash_attention(q, k, v, *, q_positions, k_positions, causal=True,
         # a Python int never becomes a device tensor: a host-to-device
         # copy per layer would synchronise the stream each time
         w_eff = window if window > 0 else 2**30
-    m = torch.full((B, S, Kv, G), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, S, Kv, G), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, S, Kv, G, v.shape[-1]), dtype=torch.float32,
-                      device=q.device)
-    for i in range(n_chunks):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        k_i, v_i, p_i = k[:, sl], v[:, sl], k_positions[sl]
+
+    def step(m, l, acc, qf, k_i, v_i, p_i, q_positions):
+        qp = q_positions[None, :, None]                        # (1,S,1)
         s = torch.einsum("bskgd,btkd->bskgt", qf, k_i.float())
         if softcap:
             s = softcap * torch.tanh(s / softcap)
@@ -100,7 +93,19 @@ def flash_attention(q, k, v, *, q_positions, k_positions, causal=True,
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum(
             "bskgt,btkd->bskgd", p, v_i.float())
-        m = m_new
+        return m_new, l, acc
+
+    m = torch.full((B, S, Kv, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, S, Kv, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, Kv, G, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (m, l, acc, qf, k[:, sl], v[:, sl], k_positions[sl],
+                q_positions)
+        m, l, acc = (recompute(step, *args) if chunk_remat
+                     else step(*args))
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
 

@@ -244,6 +244,88 @@ def matmul(x, w):
     return per_user(torch.matmul, _matmul_vjp, x, w)
 
 
+# ------------------------------------------------------------ recompute
+class _Pairing(torch.autograd.Function):
+    """``<outs, grads>`` as the scalar ``torch.func.grad`` asks for: its
+    value (a zero) is never read, and its backward hands each output its
+    cotangent (times the seed 1.0, exactly). No reduction runs: under
+    ``vmap`` a sum's bits would follow the row count."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(n, *tensors):
+        return tensors[0].new_zeros((), dtype=torch.float32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n = inputs[0]
+        ctx.save_for_backward(*inputs[1 + ctx.n:])
+
+    @staticmethod
+    def backward(ctx, seed):
+        return (None,) + tuple(seed.to(g.dtype) * g
+                               for g in ctx.saved_tensors) + (None,) * ctx.n
+
+
+class _Recompute(torch.autograd.Function):
+    """``body(*tensors)``, saving only ``tensors``; the backward reruns
+    ``body`` under ``torch.func.grad`` of its outputs paired with their
+    cotangents (``_Pairing``). ``generate_vmap_rule`` carries it through
+    a cohort's ``vmap``. ``torch.utils.checkpoint`` does not compose with
+    ``torch.func.grad`` (saved-tensor hooks); a backward that reruns the
+    body under ``torch.autograd.grad`` would call ``requires_grad_``
+    inside the transform; and ``torch.func.vjp``'s function runs after
+    its level has closed, where a nested recompute (the flash step inside
+    a recomputed layer) can no longer rerun its own body."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(body, *tensors):
+        return body(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.body = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xs = ctx.saved_tensors
+        diff = [i for i, x in enumerate(xs) if x.is_floating_point()]
+
+        def paired(*d):
+            full = list(xs)
+            for i, t in zip(diff, d):
+                full[i] = t
+            out = ctx.body(*full)
+            out = out if isinstance(out, tuple) else (out,)
+            return _Pairing.apply(len(out), *out, *grads)
+
+        # the rerun is recorded for this grad alone, not for the outer one
+        # (which records its backward for a second derivative: it would
+        # keep every recomputed layer alive to the end of the step)
+        with torch.no_grad():
+            got = torch.func.grad(paired, argnums=tuple(range(len(diff))))(
+                *(xs[i] for i in diff))
+        out = [None] * len(xs)
+        for i, g in zip(diff, got):
+            out[i] = g
+        return (None,) + tuple(out)
+
+
+def recompute(body, *tensors):
+    """``body(*tensors)`` (a tensor or a tuple of tensors out) whose
+    backward pass recomputes it from ``tensors`` instead of keeping its
+    intermediates: the reference's ``jax.checkpoint``. Everything else
+    ``body`` reads (a config, a Python-int window) is closed over; a
+    tensor that is batched under ``vmap`` (a user's activations, params
+    or encoder output) must be one of ``tensors``. The saved inputs are
+    the caller's tensors themselves (a layer's params are views of the
+    stack, never copies). The backward runs the same ops as the route
+    without recompute, so the gradients keep their bits."""
+    return _Recompute.apply(body, *tensors)
+
+
 def _device(key):
     return key.device if isinstance(key, torch.Generator) else \
         torch.device(key)

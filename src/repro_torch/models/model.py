@@ -22,10 +22,12 @@ which have none, and a cross block's encoder keys and values
 add interleaved sin / cos positions, and ``decode_step`` the
 concatenated halves of ``layers.sinusoidal_positions_dynamic``.
 
-The dry-run levers ``flash_chunk_remat`` and ``shard_activations``
-raise ``NotImplementedError``. ``cfg.remat`` (activation checkpointing)
-only trades memory in a backward pass and is not reproduced: the values
-are the same.
+The memory levers are honoured: ``cfg.remat`` (on in every published
+config) runs each layer of a training forward through
+``layers.recompute``, and ``flash_chunk_remat`` each kv chunk of the
+flash loop; the backward pass recomputes them, and the values and
+gradients keep their bits. ``shard_activations`` (a sharding
+constraint over a device mesh) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import apply_block, init_block, \
     make_block_cache
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 #: DeepSeek-V3's weight of the multi-token-prediction loss
 MTP_WEIGHT = 0.3
@@ -47,11 +49,11 @@ MTP_WEIGHT = 0.3
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run."""
-    for lever in ("flash_chunk_remat", "shard_activations"):
-        if getattr(cfg, lever):
-            raise NotImplementedError(
-                f"{lever}: a dry-run / hill-climb lever (ROADMAP.md Queue "
-                "A item 6), not ported; the port never ignores it")
+    if cfg.shard_activations:
+        raise NotImplementedError(
+            "shard_activations: a sharding constraint over a device mesh, "
+            "which the port does not build (one device runs every user); "
+            "the port never ignores it")
 
 
 # ----------------------------------------------------------- group layout
@@ -123,22 +125,54 @@ def _layer(tree, i):
 
 
 def _run_group(params_stack, x, *, cfg, block_type, windows, positions,
-               caches=None, enc_out=None, chunk=1024):
+               caches=None, enc_out=None, chunk=1024, remat=False):
     """Apply a homogeneous block stack layer by layer. Returns (x,
-    new_caches (layer-stacked, or None), aux_sum)."""
+    new_caches (layer-stacked, or None), aux_sum). ``remat`` (with no
+    caches) runs each layer through ``layers.recompute``: the backward
+    pass recomputes the layer from its input, its params (views of the
+    stack) and ``positions`` / ``enc_out``, as the reference's
+    ``jax.checkpoint`` of the scan body does."""
     gcfg = _group_cfg(cfg, block_type)
     new, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for i, w in enumerate(windows):
-        x, c, a = apply_block(
-            _layer(params_stack, i), x, cfg=gcfg, block_type=block_type,
-            positions=positions, window=w,
-            cache=None if caches is None else _layer(caches, i),
-            enc_out=enc_out, chunk=chunk)
+        p = _layer(params_stack, i)
+        if remat and caches is None:
+            x, a = _recompute_block(p, x, cfg=gcfg, block_type=block_type,
+                                    positions=positions, window=w,
+                                    enc_out=enc_out, chunk=chunk)
+            c = None
+        else:
+            # a layer's own alias of ``enc_out``: its two uses' gradients
+            # (the cross keys' and values') are summed before they join the
+            # other layers', as under ``recompute``, so the two routes give
+            # the encoder the same bits
+            x, c, a = apply_block(
+                p, x, cfg=gcfg, block_type=block_type, positions=positions,
+                window=w, cache=None if caches is None else _layer(caches, i),
+                enc_out=None if enc_out is None else enc_out.view_as(enc_out),
+                chunk=chunk)
         new.append(c)
         aux = aux + a
     if caches is None:
         return x, None, aux
     return x, tree_map(lambda *ls: torch.stack(ls), *new), aux
+
+
+def _recompute_block(params, x, *, positions, enc_out, **kw):
+    """One layer's ``apply_block`` (no cache) through ``recompute``: the
+    layer's param dict goes in as its leaves in ``tree_leaves`` order and
+    is rebuilt inside the body. Returns (x, aux)."""
+    leaves = tree_leaves(params)
+    n = len(leaves)
+
+    def body(x, positions, *rest):
+        y, _, a = apply_block(
+            tree_unflatten(params, rest[:n]), x, positions=positions,
+            enc_out=rest[n] if len(rest) > n else None, **kw)
+        return y, a
+
+    extra = () if enc_out is None else (enc_out,)
+    return L.recompute(body, x, positions, *leaves, *extra)
 
 
 def _positions(offset, length, device):
@@ -156,7 +190,7 @@ def encode_audio(params, frames, cfg, chunk=1024):
     x, _, _ = _run_group(
         params["encoder"], x, cfg=cfg, block_type="encoder",
         windows=[0] * cfg.encoder_layers,
-        positions=_positions(0, T, x.device), chunk=chunk)
+        positions=_positions(0, T, x.device), chunk=chunk, remat=cfg.remat)
     return L.apply_norm(params["enc_norm"], x, cfg.norm)
 
 
@@ -197,7 +231,8 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
         g_caches = caches.get(name) if caches is not None else None
         x, g_new, aux = _run_group(
             params[name], x, cfg=cfg, block_type=btype, windows=windows,
-            positions=pos, caches=g_caches, enc_out=enc_out, chunk=chunk)
+            positions=pos, caches=g_caches, enc_out=enc_out, chunk=chunk,
+            remat=cfg.remat and caches is None)
         if new_caches is not None:
             new_caches[name] = g_new
         aux_total = aux_total + aux

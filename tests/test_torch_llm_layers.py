@@ -272,7 +272,8 @@ def test_gqa_decode_against_jax():
 def test_mla_raises_until_its_slice():
     """MLA's slice has landed: its params and latent cache take the
     reference's layout (``tests/test_torch_llm_moe.py`` holds its values
-    against JAX); the flash-chunk recompute lever still raises."""
+    against JAX); the flash-chunk recompute lever, which raised until
+    it was ported, gives the values it gives off."""
     jc, tc = _pair(attention_type="mla")
     want = jax.eval_shape(lambda k: jatt.init_attention(k, jc, jnp.float32),
                           jax.random.PRNGKey(0))
@@ -285,12 +286,14 @@ def test_mla_raises_until_its_slice():
     jcache = jatt.make_kv_cache(jc, 1, 4, jnp.float32)
     assert sorted(cache) == sorted(jcache) == ["k", "pos"]
     assert tuple(cache["k"].shape) == tuple(jcache["k"].shape)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tatt.flash_attention(torch.zeros(1, 1, 1, 1, 4),
-                             torch.zeros(1, 2, 1, 4), torch.zeros(1, 2, 1, 4),
-                             q_positions=torch.zeros(1, dtype=torch.int32),
-                             k_positions=torch.zeros(2, dtype=torch.int32),
-                             chunk_remat=True)
+    # ``chunk_remat`` is honoured (it raised while unported): the same
+    # values as without it
+    args = (torch.zeros(1, 1, 1, 1, 4), torch.ones(1, 2, 1, 4),
+            torch.arange(8.0).reshape(1, 2, 1, 4))
+    kw = dict(q_positions=torch.ones(1, dtype=torch.int32),
+              k_positions=torch.arange(2, dtype=torch.int32), chunk=1)
+    assert torch.equal(tatt.flash_attention(*args, chunk_remat=True, **kw),
+                       tatt.flash_attention(*args, **kw))
 
 
 def test_truncated_normal_init_in_distribution():

@@ -342,10 +342,21 @@ def test_unported_families_raise():
 @pytest.mark.parametrize("lever,value", [("flash_chunk_remat", True),
                                          ("shard_activations", ("data",))])
 def test_unported_levers_raise(lever, value, cases):
+    """``shard_activations`` (a mesh's sharding constraint) raises in
+    every entry point. ``flash_chunk_remat`` is ported (it raised while
+    it was not; the name is kept): it builds and runs, with ``forward``'s
+    values unchanged (its bits through a gradient step are held in
+    ``tests/test_torch_llm_remat.py``)."""
     c = case(cases, "yi-9b")
     cfg = dataclasses.replace(c.tc, **{lever: value})
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    if lever == "flash_chunk_remat":
+        assert torch.equal(tm.forward(c.tp, tokens, cfg, chunk=2)[0],
+                           tm.forward(c.tp, tokens, c.tc, chunk=2)[0])
+        tm.init_params(0, cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=lever):
-        tm.forward(c.tp, torch.zeros((1, 4), dtype=torch.int32), cfg)
+        tm.forward(c.tp, tokens, cfg)
     with pytest.raises(NotImplementedError, match=lever):
         tm.init_params(0, cfg, device="cpu")
 

@@ -714,11 +714,19 @@ def test_local_step_row_bits_twin_at_four_threads(arch, users, four_threads,
     2-lane sweep's first step), at 4 threads, aten op by aten op: no
     op's output bits over lane 0's rows may differ, and the gradients
     and losses are the same bits."""
+    local_step_row_bits_twin(arch, users, monkeypatch)
+
+
+def local_step_row_bits_twin(arch, users, monkeypatch, cfg_fields=None):
+    """The body of ``test_local_step_row_bits_twin_at_four_threads``, for
+    the cell's reduced config with ``cfg_fields`` replaced (the memory
+    levers)."""
     from repro_torch.launch import train as ttrain
     argv = ["--arch", arch, "--users", str(users), "--k", "2", "--llm-seq",
             "16", "--llm-seqs-per-user", "4", "--batch-size", "2",
             "--rounds", "1", "--device", "cpu"]
-    eng = ttrain.build_llm_engine(ttrain.make_parser().parse_args(argv))
+    eng = ttrain.build_llm_engine(ttrain.make_parser().parse_args(argv),
+                                  cfg_fields=cfg_fields)
     be = eng.backend
     be._ensure_xstack()
     batch = tree_map(lambda a: a[:, 0], be._fused_batches())

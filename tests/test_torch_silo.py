@@ -21,6 +21,7 @@ import torch
 
 from repro.configs.registry import get_config as jget
 from repro.core import silo as jsilo
+from repro.core.priority import layer_distance_ratios as j_ratios
 from repro.core.priority import model_priority as j_model_priority
 from repro.data import make_token_stream
 from repro.engine import ExperimentSpec as JSpec
@@ -30,8 +31,8 @@ from repro.models.model import init_params as j_init
 from repro_torch.configs.registry import get_config as tget
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import silo as tsilo
-from repro_torch.core.priority import model_priority, \
-    stacked_model_priorities
+from repro_torch.core.priority import layer_distance_ratios, \
+    model_priority, stacked_model_priorities
 from repro_torch.engine import ExperimentSpec, FLEngine, SiloBackend
 from repro_torch.engine.backends import SiloBackend as BackendsSilo
 from repro_torch.tree import tree_leaves, tree_map
@@ -136,12 +137,49 @@ def test_stacked_delta_norm_matches_reference(setup):
     prios = stacked_model_priorities(stacked, tp)
     np.testing.assert_allclose(float(prios[0]),
                                float(model_priority(local, tp)), rtol=1e-6)
-    # tests/test_silo.py's own bar for this product of 12 ratios
+    # tests/test_silo.py's own bar for this product of 12 ratios: the
+    # reference's side drifts ~1e-5 off the exact sums (a reference fault,
+    # test_eq2_product_is_nearer_the_f64_sums_than_the_reference's)
     np.testing.assert_allclose(float(prios[0]), float(j_model_priority(
         jax.tree.map(lambda p: p + 0.01, jp), jp)), rtol=1e-4)
     assert float(prios[1]) == 1.0
     assert tsilo.silo_batch_struct(tc, 3, 4, 8)["tokens"].shape == \
         jsilo.silo_batch_struct(jc, 3, 4, 8)["tokens"].shape
+
+
+def test_eq2_product_is_nearer_the_f64_sums_than_the_reference(setup):
+    """Every leaf of the reduced phi3-mini moved by 0.01: the port's
+    per-leaf ratios and Eq. 2 product (``model_priority``, row 0 of
+    ``stacked_model_priorities``) within rtol 1e-6 of the same ratios
+    from float64 sums of the same f32 deltas. The reference's product
+    lands further off: on the CPU its ``delta_norm`` is a plain
+    ``jnp.sum`` of f32 squares (``repro/kernels/ref.py::delta_norm_ref``),
+    which drifts ~1e-5 over a 1.3e5-element leaf under XLA's CPU
+    reduction (ROADMAP, reference faults). Should the reference ever come
+    nearer than the port, this fails and the record is to be revised."""
+    _, jp, _, _, tp, _ = setup
+    local = tree_map(lambda p: p + 0.01, tp)
+    exact = []
+    for wl, wg in zip(tree_leaves(local), tree_leaves(tp)):
+        d = (wl - wg).double()                 # the f32 delta, summed in f64
+        g = wg.double()
+        r = float(torch.sqrt((d * d).sum())
+                  / torch.sqrt((g * g).sum()).clamp(min=1e-12))
+        exact.append(min(r, 1.0))
+    prod = float(np.prod([1.0 + r for r in exact]))
+    got = [float(r) for r in layer_distance_ratios(local, tp)]
+    np.testing.assert_allclose(got, exact, rtol=1e-6)
+    stacked = tree_map(lambda a, b: torch.stack([a, b]), local, tp)
+    port = [float(model_priority(local, tp)),
+            float(stacked_model_priorities(stacked, tp)[0])]
+    np.testing.assert_allclose(port, [prod, prod], rtol=1e-6)
+    jlocal = jax.tree.map(lambda p: p + 0.01, jp)
+    jprod = float(j_model_priority(jlocal, jp))
+    jgot = [float(r) for r in j_ratios(jlocal, jp)]
+    port_off = max(abs(p / prod - 1) for p in port)
+    assert abs(jprod / prod - 1) > port_off
+    assert max(abs(a / b - 1) for a, b in zip(jgot, exact)) > \
+        max(abs(a / b - 1) for a, b in zip(got, exact))
 
 
 def engine_pair(merge_dtype="float32", rounds=2):
