@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch / CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --mesh-only]
 
 Needs one NVIDIA GPU with the CUDA toolkit's ``nvcc``; fails at once
 without CUDA (there is no CPU path here). It
@@ -101,7 +101,15 @@ without CUDA (there is no CPU path here). It
      points, the active faults over three seeds); checkpoint / resume
      (``tools/kill_resume_smoke_torch.py`` on the card, a checkpointed
      fused, stacked and stale winner-sparse run of the MLP cell resumed
-     by fresh engines); then the LLM stack: the SGD step, Eq. 2 and the
+     by fresh engines); then the cohort split (``HostBackend(mesh=...)``
+     over a ``cohort_mesh`` of ``cuda:0`` D times, the chunks run in
+     turn): the MLP cell on a 1-device and a 2-way mesh, the 1000-user
+     cell fused and winner-sparse 4-way, the Fig. 3 sweep 2-way over its
+     lanes and a 3-lane sweep 2-way over its users, each bit-equal to
+     the unsplit run in turns, launches predicted exactly (with more than
+     one card visible, the 1000-user cells and the Fig. 3 sweep also
+     split over every card, chunk i on ``cuda:i``); then the LLM
+     stack: the SGD step, Eq. 2 and the
      gather merge on the reduced yi-9b, gemma2-27b, deepseek-v3 (56
      leaves: two launches of each leaf-list kernel), kimi-k2, mamba2-370m
      and hymba-1.5b leaf tables at 10 users, f32 and bf16 (each row's
@@ -155,7 +163,13 @@ without CUDA (there is no CPU path here). It
      a round exact, round ms, idle share and peak beside their bounds,
      and the memory levers off, as published (``remat``) and with
      ``flash_chunk_remat`` too, fresh engines in turns: peaks and round
-     ms, losses, priorities, winners and globals bit-equal —
+     ms, losses, priorities, winners and globals bit-equal; ``token_sum``
+     at every shape the ``--arch`` rounds and that cell launched it with,
+     against ``torch.sum`` and its byte bound; the dry run
+     (``launch/dryrun.py``, counted on the meta device) against the card:
+     parameter bytes of phi3-mini at 2 layers and yi-9b exactly, and the
+     counted FLOPs of the silo local step and of yi-9b's prefill against
+     the bounds' operation counts —
      with the launch counts set to zero just before each path and read
      just after;
   5. checks the result by the repository's own means: the pinned
@@ -182,6 +196,10 @@ without CUDA (there is no CPU path here). It
      and the
      contention invariants and numpy parity of
      ``tests/test_contention_device.py``.
+
+``--mesh-only`` builds the kernels and runs the cohort split's phase
+alone, then ends with ``{"ok": true, "mesh_only": true, ...}``: run it
+on a machine with several cards to drive the split across them.
 
 ``--profile`` adds ``torch.profiler`` passes over a few rounds of each
 path through ``FLEngine.run`` after a warm-up run, the MLP cell's
@@ -244,6 +262,8 @@ from repro_torch.kernels import delta_norm as kdn          # noqa: E402
 from repro_torch.kernels import fused_sgd as kfused        # noqa: E402
 from repro_torch.kernels import ops, ref                  # noqa: E402
 from repro_torch.kernels import server_opt as kso          # noqa: E402
+from repro_torch.launch import dryrun as launch_dryrun    # noqa: E402
+from repro_torch.launch import mesh as launch_mesh        # noqa: E402
 from repro_torch.launch import serve as launch_serve      # noqa: E402
 from repro_torch.launch import steps as launch_steps      # noqa: E402
 from repro_torch.launch import train as launch_train      # noqa: E402
@@ -253,12 +273,16 @@ from repro_torch.models import model as llm               # noqa: E402
 from repro_torch.models.paper_models import get_paper_model  # noqa: E402
 from repro_torch.objectives import ObjectiveSpec          # noqa: E402
 from repro_torch.optim import sgd_momentum_update         # noqa: E402
+from repro_torch.sharding import cohort_mesh              # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map        # noqa: E402
 
 DEV = torch.device("cuda")
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
-F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
+#: the card's rates, one set for the bounds here and the dry run's
+#: roofline (``launch/mesh.py``): H100 SXM HBM, f32 outside the tensor
+#: cores, dense bf16 on them
+HBM_BYTES_PER_S = launch_mesh.HBM_BW
+F32_FLOPS_PER_S = launch_mesh.PEAK_FLOPS_F32
+BF16_FLOPS_PER_S = launch_mesh.PEAK_FLOPS_BF16
 LR = 1e-2
 
 #: tolerances of the CPU parity tests: f32 rtol 1e-5 / atol 1e-6; bf16
@@ -5440,6 +5464,315 @@ def routed_parity(glog, fwd, rel_rows, B, P, K):
                 router_max_gap=max(router), flipped=flipped)
 
 
+# ------------------------------------------------- the cohort split
+def mesh_engine(cohort, mode, mesh, **spec):
+    """``cohort_engine`` with ``mesh`` handed to the backend."""
+    return build_host_engine(
+        dataclasses.replace(cohort["spec"], **spec), cohort["init"],
+        cohort["loss"], cohort["data"], cohort["eval_fn"], round_mode=mode,
+        mesh=mesh, device="cuda")
+
+
+def split_expected(plain, engine, rounds, D, lanes=1, over_lanes=False,
+                   prio=True):
+    """The launches of a D-way split run, from the unsplit run's: the
+    split training pass (the fused round, the sweep, or the sparse
+    winner retrain) launches the SGD step once a chunk a local step, and
+    Eq. 2 (when the strategy reads priorities, or on the sparse retrain)
+    once a chunk over the chunk's lanes' leaves, where the unsplit pass
+    launches each once; the merge and contention are the unsplit run's.
+    A 1-long mesh: the unsplit launches."""
+    if D == 1:
+        return dict(plain)
+    be = engine.backend
+    L = len(tree_leaves(engine.global_params))
+    step = -(-L // kfused.max_leaves()) * be._nb * engine.spec.local_epochs
+    per_chunk = [lanes // D] * D if over_lanes else [lanes] * D
+    dn = (sum(-(-e * L // kdn.max_leaves()) for e in per_chunk)
+          - -(-lanes * L // kdn.max_leaves()))
+    want = dict(plain)
+    want["fused_sgd"] += (D - 1) * step * rounds
+    if prio:
+        want["delta_norm"] += dn * rounds
+    return want
+
+
+def mesh_case(name, make, call, meshes, rounds, expect, same):
+    """One case of ``phase_mesh_paths``: the runs ``call(make(mesh))`` for
+    no mesh and each of ``meshes`` in turns (none, then each mesh, then
+    each mesh again, then none), each timed with its launches counted
+    (``timed``); every mesh run bit-equal to the first unsplit run
+    (``same``) and its launches equal to ``expect(plain launches, D,
+    engine)`` exactly; a split run trains at least one chunk more a round
+    than the unsplit run, a 1-device mesh none. Returns the case's line
+    fields and the launches of its widest split."""
+    order = [None] + list(meshes) + list(meshes) + [None]
+    runs, round_ms, launches, chunks = {}, {}, {}, {}
+    for mesh in order:
+        key = mesh_key(mesh)
+        engine = make(mesh)
+        be, passes = engine.backend, [0]
+        for method in ("_train_rows", "_train_lanes"):
+            def counted(*a, _f=getattr(be, method), **k):
+                passes[0] += 1
+                return _f(*a, **k)
+            setattr(be, method, counted)
+        res, dt, l, round_s, _ = timed(engine, call)
+        chunks.setdefault(key, passes[0])
+        more = passes[0] - chunks["none"]
+        if (more >= rounds) != (key not in ("none", "1dev")) or (
+                key == "1dev" and more):
+            raise AssertionError(f"{name}/{key}: {passes[0]} chunk "
+                                 f"trainings against {chunks['none']} "
+                                 f"unsplit in {rounds} rounds")
+        round_ms.setdefault(key, []).append(
+            1e3 * statistics.median(round_s[1:]))
+        got = res if hasattr(res, "final_globals") else (
+            res, [x.clone() for x in tree_leaves(engine.global_params)])
+        if key not in runs:
+            runs[key], launches[key] = got, l
+        elif not same(runs[key], got):
+            raise AssertionError(f"{name}/{key}: two runs differ")
+        if key != "none":
+            D = mesh.size
+            want = expect(launches["none"], D, engine)
+            if l != want:
+                raise AssertionError(f"{name}/{key}: launches {l}, "
+                                     f"predicted {want}")
+            if not same(runs["none"], got):
+                raise AssertionError(f"{name}/{key}: the split run is not "
+                                     "bit-equal to the unsplit run")
+        del engine
+        torch.cuda.empty_cache()
+    widest = max(launches, key=lambda k: 0 if k == "none" else
+                 (1 if k == "1dev" else int(k.rstrip("waycards"))))
+    fields = dict(
+        rounds=rounds, order=[("none" if m is None else str(m.size))
+                              for m in order],
+        ms_a_round=round_ms,
+        vs_unsplit={k: statistics.mean(v) / statistics.mean(
+            round_ms["none"]) for k, v in round_ms.items()},
+        launches_per_round={k: per_round(v, rounds)
+                            for k, v in launches.items()},
+        chunk_trainings=chunks, bit_equal_to_unsplit=True)
+    return fields, launches[widest]
+
+
+def mesh_key(mesh):
+    """A run's name in ``mesh_case``: ``none``, ``1dev``, ``<D>way`` (one
+    card D times) or ``<D>cards`` (D distinct cards)."""
+    if mesh is None:
+        return "none"
+    if mesh.size == 1:
+        return "1dev"
+    distinct = len({str(d) for d in np.asarray(mesh.devices).ravel()})
+    return f"{mesh.size}{'cards' if distinct > 1 else 'way'}"
+
+
+def same_run(a, b):
+    """Two single runs (history, global leaves) hold the same bits."""
+    return route_gap(a, b)["bitwise"]
+
+
+def phase_mesh_paths():
+    """The cohort split (``HostBackend(mesh=...)``) on one card: a mesh
+    over ``cuda:0`` D times runs the D chunks in turn, each with the
+    kernels of the unsplit path. Cases, each against no mesh in turns:
+    the MLP cell (10 users, k = 2, 20 rounds, ``run``: the E = 1 sweep
+    split over its users) on a 1-device mesh and a 2-way one; the MLP at
+    1000 users, k = 64, fused (``run``) and winner-sparse with the
+    prepass (the (64, ...) winner stack split), 3 rounds, 4-way; the
+    Fig. 3 sweep (E = 8, 20 rounds) 2-way over its lanes and a 10-user E =
+    3 sweep 2-way over its users. Every split run bit-equal to the
+    unsplit run (winners, losses, priorities, globals), its launches
+    predicted exactly (``split_expected``). One card runs the chunks one
+    after another: the split is a correctness witness here, not a speed
+    path. With more than one card visible, the 1000-user cases and the
+    Fig. 3 sweep also run split over every card (``cohort_mesh()``, chunk
+    i on ``cuda:i``) where the card count divides their stacks. Returns
+    the launches of the 2-way Fig. 3 sweep."""
+    one, two, four = (cohort_mesh([DEV]), cohort_mesh([DEV] * 2),
+                      cohort_mesh([DEV] * 4))
+    n_cards = torch.cuda.device_count()
+
+    def cards(*counts):
+        return ([cohort_mesh()] if n_cards > 1
+                and all(c % n_cards == 0 for c in counts) else [])
+    lines = {}
+    mlp = cohort_of(paper_engine("mlp", 20))
+    fields, _ = mesh_case(
+        "mesh_mlp", lambda m: mesh_engine(mlp, "fused", m),
+        lambda e: e.run(), [one, two], 20,
+        lambda l, D, e: split_expected(l, e, 20, D), same_run)
+    lines["mlp_U10"] = fields
+    big = cohort_of(paper_engine("mlp", 3, *U1000))
+    fields, _ = mesh_case(
+        "mesh_mlp_U1000_fused", lambda m: mesh_engine(big, "fused", m),
+        lambda e: e.run(), [four] + cards(1000), 3,
+        lambda l, D, e: split_expected(l, e, 3, D), same_run)
+    lines["mlp_U1000_fused"] = fields
+    fields, _ = mesh_case(
+        "mesh_mlp_U1000_sparse", lambda m: mesh_engine(big, "sparse", m),
+        lambda e: e.run(), [four] + cards(64), 3,
+        lambda l, D, e: split_expected(l, e, 3, D), same_run)
+    lines["mlp_U1000_sparse"] = fields
+    del big
+    torch.cuda.empty_cache()
+    fig3 = SweepSpec.grid(mlp["spec"], strategy=list(PAPER_STRATEGIES),
+                          seed=[0, 1])
+    fields, l_fig3 = mesh_case(
+        "mesh_sweep_fig3", lambda m: mesh_engine(mlp, "fused", m),
+        lambda e: e.run_sweep(fig3), [two] + cards(8), 20,
+        lambda l, D, e: split_expected(l, e, 20, D, lanes=8,
+                                       over_lanes=True),
+        same_sweep)
+    lines["sweep_fig3_over_lanes"] = fields
+    seeds3 = SweepSpec.grid(mlp["spec"], seed=[0, 1, 2])
+    fields, _ = mesh_case(
+        "mesh_sweep_U10_E3", lambda m: mesh_engine(mlp, "fused", m),
+        lambda e: e.run_sweep(seeds3), [two], 20,
+        lambda l, D, e: split_expected(l, e, 20, D, lanes=3), same_sweep)
+    lines["sweep_E3_over_users"] = fields
+    emit("mesh_paths", cases=lines, cards=n_cards,
+         note="<D>way: one card, the D chunks run one after another; "
+              "<D>cards: chunk i on cuda:i")
+    return l_fig3
+
+
+def phase_dryrun_witness():
+    """The dry run (``launch/dryrun.py``, counted on the meta device)
+    against the card. Parameter bytes: phi3-mini at 2 layers (the
+    ``silo_round_full`` model) and yi-9b whole, bf16, as the dry run
+    sizes them on one card, against ``init_params`` on the card: the
+    tensors' bytes exactly, and the allocator's growth no less than
+    their 512-byte blocks and no more than 1 MiB a leaf above them (a
+    large-pool block keeps a remainder under 1 MiB unsplit). FLOPs: the
+    counted FLOPs of ``silo_round_full``'s local step (4 silos x 4 x 1024
+    tokens; remat off and on, as published) against
+    ``silo_round_work``'s operations, and of yi-9b's 4 x 512 prefill
+    against the serving bound's (2 a weight a token); the gaps printed,
+    the remat-off step and the prefill within 5 %; the card's
+    ``total_memory`` against ``launch/mesh.py``'s ``HBM_BYTES``."""
+    from repro_torch.core.silo import make_fl_round_step, silo_batch_struct
+    from repro_torch.core.silo import stack_for_silos
+    c = SILO_FULL
+    phi = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"])
+    yi = get_config("yi-9b")
+    total = torch.cuda.get_device_properties(0).total_memory
+    params = {}
+    for label, cfg in (("phi3_mini_2_layers", phi), ("yi9b", yi)):
+        want = launch_dryrun.param_bytes(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        p = llm.init_params(gen, cfg, device=DEV)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        held = sum(t.numel() * t.element_size() for t in tree_leaves(p))
+        blocks = sum(-(-t.numel() * t.element_size() // 512) * 512
+                     for t in tree_leaves(p))
+        params[label] = dict(dryrun_bytes=want, tensor_bytes=held,
+                             allocator_growth=grown, in_blocks=blocks,
+                             unsplit_remainders=grown - blocks)
+        leaves = len(tree_leaves(p))
+        del p
+        torch.cuda.empty_cache()
+        if held != want or not 0 <= grown - blocks < leaves * 2**20:
+            emit("dryrun_witness", params=params)
+            raise AssertionError(f"dryrun_witness: {label}'s parameter "
+                                 f"bytes {params[label]}")
+    shapes = {"/".join(k): tuple(v.shape)
+              for k, v in _paths(launch_steps.params_struct(phi))}
+    work = silo_round_work(phi, shapes, c["silos"], c["batch"], c["seq"])
+    flops = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(phi, remat=remat)
+        step = make_fl_round_step(cfg, do_merge=False)
+        stacked = stack_for_silos(launch_steps.params_struct(cfg),
+                                  c["silos"])
+        batch = silo_batch_struct(cfg, c["silos"], c["batch"], c["seq"])
+        alphas = torch.empty((c["silos"],), device="meta")
+        _, counted, _ = launch_dryrun.count(step, stacked, batch, alphas)
+        bound = work["bf16_ops"] + work["f32_ops"]
+        flops[f"silo_local_step_remat_{'on' if remat else 'off'}"] = dict(
+            counted=counted, bound_ops=bound, gemm_ops=work["bf16_ops"],
+            attention_ops_causal=work["f32_ops"], rel_gap=counted / bound - 1)
+    B, S = YI_FULL["batch"], YI_FULL["prompt"]
+    ystruct = launch_steps.params_struct(yi)
+    n = launch_dryrun.count_params(ystruct)
+    dense = n - int(np.prod(ystruct["embed"]["embedding"].shape))
+    caches = llm.make_caches(yi, B, S + YI_FULL["gen"], device="meta")
+    toks = {"tokens": torch.empty((B, S), dtype=torch.int32, device="meta")}
+    with torch.no_grad():
+        _, counted, _ = launch_dryrun.count(
+            launch_steps.make_prefill_step(yi), ystruct, caches, toks)
+    flops["yi9b_prefill_4x512"] = dict(
+        counted=counted, bound_ops=2.0 * dense * B * S,
+        rel_gap=counted / (2.0 * dense * B * S) - 1)
+    emit("dryrun_witness", params=params, flops=flops,
+         total_memory=total, hbm_bytes_constant=launch_mesh.HBM_BYTES,
+         card=torch.cuda.get_device_name(0))
+    for key in ("silo_local_step_remat_off", "yi9b_prefill_4x512"):
+        if abs(flops[key]["rel_gap"]) > 0.05:
+            raise AssertionError(f"dryrun_witness: {key} counted "
+                                 f"{flops[key]}")
+    if (torch.cuda.get_device_name(0) == "NVIDIA H100 80GB HBM3"
+            and total != launch_mesh.HBM_BYTES):
+        raise AssertionError(f"dryrun_witness: total_memory {total} is not "
+                             f"launch/mesh.py's HBM_BYTES "
+                             f"{launch_mesh.HBM_BYTES}")
+
+
+#: the (rows, tokens, columns) shapes of every ``token_sum`` launch on the
+#: card, by the phase that made it (``recording_token_sums``)
+TOKEN_SUM_SEEN = {}
+
+
+@contextlib.contextmanager
+def recording_token_sums(label):
+    """``ops.token_sum`` counting the shape of every call on the card."""
+    inner = ops.token_sum
+    seen = TOKEN_SUM_SEEN.setdefault(label, Counter())
+
+    def spy(x):
+        if x.is_cuda:
+            seen[tuple(x.shape)] += 1
+        return inner(x)
+    ops.token_sum = spy
+    try:
+        yield
+    finally:
+        ops.token_sum = inner
+
+
+def phase_token_sum_shapes():
+    """``token_sum`` at every shape the ``--arch`` rounds and
+    ``silo_round_full`` launched it with (``TOKEN_SUM_SEEN``): the
+    kernel's and ``torch.sum(dim=1)``'s time from a CUDA graph and the
+    byte bound (the input read once, the output written once), each
+    shape with its calls in the phases that made it."""
+    shapes = Counter()
+    where = {}
+    for label, seen in TOKEN_SUM_SEEN.items():
+        for shape, calls in seen.items():
+            shapes[shape] += calls
+            where.setdefault(shape, []).append(label)
+    rows = []
+    for i, shape in enumerate(sorted(shapes)):
+        R, N, C = shape
+        nxt = rotating(lambda k: randn(7000 + 10 * i + k, shape,
+                                       torch.float32), 4)
+        nbytes = 4 * R * C * (N + 1)
+        rows.append(dict(
+            shape=list(shape), calls=shapes[shape], phases=where[shape],
+            graph_ms=graph_ms(lambda: ops.token_sum(nxt())),
+            torch_sum_graph_ms=graph_ms(lambda: torch.sum(nxt(), dim=1)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes))
+        torch.cuda.empty_cache()
+    emit("token_sum_shapes", rows=rows)
+
+
 def _paths(tree, prefix=()):
     """(key path, leaf) pairs of a nested dict, in tree order."""
     if isinstance(tree, dict):
@@ -5467,6 +5800,13 @@ def main():
     emit("build", seconds=time.perf_counter() - t0,
          nvcc=kbuild.find_nvcc(), flags=" ".join(kbuild.NVCC_FLAGS),
          libraries=sorted(os.path.basename(str(p)) for p in built.values()))
+    if "--mesh-only" in sys.argv[1:]:
+        phase_mesh_paths()
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "mesh_only": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # ---- every kernel against its plain version ----------------------
     # the leaf shapes are read off the models the main path trains, so a
@@ -5655,10 +5995,14 @@ def main():
     l_ssp = phase_sweep_mlp_u1000_sparse()
     l_slay = phase_sweep_layers()
     phase_kill_resume()
+    l_mesh = phase_mesh_paths()
 
     # ---- the LLM stack: --arch rounds, serving, full-width leaves -------
     llm_worst, llm_rel = phase_llm_kernels()
-    l_llm = {tag: phase_llm_fl_round(tag) for tag in LLM_CELLS}
+    l_llm = {}
+    for tag in LLM_CELLS:
+        with recording_token_sums(f"llm_fl_round_{tag}"):
+            l_llm[tag] = phase_llm_fl_round(tag)
     phase_llm_token_sum_routes()
     phase_llm_serve_reduced()
     full_worst = phase_llm_serve_yi9b_full()
@@ -5669,7 +6013,10 @@ def main():
 
     # ---- the cross-silo path --------------------------------------------
     l_silo = phase_silo_round()
-    l_silo_full = phase_silo_round_full()
+    with recording_token_sums("silo_round_full"):
+        l_silo_full = phase_silo_round_full()
+    phase_token_sum_shapes()
+    phase_dryrun_witness()
     for k, per in llm_worst.items():
         for key, (e, b) in per.items():
             worst[k][key] = max(worst[k][key], e)
@@ -5778,6 +6125,7 @@ def main():
             launches_U1000_sparse_stale=l_sps[name],
             launches_U1000_sparse_layers=l_splay.get(name, 0),
             launches_sweep_U1000_sparse=l_ssp[name],
+            launches_mesh_sweep_fig3=l_mesh[name],
             launches_llm_yi9b=l_llm["yi9b"][name],
             launches_llm_gemma2=l_llm["gemma2"][name],
             launches_llm_deepseek=l_llm["deepseek"][name],

@@ -107,8 +107,28 @@ Two implementations:
                         E * K_max rows and merges each lane on its
                         (K_max, ...) view.
 
-               Cohort sharding (``mesh``) is not ported yet and raises
-               ``NotImplementedError``. Nothing downgrades silently.
+               cohort split (``mesh``, a ``sharding.cohort_mesh``):
+                        where the reference shards its cohort axis (the
+                        ``sharding/cohort.py`` predicates: a ``"cohort"``
+                        axis of size D > 1 that divides U, the sparse
+                        path's K_max, or a sweep's E or U), the stack is
+                        D contiguous chunks, chunk i on the mesh's i-th
+                        device (made the current CUDA device for its
+                        work), each trained and reduced by Eq. 2 with
+                        the same kernels (one launch a chunk); a merge
+                        copies the rows it reads onto the backend's
+                        device in delivery order and runs there as
+                        above, and the new global goes back to every
+                        chunk. Under a split of the fused or sparse
+                        stack each user's data lives on its chunk's
+                        device. The paths read every stack as chunks
+                        (``chunks_of``): an unsplit stack is one chunk,
+                        so one code path serves both. A row's result
+                        does not depend on the rows beside it, so a
+                        split run is bit-equal to the unsplit run. Where
+                        the reference runs unsplit (no mesh, a 1-long
+                        axis, no cohort axis, a count the axis does not
+                        divide) so does this.
 
   SiloBackend  the cross-silo path (``core/silo.py``): one FL user a
                silo, every silo's local step in one ``vmap`` (the
@@ -128,6 +148,7 @@ float32, and cuDNN would otherwise run the CNN's convolutions in TF32.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from dataclasses import dataclass
@@ -149,6 +170,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.contention import counter_key, counter_uniform53
 from repro_torch.objectives.local import objective_epoch_scan
 from repro_torch.objectives.server import build_objective_table
+from repro_torch.sharding.cohort import (COHORT_AXIS, shardable,
+                                         sweep_sharding, sweep_shardable,
+                                         winner_shardable)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,6 +275,11 @@ class SweepState:
     ep*take) prepass draws for the winner retrain, and ``prio_cache``
     the (E, U) stale priorities of ``sparse_priority="stale"`` (None
     before the first round).
+
+    ``split`` is the dim a cohort split cuts the dense ``(E, U, ...)``
+    stack along (0: whole lanes a chunk, 1: users), or None; the stack
+    is then a ``_Split`` and the globals, m / v and h stay on the
+    backend's device.
     """
     num_lanes: int
     glob: List[Any]
@@ -262,6 +291,7 @@ class SweepState:
     h: Any = None
     pending: Any = None
     prio_cache: Optional[np.ndarray] = None
+    split: Optional[int] = None
 
 
 @dataclass
@@ -284,6 +314,106 @@ class SweepTrainResult:
             both = torch.stack((self.priorities, self.losses.float()))
             self.host = tuple(both.cpu().numpy().astype(np.float64))
         return self.host
+
+
+def _bounds(n: int, parts: int):
+    """``parts`` contiguous ``[lo, hi)`` ranges over ``n`` rows."""
+    return [(i * n // parts, (i + 1) * n // parts) for i in range(parts)]
+
+
+def _to(tree, dev):
+    """``tree`` on ``dev`` (the tensors themselves when already there)."""
+    return tree_map(lambda p: p.to(dev), tree)
+
+
+def _on(dev):
+    """The context a chunk's work on ``dev`` runs in: a CUDA device is
+    made current (a kernel wrapper launches on the current device only,
+    ``kernels/build.launch_stream``); nothing on any other device."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _pinned(dev) -> torch.device:
+    """``dev`` with its index: an index-less ``cuda`` means the current
+    device, which each chunk's work changes (``_on``). Raises as
+    ``resolve_device`` does for a CUDA device without CUDA."""
+    dev = resolve_device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _cat(xs, dim=0):
+    """The chunks' tensors ``xs`` as one (the tensor itself for one)."""
+    return xs[0] if len(xs) == 1 else torch.cat(xs, dim=dim)
+
+
+class _Split:
+    """A stack cut into chunks over the cohort mesh: ``parts[i]`` (a
+    pytree) holds the ``bounds[i]`` range of the cut dim on ``devs[i]``.
+    The cut dim is the rows of a ``(R, ...)`` stack, or on an ``(E, R,
+    ...)`` sweep stack (``lanes``) the lanes (``dim`` 0) or the users
+    (1). An unsplit stack is one chunk (``chunks_of``)."""
+
+    def __init__(self, parts, bounds, devs, lanes=False, dim=0):
+        self.parts, self.bounds, self.devs = parts, bounds, devs
+        self.lanes, self.dim = lanes, dim
+        self._his = np.asarray([hi for _, hi in bounds])
+
+    def chunks(self):
+        """``(part, lo, hi, dev, lane slice)`` for every chunk: the lane
+        slice is the sweep lanes the part holds (all on a user cut)."""
+        for part, (lo, hi), dev in zip(self.parts, self.bounds, self.devs):
+            lanes = (slice(lo, hi) if self.lanes and self.dim == 0
+                     else slice(None))
+            yield part, lo, hi, dev, lanes
+
+    def groups(self, ids):
+        """``(chunk, positions in ids, the chunk's own row ids)`` for each
+        chunk that holds some of the cut-dim ids ``ids``."""
+        own = np.searchsorted(self._his, ids, side="right")
+        return [(c, np.nonzero(own == c)[0], ids[own == c] - self.bounds[c][0])
+                for c in np.unique(own)]
+
+    @staticmethod
+    def in_order(outs, groups, dev):
+        """The pytrees ``outs`` (one a group of ``groups``, on ``dev``) as
+        one, their rows put back in the order of the ids."""
+        if len(outs) == 1:
+            return outs[0]
+        order = torch.from_numpy(np.argsort(
+            np.concatenate([g[1] for g in groups]), kind="stable")).to(dev)
+        return tree_map(lambda *ps: torch.cat(ps).index_select(0, order),
+                        *outs)
+
+    def rows(self, ids, dev, lane=0):
+        """A fresh ``(len(ids), ...)`` pytree on ``dev``: the rows ``ids``
+        (of lane ``lane`` on a sweep stack), in order."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if self.lanes and self.dim == 0:
+            c = int(np.searchsorted(self._his, lane, side="right"))
+            groups = [(c, np.arange(len(ids)), ids)]
+            view = lambda x: x[lane - self.bounds[c][0]]  # noqa: E731
+        else:
+            groups = self.groups(ids)
+            view = ((lambda x: x[lane]) if self.lanes  # noqa: E731
+                    else (lambda x: x))
+        return self.in_order([tree_map(
+            lambda x, c=c, loc=loc: torch.index_select(
+                view(x), 0, torch.from_numpy(loc).to(self.devs[c])).to(dev),
+            self.parts[c]) for c, _, loc in groups], groups, dev)
+
+
+def chunks_of(stack, lanes=False) -> _Split:
+    """``stack`` as chunks: a ``_Split`` as it is, any other stack (a
+    ``(R, ...)`` one, or an ``(E, R, ...)`` sweep stack with ``lanes``)
+    as one chunk on its own device. Every path reads a stack through
+    this, so the unsplit path is the one-chunk case of the split one."""
+    if isinstance(stack, _Split):
+        return stack
+    lead = tree_leaves(stack)[0]
+    return _Split([stack], [(0, lead.shape[0])], [lead.device], lanes)
 
 
 class Backend:
@@ -378,6 +508,14 @@ class HostBackend(Backend):
     Eq. 2 ordering (``sparse_priorities``).
     ``device``: where the cohort lives. ``None`` is the CUDA device and
     raises without one; only an explicit ``"cpu"`` runs on the CPU.
+    ``mesh``: an optional ``sharding.cohort_mesh``. Where the reference
+    would shard (``shardable(U)`` on the fused path, ``winner_shardable
+    (k_max)`` without an objective on the sparse one, ``sweep_shardable
+    (E, U)`` on a sweep) over a cohort axis of D > 1 devices, the stack
+    runs as D chunks, chunk i on the mesh's i-th device, made current for
+    the chunk's work (the module docstring); ``device=None`` is then the
+    mesh's first device. A device may repeat in the mesh: its chunks run
+    in turn.
     """
 
     def __init__(self, loss_fn, user_data: Sequence, *, lr: float = 1e-2,
@@ -399,9 +537,6 @@ class HostBackend(Backend):
             raise ValueError(
                 f"unknown sparse_priority {sparse_priority!r}; "
                 "known: ('prepass', 'stale')")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: sharding the cohort over devices is not ported yet")
         self._objective = objective
         obj_on = objective is not None and not objective.is_plain
         if obj_on and round_mode in ("stacked", "ragged"):
@@ -411,8 +546,28 @@ class HostBackend(Backend):
         # "stacked" / "fused" stack what they can, "ragged" never
         self._mode = round_mode
         self._prefer_vmap = round_mode != "ragged"
-        self.device = resolve_device(device)
         self.num_users = len(user_data)
+        self._k_max = int(k_max) if k_max else None
+        # the cohort split: the reference's predicates, then a cohort
+        # axis of more than one device (a 1-long axis splits nothing)
+        self._mesh = mesh
+        self._shard = shardable(self.num_users, mesh)
+        D = (mesh.shape[COHORT_AXIS]
+             if mesh is not None and COHORT_AXIS in mesh.shape else 1)
+        self._devs = None
+        if D > 1 and getattr(mesh, "devices", None) is not None:
+            axis = list(mesh.shape).index(COHORT_AXIS)
+            self._devs = [_pinned(d) for d in np.moveaxis(
+                np.asarray(mesh.devices), axis, 0).reshape(D, -1)[:, 0]]
+            device = _pinned(self._devs[0] if device is None else device)
+        self._split_fused = self._shard and D > 1
+        self._split_sparse = (D > 1 and bool(self._k_max)
+                              and winner_shardable(self._k_max, mesh)
+                              and not obj_on)
+        if (self._split_fused or self._split_sparse) and self._devs is None:
+            raise ValueError("a cohort split needs a mesh of devices, not "
+                             "a shape-only mesh")
+        self.device = resolve_device(device)
         self.heterogeneity = label_heterogeneity(user_data, num_classes)
         self.seed = seed                     # the clients' stream seed
         # Clients carry the per-user data, example counts and rng streams
@@ -425,7 +580,6 @@ class HostBackend(Backend):
         self._lr = lr
         self._batch_size = batch_size
         self._local_epochs = local_epochs
-        self._k_max = int(k_max) if k_max else None
         self._sparse_priority = sparse_priority
         self._sparse_chunk = int(sparse_chunk)
         self._epoch_run = sgd_epoch_scan(loss_fn, lr)
@@ -448,6 +602,10 @@ class HostBackend(Backend):
                 "per-user example counts >= batch_size): the objective "
                 "gradient law runs in the fused round only")
         self._xstack = None        # (U, n, ...) user data, on the device
+        # under a split of the fused or sparse stack: chunk i's users'
+        # (U_i, n, ...) data on the mesh's i-th device instead
+        # (``_ensure_xstack``)
+        self._xsplit = None
         # AirComp noise: ``(key, leaf_index, shape, device) -> N(0, 1)``
         # plane; tests swap in the reference's threefry planes here
         self._noise_draw = aircomp_noise
@@ -564,13 +722,22 @@ class HostBackend(Backend):
         """Stack the rectangular per-user data to (U, n, ...) ON THE
         DEVICE, once: per round only the host-drawn index matrix is
         uploaded, not the batches."""
-        if self._xstack is not None:
+        if self._xstack is not None or self._xsplit is not None:
             return
         self._nb = max(1, self.clients[0].num_examples // self._batch_size)
-        self._xstack = tree_map(
+        if not (self._split_fused or self._split_sparse):
+            self._xstack = tree_map(
+                lambda *xs: torch.from_numpy(
+                    np.stack([np.asarray(x) for x in xs])).to(self.device),
+                *[c.data for c in self.clients])
+            return
+        bounds = _bounds(self.num_users, len(self._devs))
+        self._xsplit = _Split([tree_map(
             lambda *xs: torch.from_numpy(
-                np.stack([np.asarray(x) for x in xs])).to(self.device),
-            *[c.data for c in self.clients])
+                np.stack([np.asarray(x) for x in xs])).to(dev),
+            *[c.data for c in self.clients[lo:hi]])
+            for (lo, hi), dev in zip(bounds, self._devs)],
+            bounds, self._devs)
 
     def _bcast(self, state, rows: Optional[int] = None):
         """A fresh contiguous (rows, ...) stack of the global (``rows``
@@ -602,12 +769,15 @@ class HostBackend(Backend):
 
     @staticmethod
     def _restack(new_glob, trained):
-        """Overwrite the trained stack's buffer with the broadcast of the
-        new global; it becomes next round's resident stack."""
+        """Overwrite the trained stack's buffer (every chunk's) with the
+        broadcast of the new global; it becomes next round's resident
+        stack."""
         with torch.no_grad():
-            return tree_map(
-                lambda g, l: l.copy_(g.unsqueeze(0).expand_as(l)),
-                new_glob, trained)
+            for part, _, _, dev, _ in chunks_of(trained).chunks():
+                with _on(dev):
+                    tree_map(lambda g, l: l.copy_(g.unsqueeze(0).expand_as(l)),
+                             _to(new_glob, dev), part)
+        return trained
 
     def _fused_merge_air(self, trained, idx, alphas, coeffs, sigma, key):
         """AirComp twin of ``_fused_merge``: per leaf, the noisy
@@ -632,7 +802,8 @@ class HostBackend(Backend):
     def _merge_fused_faults(self, state, trained, idx, winners, ctx):
         """Robust-guard twin of ``_fused_merge``: compact the dense (U,)
         fault-context weight / corruption vectors down to the (k_pad,)
-        merge candidates ``idx`` (pads: exact-zero weight, corruption 1.0
+        merge candidates ``idx`` (on the device; pads: exact-zero
+        weight, corruption 1.0
         = the passthrough branch), gather their rows ONCE (both the
         delta norms and the combine read them), stack the stale group,
         and run ``robust_merge``. ``state`` (the old global, the guard's
@@ -647,9 +818,7 @@ class HostBackend(Backend):
             w[:m] = np.asarray(ctx.weights, np.float32)[sel]
             c[:m] = np.asarray(ctx.corrupt, np.float32)[sel]
         with torch.no_grad():
-            rows_idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            rows = tree_map(lambda l: torch.index_select(l, 0, rows_idx),
-                            trained)
+            rows = tree_map(lambda l: torch.index_select(l, 0, idx), trained)
             stale, stale_w = self._stale_group(ctx.stale, state)
             new_glob, nq = robust_merge(
                 rows, w, c, state, stale, stale_w,
@@ -694,20 +863,32 @@ class HostBackend(Backend):
         clients (``_draw_perms`` of their streams, one lane)."""
         return self._draw_perms([[c._rng for c in self.clients]])[0]
 
-    def _gather_rows(self, rows, big_rows):
+    def _gather_rows(self, rows, big_rows, dev=None):
         """(R, ep*nb, bs, ...) round batches for the data rows ``rows``
         (user ids) under the per-row index matrix ``big_rows``
-        ((R, ep*take) slice of ``_draw_big``'s output): one device-side
-        fancy-index over the pre-stacked data."""
+        ((R, ep*take) slice of ``_draw_big``'s output), on ``dev`` (the
+        backend's device by default): one device-side fancy-index over
+        the pre-stacked data — under a cohort split one a chunk that
+        holds some of the rows, copied to ``dev`` and put in order."""
+        dev = self.device if dev is None else dev
+        if self._xsplit is None:
+            return _to(self._gather_from(self._xstack, rows, big_rows,
+                                         self.device), dev)
+        split, big_rows = self._xsplit, np.asarray(big_rows)
+        groups = split.groups(np.asarray(rows, np.int64))
+        return split.in_order([_to(self._gather_from(
+            split.parts[c], loc, big_rows[pos], split.devs[c]), dev)
+            for c, pos, loc in groups], groups, dev)
+
+    def _gather_from(self, xstack, rows, big_rows, dev):
         R = len(rows)
         bs, nb, E = self._batch_size, self._nb, self._local_epochs
-        r = torch.as_tensor(np.asarray(rows, np.int64),
-                            device=self.device)[:, None]
-        big = torch.from_numpy(np.ascontiguousarray(big_rows)).to(self.device)
+        r = torch.as_tensor(np.asarray(rows, np.int64), device=dev)[:, None]
+        big = torch.from_numpy(np.ascontiguousarray(big_rows)).to(dev)
         return tree_map(
             lambda leaf: leaf[r, big].reshape(
                 (R, E * nb, bs) + tuple(leaf.shape[2:])),
-            self._xstack)
+            xstack)
 
     def _fused_batches(self):
         """(U, E*nb, bs, ...) full-cohort round batches."""
@@ -742,33 +923,72 @@ class HostBackend(Backend):
             trained, losses = self._epoch_run(stack, batched)
         return trained, losses[:, -self._nb:].mean(dim=1)
 
+    def _train_chunks(self, state, resident, rows, big_rows, h, split,
+                      need_priority=True):
+        """Local SGD and Eq. 2 over the R = ``len(rows)`` rows (user ids;
+        ``big_rows`` their draws): one chunk on this device, or with
+        ``split`` D chunks over the mesh, chunk i on its i-th device
+        (made current, ``_on``). Each chunk trains a fresh broadcast of
+        ``state`` (or its part of ``resident``, the stack the last merge
+        left) on its gathered batches and its rows of ``h`` (the rows'
+        FedDyn state or None), then reduces by Eq. 2 when
+        ``need_priority``: one launch of each kernel a chunk.
+
+        ``state`` never aliases the stack (``_bcast`` and the merge both
+        produce fresh tensors), so it is the Eq. 2 reference and the
+        proximal anchor as it is (the reference package slices row 0 of
+        the stack; here that would be a view of the buffer the SGD kernel
+        overwrites). Returns ``(trained, (R,) losses, (R,) priorities or
+        ones)``: ``trained`` the stack, a ``_Split`` of D chunks; the
+        other two on this device."""
+        plan = self._plan(len(rows), split)
+        res = None if resident is None else chunks_of(resident)
+        parts, losses, prios = [], [], []
+        for i, ((lo, hi), dev) in enumerate(plan):
+            with _on(dev):
+                glob = _to(state, dev)
+                stack = (res.parts[i] if res is not None
+                         else self._bcast(glob, hi - lo))
+                hc = None if h is None else tree_map(
+                    lambda x: x[lo:hi].to(dev), h)
+                trained, loss = self._train_rows(
+                    stack, self._gather_rows(rows[lo:hi], big_rows[lo:hi],
+                                             dev), glob, hc)
+                parts.append(trained)
+                losses.append(loss.to(self.device))
+                prios.append(stacked_model_priorities(trained, glob)
+                             .to(self.device) if need_priority
+                             else torch.ones(hi - lo, dtype=torch.float32,
+                                             device=self.device))
+        trained = (parts[0] if len(parts) == 1 else
+                   _Split(parts, [b for b, _ in plan], [d for _, d in plan]))
+        return trained, _cat(losses), _cat(prios)
+
+    def _plan(self, n, split):
+        """``((lo, hi), device)`` for each chunk of ``n`` rows: one on
+        this device, or with ``split`` one on each device of the mesh."""
+        if not split:
+            return [((0, n), self.device)]
+        return list(zip(_bounds(n, len(self._devs)), self._devs))
+
     def _train_round_fused(self, state, need_priority) -> TrainResult:
         self._ensure_xstack()
-        if self._resident is not None and self._resident_key is state:
-            stack = self._resident          # device-resident since merge
-        else:
-            stack = self._bcast(state)      # first round / unmerged round
-        # the stack buffer is trained in place below
+        # the stack the last merge left mirrors ``state``: trained in
+        # place (the buffer stays on the device from round to round)
+        resident = (self._resident if self._resident_key is state
+                    else None)
         self._resident = self._resident_key = None
-        # Every row of `stack` equals the global at round start, so
-        # `state` is the Eq. 2 reference. The reference package slices
-        # row 0 of the stack, a value there; here that would be a view
-        # of the buffer the SGD kernel is about to overwrite. `state`
-        # never aliases the stack (`_bcast` and the merge both produce
-        # fresh tensors), so it is used as is — as the proximal anchor
-        # of an objective's gradient law too.
         h = self._ensure_obj_h(state) if self.objective_needs_h() else None
-        trained, loss_u = self._train_rows(stack, self._fused_batches(),
-                                           state, h)
-        if need_priority:
-            prios = stacked_model_priorities(trained, state)
-            # priorities leave the device as f32, widened on the host
-            priorities = prios.cpu().numpy().astype(np.float64)
-        else:
-            priorities = np.ones(self.num_users)
+        trained, loss_u, prios = self._train_chunks(
+            state, resident, np.arange(self.num_users), self._draw_big(), h,
+            self._split_fused, need_priority)
+        # priorities leave the device as f32 with the losses, widened on
+        # the host
+        both = torch.stack((prios, loss_u.float())).cpu().numpy() \
+            .astype(np.float64)
         return TrainResult(
-            losses=loss_u.cpu().numpy().astype(np.float64),
-            priorities=priorities,
+            losses=both[1],
+            priorities=both[0] if need_priority else np.ones(self.num_users),
             local_handle={"fused_stack": trained})
 
     def _train_round_stacked(self, state, train_ids, need_priority):
@@ -843,11 +1063,13 @@ class HostBackend(Backend):
         to hold across the merge (which overwrites the fused handle's
         trained stack) — the fault layer's straggler capture."""
         handle = train_result.local_handle
-        if "fused_stack" in handle:
-            return tree_map(lambda p: p[u].clone(), handle["fused_stack"])
-        if "sparse_stack" in handle:
-            j = handle["winners"].index(int(u))
-            return tree_map(lambda p: p[j].clone(), handle["sparse_stack"])
+        for key in ("fused_stack", "sparse_stack"):
+            if key not in handle:
+                continue
+            j = (int(u) if key == "fused_stack"
+                 else handle["winners"].index(int(u)))
+            return tree_map(lambda p: p[0],
+                            chunks_of(handle[key]).rows([j], self.device))
         return tree_map(lambda p: p.clone(), self._local(handle, u))
 
     def _k_pad(self, m: int) -> int:
@@ -943,12 +1165,16 @@ class HostBackend(Backend):
             raise IndexError(f"winner id {max(winners)} out of range")
         idx, w = compact_weights(
             k_pad, pos, [self.clients[u].num_examples for u in winners])
+        # one upload of the host-assembled (k_pad,) vectors per merge
+        idx_d = torch.from_numpy(idx).to(self.device)
+        uses_h = (merge_ctx is None and fault_ctx is None
+                  and self.objective_needs_h())
+        rows, idx_d, att_pos = self._merge_rows(
+            trained, idx, idx_d, att_pos if uses_h else [])
         if fault_ctx is not None:
             new_glob = self._merge_fused_faults(
-                state, trained, idx, winners, fault_ctx)
+                state, rows, idx_d, winners, fault_ctx)
         else:
-            # one upload of the host-assembled (k_pad,) vectors per merge
-            idx_d = torch.from_numpy(idx).to(self.device)
             w_d = torch.from_numpy(w).to(self.device)
             if merge_ctx is None and self.objective_active():
                 obj = self._objective
@@ -957,11 +1183,11 @@ class HostBackend(Backend):
                     self._obj_v = tree_map(torch.zeros_like, state)
                 h = self._ensure_obj_h(state) if obj.uses_h else None
                 new_glob, self._obj_m, self._obj_v = \
-                    self._objective_merge(obj, state, trained, idx_d, w_d,
+                    self._objective_merge(obj, state, rows, idx_d, w_d,
                                           w, (attempts, att_pos),
                                           self._obj_m, self._obj_v, h)
             elif merge_ctx is None:
-                new_glob = self._fused_merge(trained, idx_d, w_d, state)
+                new_glob = self._fused_merge(rows, idx_d, w_d, state)
             else:
                 # coefficients by user id; the pad slots take user 0's,
                 # which their zero alpha masks
@@ -969,7 +1195,7 @@ class HostBackend(Backend):
                 uids[:len(winners)] = winners
                 coeffs = np.asarray(merge_ctx.coeffs, np.float32)[uids]
                 new_glob = self._fused_merge_air(
-                    trained, idx_d, w_d,
+                    rows, idx_d, w_d,
                     torch.from_numpy(coeffs).to(self.device),
                     float(merge_ctx.noise_sigma), merge_ctx.key)
         handle[key] = None               # buffer reused as the new stack
@@ -977,6 +1203,27 @@ class HostBackend(Backend):
         self._resident = self._restack(new_glob, trained)
         self._resident_key = new_glob
         return new_glob
+
+    def _merge_rows(self, stack, idx, idx_d, att_pos=(), lane=None):
+        """The operands of a merge of ``stack`` (lane ``lane`` of a sweep
+        stack): the rows, the (k_pad,) row ids ``idx`` (``idx_d`` on
+        this device) and the FedDyn attempts' rows ``att_pos``. One
+        chunk: the stack itself (the lane's view), with the ids as they
+        are. Chunks over the mesh: the rows ``idx`` then ``att_pos``
+        copied onto this device in that order, at positions ``0..k_pad
+        - 1`` and after; the merge reads the same rows in the same order,
+        so it gives the same bits. Returns ``(rows, idx_d', att_pos')``."""
+        split = chunks_of(stack, lanes=lane is not None)
+        if len(split.parts) == 1:
+            part = split.parts[0]
+            return (part if lane is None else self._lane(part, lane),
+                    idx_d, list(att_pos))
+        k_pad = len(idx)
+        ids = np.concatenate([np.asarray(idx, np.int64),
+                              np.asarray(att_pos, np.int64)])
+        return (split.rows(ids, self.device, lane or 0),
+                torch.arange(k_pad, dtype=idx_d.dtype, device=self.device),
+                list(range(k_pad, k_pad + len(att_pos))))
 
     # ------------------------------- gather merge (stacked / ragged)
     def _gather_merge(self, state, handle, winners, merge_ctx, fault_ctx):
@@ -1137,19 +1384,16 @@ class HostBackend(Backend):
         else:
             big_rows = self._draw_winner_perms(
                 [self.clients[u]._rng for u in winners], K)
-        batched = self._gather_rows(rows, big_rows)
-        if self._resident is not None and self._resident_key is state:
-            stack = self._resident
-        else:
-            stack = self._bcast(state, K)
+        resident = (self._resident if self._resident_key is state
+                    else None)
         self._resident = self._resident_key = None
         h = None
         if self.objective_needs_h():
             # pad rows gather user 0's h: zero weight, row discarded
             r = torch.from_numpy(rows).to(self.device)
             h = tree_map(lambda x: x[r], self._ensure_obj_h(state))
-        trained, loss_k = self._train_rows(stack, batched, state, h)
-        prios_k = stacked_model_priorities(trained, state)
+        trained, loss_k, prios_k = self._train_chunks(
+            state, resident, rows, big_rows, h, self._split_sparse)
         pk, lk = torch.stack((prios_k, loss_k.float())).cpu().numpy() \
             .astype(np.float64)
         if self._sparse_priority == "stale" and m:
@@ -1193,10 +1437,21 @@ class HostBackend(Backend):
         rectangular cohort (equal per-user example counts)."""
         return self._mode == "fused" and self._rect
 
-    def _lane_stack(self, globs, rows: Optional[int] = None):
+    def _lane_stack(self, globs, rows: Optional[int] = None, split=None):
         """A fresh contiguous (E, rows, ...) stack (``rows`` defaults to
-        the cohort size), lane e's rows all equal to ``globs[e]``."""
+        the cohort size), lane e's rows all equal to ``globs[e]``; with
+        ``split`` (0 or 1) a ``_Split`` of it over the mesh, along the
+        lanes or the users."""
         R = self.num_users if rows is None else rows
+        if split is not None:
+            plan = self._plan(len(globs) if split == 0 else R, True)
+            return _Split([
+                self._lane_stack([_to(g, dev) for g in globs[lo:hi]], R)
+                if split == 0 else
+                self._lane_stack([_to(g, dev) for g in globs], hi - lo)
+                for (lo, hi), dev in plan],
+                [b for b, _ in plan], [d for _, d in plan], lanes=True,
+                dim=split)
         return tree_map(
             lambda *ls: torch.stack(ls).unsqueeze(1).expand(
                 (len(ls), R) + tuple(ls[0].shape)).contiguous(), *globs)
@@ -1217,10 +1472,19 @@ class HostBackend(Backend):
         for lane, states in zip(rngs, stream_states or []):
             for gen, gs in zip(lane, states):
                 gen.bit_generator.state = gs
+        split = None
+        E, U = len(seeds), self.num_users
+        if (not sparse and sweep_shardable(E, U, self._mesh)
+                and self._mesh.shape[COHORT_AXIS] > 1):
+            if self._devs is None:
+                raise ValueError("a cohort split needs a mesh of devices, "
+                                 "not a shape-only mesh")
+            split = sweep_sharding(self._mesh, E, U)
         # a sparse sweep's (E, K_max, ...) stack first exists in a round
-        st = SweepState(num_lanes=len(seeds), glob=list(globs),
-                        stack=None if sparse else self._lane_stack(globs),
-                        rngs=rngs)
+        st = SweepState(num_lanes=E, glob=list(globs),
+                        stack=None if sparse else self._lane_stack(
+                            globs, split=split),
+                        rngs=rngs, split=split)
         table = build_objective_table(objectives or [])
         if table is not None:
             st.obj = table
@@ -1273,10 +1537,20 @@ class HostBackend(Backend):
     def sweep_batches(self, st: SweepState):
         """(E * U, ep*nb, bs, ...) round batches, lane-major: the data
         stays on the device (``_ensure_xstack``) and only the (E, U,
-        ep*take) index tensor is uploaded."""
+        ep*take) index tensor is uploaded. Under a cohort split, one such
+        tensor a chunk (its lanes, or its users of every lane), gathered
+        onto its device."""
         E, U = st.num_lanes, self.num_users
-        big = self._draw_perms(st.rngs).reshape(E * U, -1)
-        return self._gather_rows(np.tile(np.arange(U), E), big)
+        big = self._draw_perms(st.rngs)
+        out = []
+        for (lo, hi), dev in self._plan(U if st.split == 1 else E,
+                                        st.split is not None):
+            if st.split == 1:
+                rows, b = np.tile(np.arange(lo, hi), E), big[:, lo:hi]
+            else:
+                rows, b = np.tile(np.arange(U), hi - lo), big[lo:hi]
+            out.append(self._gather_rows(rows, b.reshape(len(rows), -1), dev))
+        return out[0] if len(out) == 1 else out
 
     def sweep_train(self, st: SweepState, batched,
                     need_priority: bool) -> SweepTrainResult:
@@ -1284,35 +1558,58 @@ class HostBackend(Backend):
         as E * U rows, runs the fused round's loop in place (an objective
         sweep: the per-lane law of ``objective_epoch_scan``, each lane's
         rows anchored to its own global); then the lanes' Eq. 2
-        priorities. Returns device tensors: no host sync here."""
+        priorities. Under a cohort split each chunk (whole lanes, or
+        every lane's share of the users) does the same on its device
+        (made current, ``_on``), and the (E, U) losses and priorities are
+        put together on this device. Returns device tensors: no host
+        sync here."""
         E, U = st.num_lanes, self.num_users
         stack, st.stack = st.stack, None
-        loss_u = self._train_lanes(st, stack, batched, st.h)
-        if need_priority:
-            prios = self._sweep_priorities(stack, st.glob)
-        else:
-            prios = torch.ones((E, U), dtype=torch.float32,
-                               device=self.device)
-        return SweepTrainResult(trained=stack, losses=loss_u,
+        split = chunks_of(stack, lanes=True)
+        if len(split.parts) == 1:
+            batched = [batched]
+        losses, prios = [], []
+        for (part, lo, hi, dev, lanes), b in zip(split.chunks(), batched):
+            with _on(dev):
+                hc = None if st.h is None else tree_map(
+                    lambda x: (x[lo:hi] if split.dim == 0
+                               else x[:, lo:hi]).to(dev), st.h)
+                losses.append(self._train_lanes(st, part, b, hc, lanes)
+                              .to(self.device))
+                if need_priority:
+                    prios.append(self._sweep_priorities(
+                        part, [_to(g, dev) for g in st.glob[lanes]])
+                        .to(self.device))
+        prios = (_cat(prios, split.dim) if need_priority
+                 else torch.ones((E, U), dtype=torch.float32,
+                                 device=self.device))
+        return SweepTrainResult(trained=stack,
+                                losses=_cat(losses, split.dim),
                                 priorities=prios)
 
-    def _train_lanes(self, st: SweepState, stack, batched, h=None):
+    def _train_lanes(self, st: SweepState, stack, batched, h=None,
+                     lanes=slice(None)):
         """The (E, R, ...) lane stack trained IN PLACE as E * R rows of
         the local-SGD loop (``batched``: (E * R, ep*nb, bs, ...),
         lane-major); an objective sweep runs each lane's law on its own
         rows, anchored to its own global, with ``h`` the rows' (E, R,
-        ...) FedDyn state. Returns the (E, R) losses."""
-        E, R = st.num_lanes, tree_leaves(stack)[0].shape[1]
+        ...) FedDyn state. ``lanes``: the slice of the sweep's lanes the
+        stack holds (all of them by default; a split chunk's own).
+        Returns the (E, R) losses."""
+        E, R = tree_leaves(stack)[0].shape[:2]
         # a view, so the loop trains the stack itself (h is only read)
         flat = tree_map(lambda x: x.view((E * R,) + tuple(x.shape[2:])),
                         stack)
         if st.obj is not None:
             run = self._obj_run(st.obj.use_h)
-            anchors = tree_map(lambda *ls: torch.stack(ls), *st.glob)
+            dev = tree_leaves(stack)[0].device
+            anchors = tree_map(lambda *ls: torch.stack(ls).to(dev),
+                               *st.glob[lanes])
             extra = ((tree_map(lambda x: x.reshape(
                 (E * R,) + tuple(x.shape[2:])), h),)
                 if st.obj.use_h else ())
-            _, losses = run(flat, batched, anchors, st.obj.prox, *extra)
+            _, losses = run(flat, batched, anchors, st.obj.prox[lanes],
+                            *extra)
         else:
             _, losses = self._epoch_run(flat, batched)
         return losses[:, -self._nb:].mean(dim=1).view(E, R)
@@ -1339,13 +1636,16 @@ class HostBackend(Backend):
     def _end_sweep_merge(st, trained, new_glob):
         """Every lane's rows of the trained buffer take its new global (a
         lane that did not merge, its old one): one broadcast copy a leaf
-        over the whole (E, U, ...) stack. The buffer becomes the resident
-        stack."""
+        over the whole (E, U, ...) stack (under a cohort split, a
+        chunk). The buffer becomes the resident stack."""
         with torch.no_grad():
-            for l, *gs in zip(tree_leaves(trained),
-                              *map(tree_leaves, new_glob)):
-                src = gs[0][None] if len(gs) == 1 else torch.stack(gs)
-                l.copy_(src.unsqueeze(1).expand_as(l))
+            for part, _, _, dev, lanes in chunks_of(trained,
+                                                    lanes=True).chunks():
+                globs = [_to(g, dev) for g in new_glob[lanes]]
+                for l, *gs in zip(tree_leaves(part),
+                                  *map(tree_leaves, globs)):
+                    src = gs[0][None] if len(gs) == 1 else torch.stack(gs)
+                    l.copy_(src.unsqueeze(1).expand_as(l))
         st.glob, st.stack = new_glob, trained
 
     def sweep_merge(self, st: SweepState, tr: SweepTrainResult,
@@ -1371,20 +1671,23 @@ class HostBackend(Backend):
         w_d = torch.from_numpy(np.ascontiguousarray(w)).to(dev)
         new_glob = []
         for e in range(st.num_lanes):
-            lane, glob = self._lane(trained, e), st.glob[e]
+            glob = st.glob[e]
             obj = st.obj.specs[e] if st.obj is not None else None
             att, att_rows = ((attempts[0][e], attempts[1][e])
                              if attempts is not None else ([], []))
-            go = bool(np.any(w[e] != 0.0)) or (
-                merge_ctx is None and obj is not None and obj.uses_h
-                and len(att) > 0)
+            uses_h = merge_ctx is None and obj is not None and obj.uses_h
+            go = bool(np.any(w[e] != 0.0)) or (uses_h and len(att) > 0)
+            if go:
+                lane, ie, att_rows = self._merge_rows(
+                    trained, idx[e], idx_d[e], att_rows if uses_h else [],
+                    lane=e)
             if not go:
                 new_glob.append(glob)
             elif merge_ctx is not None:
                 coeffs = np.asarray(merge_ctx.coeffs[e], np.float32)[
                     np.asarray(uids[e], np.int64)]
                 new_glob.append(self._fused_merge_air(
-                    lane, idx_d[e], w_d[e], torch.from_numpy(coeffs).to(dev),
+                    lane, ie, w_d[e], torch.from_numpy(coeffs).to(dev),
                     float(merge_ctx.noise_sigma[e]), merge_ctx.key[e]))
             elif obj is not None and not obj.is_plain:
                 h = (None if st.h is None
@@ -1392,14 +1695,13 @@ class HostBackend(Backend):
                 m = st.m[e] if st.m is not None else None
                 v = st.v[e] if st.v is not None else None
                 g, m, v = self._objective_merge(
-                    obj, glob, lane, idx_d[e], w_d[e], w[e],
+                    obj, glob, lane, ie, w_d[e], w[e],
                     (att, att_rows), m, v, h)
                 if st.m is not None:
                     st.m[e], st.v[e] = m, v
                 new_glob.append(g)
             else:
-                new_glob.append(self._fused_merge(lane, idx_d[e], w_d[e],
-                                                  glob))
+                new_glob.append(self._fused_merge(lane, ie, w_d[e], glob))
         self._end_sweep_merge(st, trained, new_glob)
 
     def sweep_merge_faults(self, st: SweepState, tr: SweepTrainResult,
@@ -1418,8 +1720,11 @@ class HostBackend(Backend):
             if not (cand or ctx.stale):
                 new_glob.append(st.glob[e])
                 continue
+            rows, ie, _ = self._merge_rows(
+                trained, idx[e], torch.from_numpy(
+                    np.ascontiguousarray(idx[e])).to(self.device), lane=e)
             new_glob.append(self._merge_fused_faults(
-                st.glob[e], self._lane(trained, e), idx[e], cand, ctx))
+                st.glob[e], rows, ie, cand, ctx))
             nq[e] = ctx.n_quarantined
         self._end_sweep_merge(st, trained, new_glob)
         return nq
@@ -1429,7 +1734,8 @@ class HostBackend(Backend):
         tensors, safe to hold across the merge that overwrites the
         trained stack — the stale-upload capture. On a sparse sweep ``u``
         is a compact POSITION, not a user id."""
-        return tree_map(lambda p: p[e, u].clone(), tr.trained)
+        return tree_map(lambda p: p[0], chunks_of(tr.trained, lanes=True)
+                        .rows([u], self.device, lane=e))
 
     # ------------------------------------ sweep twin of the sparse path
     def sweep_sparse_capable(self) -> bool:

@@ -26,8 +26,11 @@ The memory levers are honoured: ``cfg.remat`` (on in every published
 config) runs each layer of a training forward through
 ``layers.recompute``, and ``flash_chunk_remat`` each kv chunk of the
 flash loop; the backward pass recomputes them, and the values and
-gradients keep their bits. ``shard_activations`` (a sharding
-constraint over a device mesh) raises ``NotImplementedError``.
+gradients keep their bits. ``shard_activations`` pins the block
+activations to the batch axes of the mesh in context, as the reference
+does: ``forward`` raises ``RuntimeError`` with no mesh in context and is
+a value identity under one (``device.with_sharding_constraint``; the
+layout it asks for shows in the dry run's specs).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, with_sharding_constraint
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import apply_block, init_block, \
     make_block_cache
@@ -47,19 +50,9 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 MTP_WEIGHT = 0.3
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run."""
-    if cfg.shard_activations:
-        raise NotImplementedError(
-            "shard_activations: a sharding constraint over a device mesh, "
-            "which the port does not build (one device runs every user); "
-            "the port never ignores it")
-
-
 # ----------------------------------------------------------- group layout
 def layer_groups(cfg: ModelConfig, long_context: bool = False):
     """Static group descriptors: (name, block_type, n_layers, windows)."""
-    check_ported(cfg)
     win = cfg.layer_windows(0, long_context=long_context)
     if cfg.family in ("dense", "vlm"):
         return [("blocks0", "dense", cfg.num_layers, win)]
@@ -205,6 +198,14 @@ def embed_inputs(params, tokens, cfg, *, prefix_embeds=None, offset=0):
     return x
 
 
+def _constrain(x, cfg):
+    """Beyond-paper lever: pin block activations to the batch axes."""
+    if cfg.shard_activations:
+        return with_sharding_constraint(
+            x, (tuple(cfg.shard_activations),) + (None,) * (x.dim() - 1))
+    return x
+
+
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
             enc_frames=None, long_context=False, chunk=1024, caches=None,
             offset=0, return_hidden=False):
@@ -220,7 +221,7 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
     groups = layer_groups(cfg, long_context)
     x = embed_inputs(params, tokens, cfg, prefix_embeds=prefix_embeds,
                      offset=offset)
-    x = x.to(cfg.activation_dtype)
+    x = _constrain(x.to(cfg.activation_dtype), cfg)
     pos = _positions(offset, x.shape[1], x.device)
     enc_out = (encode_audio(params, enc_frames, cfg, chunk)
                if cfg.is_encdec else None)
@@ -233,6 +234,7 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
             params[name], x, cfg=cfg, block_type=btype, windows=windows,
             positions=pos, caches=g_caches, enc_out=enc_out, chunk=chunk,
             remat=cfg.remat and caches is None)
+        x = _constrain(x, cfg)
         if new_caches is not None:
             new_caches[name] = g_new
         aux_total = aux_total + aux

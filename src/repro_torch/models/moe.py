@@ -17,10 +17,15 @@ by the sort permutation, and their backwards gathers by its inverse
 order, k = 0, 1, ...; a dropped assignment contributes an exact zero.
 Counting per expert is an integer sum and ``mean_prob`` a ``token_sum``,
 so a user's bits do not follow the users beside it in a ``vmap``.
+The mesh levers ``moe_buf_shard`` and ``moe_gather_weights`` constrain
+the buffer and the expert weights at the reference's two sites
+(``device.with_sharding_constraint``: ``RuntimeError`` with no mesh in
+context, a value identity under one).
 """
 from __future__ import annotations
 
 import torch
+from repro_torch.device import with_sharding_constraint
 from repro_torch.models.layers import (apply_mlp, init_mlp, silu,
                                        token_sum, truncated_normal_init)
 
@@ -149,12 +154,22 @@ def apply_moe(params, x, cfg, capacity_factor=None):
     keep = keep.reshape(T, K)
 
     buf = _Dispatch.apply(xt, src_tok, valid, slot, keep).reshape(E, cap, D)
+    if cfg.moe_buf_shard:
+        buf = with_sharding_constraint(buf, ("model", "data", None))
 
     # -- per-expert FFN (batched over E) -----------------------------------
-    h = torch.bmm(buf, params["w_gate"])
-    u = torch.bmm(buf, params["w_up"])
+    w_gate, w_up, w_down = (params["w_gate"], params["w_up"],
+                            params["w_down"])
+    if cfg.moe_gather_weights:
+        # beyond-paper lever: the FSDP'd expert weights gathered once a
+        # layer (whole over 'data'), not the activation partials reduced
+        con = lambda w: with_sharding_constraint(  # noqa: E731
+            w, ("model", None, None))
+        w_gate, w_up, w_down = con(w_gate), con(w_up), con(w_down)
+    h = torch.bmm(buf, w_gate)
+    u = torch.bmm(buf, w_up)
     h = silu(h) * u
-    out_buf = torch.bmm(h, params["w_down"]).reshape(E * cap, D)
+    out_buf = torch.bmm(h, w_down).reshape(E * cap, D)
 
     # -- combine back -------------------------------------------------------
     y = _Combine.apply(out_buf, w, slot, keep, src_tok, slot_w, valid)

@@ -342,23 +342,28 @@ def test_unported_families_raise():
 @pytest.mark.parametrize("lever,value", [("flash_chunk_remat", True),
                                          ("shard_activations", ("data",))])
 def test_unported_levers_raise(lever, value, cases):
-    """``shard_activations`` (a mesh's sharding constraint) raises in
-    every entry point. ``flash_chunk_remat`` is ported (it raised while
-    it was not; the name is kept): it builds and runs, with ``forward``'s
+    """Both levers are ported (each raised while it was not; the name is
+    kept). ``flash_chunk_remat`` builds and runs, with ``forward``'s
     values unchanged (its bits through a gradient step are held in
-    ``tests/test_torch_llm_remat.py``)."""
+    ``tests/test_torch_llm_remat.py``). ``shard_activations`` behaves as
+    the reference's: ``init_params`` takes it, ``forward`` raises
+    ``RuntimeError`` with no mesh in context, as JAX's sharding
+    constraint does, and is a value identity under a mesh (both packages
+    against each other: ``tests/test_torch_sharding.py``)."""
+    from repro_torch.launch.mesh import make_host_mesh
     c = case(cases, "yi-9b")
     cfg = dataclasses.replace(c.tc, **{lever: value})
     tokens = torch.zeros((1, 4), dtype=torch.int32)
+    tm.init_params(0, cfg, device="cpu")
     if lever == "flash_chunk_remat":
         assert torch.equal(tm.forward(c.tp, tokens, cfg, chunk=2)[0],
                            tm.forward(c.tp, tokens, c.tc, chunk=2)[0])
-        tm.init_params(0, cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=lever):
+    with pytest.raises(RuntimeError, match="non-empty mesh in context"):
         tm.forward(c.tp, tokens, cfg)
-    with pytest.raises(NotImplementedError, match=lever):
-        tm.init_params(0, cfg, device="cpu")
+    with make_host_mesh(device="cpu"):
+        assert torch.equal(tm.forward(c.tp, tokens, cfg)[0],
+                           tm.forward(c.tp, tokens, c.tc)[0])
 
 
 def test_unported_blocks_and_frontends_raise():

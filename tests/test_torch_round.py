@@ -250,8 +250,12 @@ def test_unported_faults_mesh_objective_and_uneven_cohort_raise():
     # the fault and channel layers are ported: these build
     _build(_spec(faults=FaultSpec(),
                  channel=teng.ChannelSpec(per_model="off")))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _build(mesh=object())
+    # the cohort split is ported: a mesh without a "cohort" axis runs
+    # unsplit, a 2-way mesh over the CPU splits the fused cohort
+    from repro_torch.device import Mesh
+    from repro_torch.sharding import cohort_mesh
+    assert not _build(mesh=Mesh(["cpu"], ("data",))).backend._shard
+    assert _build(mesh=cohort_mesh(["cpu", "cpu"])).backend._split_fused
     # the objectives layer is ported: a non-plain objective builds
     assert THostBackend(_torch_loss, _user_data(), device="cpu",
                         objective=teng.ObjectiveSpec(aggregator="fedavgm")

@@ -406,8 +406,10 @@ def test_factory_auto_selects_sparse_and_an_explicit_mode_wins():
 
 def test_sparse_refusals():
     """A ragged cohort under "sparse" and a sparse backend without k_max
-    raise ValueError; an uneven cohort auto-selects a dense path; a mesh
-    still raises NotImplementedError."""
+    raise ValueError; an uneven cohort auto-selects a dense path. (A mesh
+    raised here while the cohort split was unported: a 2-way mesh now
+    splits the compact winner stack, and a shape-only mesh that would
+    split raises ValueError.)"""
     ragged = [dict(d) for d in _user_data(16)]
     ragged[0] = {k: v[:8] for k, v in ragged[0].items()}
     with pytest.raises(ValueError, match="rectangular"):
@@ -420,8 +422,11 @@ def test_sparse_refusals():
     with pytest.raises(ValueError, match="sparse_priority"):
         HostBackend(_torch_loss, DATA, round_mode="sparse", k_max=2,
                     sparse_priority="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port(_kw(), mesh=object())
+    from repro_torch.device import Mesh
+    from repro_torch.sharding import cohort_mesh
+    assert port(_kw(), mesh=cohort_mesh(["cpu", "cpu"])).backend._split_sparse
+    with pytest.raises(ValueError, match="shape-only"):
+        port(_kw(), mesh=Mesh(None, ("cohort",), shape=(2,)))
     eng = port(_kw())
     with pytest.raises(ValueError, match="exceed k_max"):
         eng.backend.sparse_train(eng.state, [0, 1, 2])
