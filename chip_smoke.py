@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch / CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--profile | --mesh-only]
+    python3 chip_smoke.py [--profile | --mesh-only | --token-sum-only]
 
 Needs one NVIDIA GPU with the CUDA toolkit's ``nvcc``; fails at once
 without CUDA (there is no CPU path here). It
@@ -127,7 +127,9 @@ without CUDA (there is no CPU path here). It
      0 must be the run bit for bit (the first local step at 10 and at 30
      rows compared aten op by aten op: no op's bits may follow the row
      count); the token sums' routes (the kernel, its plain tree, torch's
-     own sum) in turns on two cells;
+     own sum) in turns on the six cells and at phi3-mini's published
+     widths (``silo_round_full``'s cell), the kernel's losses and
+     priorities the tree's bits;
      ``launch.serve`` for the nine dense, vlm, moe, ssm and hybrid archs
      and the audio one (decode against ``forward`` within 1e-3, whisper's
      prefill only: see ``WHISPER_REDUCED``; hymba's 80-token prompt
@@ -164,8 +166,9 @@ without CUDA (there is no CPU path here). It
      and the memory levers off, as published (``remat``) and with
      ``flash_chunk_remat`` too, fresh engines in turns: peaks and round
      ms, losses, priorities, winners and globals bit-equal; ``token_sum``
-     at every shape the ``--arch`` rounds and that cell launched it with,
-     against ``torch.sum`` and its byte bound; the dry run
+     at every shape the ``--arch`` rounds and that cell launched it with
+     (``TOKEN_SUM_CENSUS`` exactly), against ``torch.sum`` and its byte
+     bound; the dry run
      (``launch/dryrun.py``, counted on the meta device) against the card:
      parameter bytes of phi3-mini at 2 layers and yi-9b exactly, and the
      counted FLOPs of the silo local step and of yi-9b's prefill against
@@ -200,6 +203,13 @@ without CUDA (there is no CPU path here). It
 ``--mesh-only`` builds the kernels and runs the cohort split's phase
 alone, then ends with ``{"ok": true, "mesh_only": true, ...}``: run it
 on a machine with several cards to drive the split across them.
+
+``--token-sum-only`` builds ``token_sum`` alone, holds it against its
+plain version (``check_token_sum``) and times every shape of
+``TOKEN_SUM_CENSUS`` against ``torch.sum`` and its bound, then ends with
+``{"ok": true, "token_sum_only": true, ...}``: a few minutes, for work
+on that kernel. ``tools/ab_main_path_torch.py --cells token_sum``
+compares two trees'.
 
 ``--profile`` adds ``torch.profiler`` passes over a few rounds of each
 path through ``FLEngine.run`` after a warm-up run, the MLP cell's
@@ -262,6 +272,7 @@ from repro_torch.kernels import delta_norm as kdn          # noqa: E402
 from repro_torch.kernels import fused_sgd as kfused        # noqa: E402
 from repro_torch.kernels import ops, ref                  # noqa: E402
 from repro_torch.kernels import server_opt as kso          # noqa: E402
+from repro_torch.kernels import token_sum as ktsum         # noqa: E402
 from repro_torch.launch import dryrun as launch_dryrun    # noqa: E402
 from repro_torch.launch import mesh as launch_mesh        # noqa: E402
 from repro_torch.launch import serve as launch_serve      # noqa: E402
@@ -1749,34 +1760,103 @@ def bench_sgd_step(U, dtype, reps):
 #: the loss mean (nll and mask: C = 2), the MoE's mean router probability
 #: (E = 4) and its aux sum (4 values), over a user's 4096 tokens, at the
 #: run's 10 rows and a 3-lane sweep's 30, and the evaluation's 2048 tokens
-#: (R = 1); then ragged N and C around the kernel's slices and lanes, and
-#: a long N
+#: (R = 1); the largest: the silo's norms at d 3072, Mamba-2's widest
+#: parameter gradient and its long-N ones; then ragged N and C around
+#: the kernel's lanes, runs and chunks, and a long N
 TOKEN_SUM_SHAPES = [(10, 4096, 256), (30, 4096, 256), (10, 4096, 64),
                     (30, 4096, 64), (10, 4096, 2), (30, 4096, 2),
                     (10, 4096, 4), (30, 4096, 4), (10, 4, 1), (30, 4, 1),
-                    (1, 2048, 2), (1, 2048, 4), (1, 4, 1), (3, 37, 5),
-                    (2, 1, 33), (4, 31, 31), (5, 129, 40), (2, 33, 65),
-                    (1, 1 << 20, 3)]
+                    (1, 2048, 2), (1, 2048, 4), (1, 4, 1),
+                    (4, 4096, 3072), (30, 4096, 2176), (10, 131072, 16),
+                    (30, 131072, 16), (3, 37, 5), (2, 1, 33), (4, 31, 31),
+                    (5, 129, 40), (2, 33, 65), (3, 5000, 6),
+                    (1, 1048576, 3)]
+#: shapes checked with edge values in columns 0-3: all -0.0 (+0.0 where
+#: N is not a power of two: the padding's zeros are added; -0.0 where it
+#: is), one inf, one nan, and +inf with -inf (nan)
+TOKEN_SUM_EDGES = [(3, 3, 4), (2, 4, 4), (3, 37, 5), (2, 4096, 8),
+                   (4, 5000, 16), (2, 131072, 4), (2, 4096, 260)]
+#: every (R, N, C) shape the --arch rounds (``LLM_CELLS``: the run, its
+#: 3-lane sweep, the evaluation) and ``silo_round_full`` launch
+#: ``token_sum`` with; the full run asserts ``recording_token_sums`` saw
+#: exactly these, and ``--token-sum-only`` times them
+TOKEN_SUM_CENSUS = [
+    (1, 4, 1), (1, 2048, 2), (1, 2048, 4), (4, 4096, 2), (4, 4096, 3072),
+    (10, 4, 1), (10, 4096, 2), (10, 4096, 4), (10, 4096, 16),
+    (10, 4096, 64), (10, 4096, 256), (10, 4096, 512), (10, 4096, 544),
+    (10, 4096, 2176), (10, 131072, 16), (30, 4, 1), (30, 4096, 2),
+    (30, 4096, 4), (30, 4096, 16), (30, 4096, 64), (30, 4096, 256),
+    (30, 4096, 512), (30, 4096, 544), (30, 4096, 2176), (30, 131072, 16)]
+
+
+def edge_columns(x):
+    """``x`` with columns 0-3 set to the ``TOKEN_SUM_EDGES`` values."""
+    N = x.shape[1]
+    x[:, :, 0] = -0.0
+    x[:, N // 2, 1] = float("inf")
+    x[:, N - 1, 2] = float("nan")
+    x[:, 0, 3] = float("inf")
+    x[:, N - 1, 3] = float("-inf")
+    return x
 
 
 def check_token_sum():
     """``token_sum`` against its plain version (the same tree of
-    elementwise adds on the card) at ``TOKEN_SUM_SHAPES``: bit for bit,
-    and every row's bits the same summed alone as in the stack. Returns
-    (max abs error, bit_equal)."""
+    elementwise adds on the card) at ``TOKEN_SUM_SHAPES`` and, with
+    -0.0, inf and nan columns, at ``TOKEN_SUM_EDGES``: bit for bit, and
+    every row's bits the same summed alone as in the stack. Returns
+    (max abs error over the finite shapes, bit_equal)."""
     worst = 0.0
-    for i, (R, N, C) in enumerate(TOKEN_SUM_SHAPES):
+    cases = [(s, False) for s in TOKEN_SUM_SHAPES] + \
+        [(s, True) for s in TOKEN_SUM_EDGES]
+    for i, ((R, N, C), edges) in enumerate(cases):
         x = randn(6000 + i, (R, N, C), torch.float32)
+        if edges:
+            x = edge_columns(x)
         got = ops.token_sum(x)
         want = ref.token_sum_ref(x)
-        worst = max(worst, bit_check(f"token_sum {(R, N, C)}", got, want,
-                                     torch.float32))
+        name = f"token_sum {(R, N, C)}{' edges' if edges else ''}"
+        if edges:
+            if not same_bits(got, want):
+                raise AssertionError(f"{name}: not bit-equal to the plain "
+                                     "version")
+        else:
+            worst = max(worst, bit_check(name, got, want, torch.float32))
         alone = torch.cat([ops.token_sum(x[r:r + 1]) for r in range(R)])
         if not same_bits(alone, got):
-            raise AssertionError(f"token_sum {(R, N, C)}: rows summed alone "
-                                 "differ from the stack's bits")
+            raise AssertionError(f"{name}: rows summed alone differ from "
+                                 "the stack's bits")
+        del x, got, want, alone
     torch.cuda.empty_cache()
     return worst, True
+
+
+def time_token_sums(shapes, calls=None, where=None):
+    """``token_sum`` at each (R, N, C) of ``shapes``: the kernel's and
+    ``torch.sum(dim=1)``'s time from a CUDA graph and the byte bound (the
+    input read once, the output written once); ``calls`` / ``where``:
+    each shape's calls and the phases that made them."""
+    rows = []
+    for i, shape in enumerate(shapes):
+        R, N, C = shape
+        nxt = rotating(lambda k: randn(7000 + 10 * i + k, shape,
+                                       torch.float32), 4)
+        nbytes = 4 * R * C * (N + 1)
+        rows.append(dict(
+            shape=list(shape), graph_ms=graph_ms(lambda: ops.token_sum(nxt())),
+            torch_sum_graph_ms=graph_ms(lambda: torch.sum(nxt(), dim=1)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+            **({} if calls is None else dict(calls=calls[shape],
+                                             phases=where[shape]))))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def with_plans(rows):
+    """``time_token_sums``' rows, each with its launch's plan."""
+    for r in rows:
+        r["plan"] = ktsum.token_sum_plan(*r["shape"])._asdict()
+    return rows
 
 
 def bench_token_sum(R=10, N=4096, C=256, reps=200):
@@ -3768,11 +3848,13 @@ def profile_report(label, prof, wall_ms, rounds):
     ours = sum(r[1] for r in rows if "repro" in r[0] or "sgd_leaves" in r[0]
                or "delta_norm" in r[0] or "combine_kernel" in r[0]
                or "robust_kernel" in r[0] or "server_opt" in r[0]
-               or "contention_cu" in r[0] or "loop_kernel" in r[0])
+               or "contention_cu" in r[0] or "loop_kernel" in r[0]
+               or "token_sum" in r[0])
     fields = dict(
         rounds=rounds, wall_ms=wall_ms,
         device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
         port_kernels_ms=ours, port_kernels_share_of_busy=ours / busy_ms,
+        token_sum_ms=sum(r[1] for r in rows if "token_sum" in r[0]),
         device_kernels=len(rows),
         launches=sum(r[2] for r in rows),
         top=[dict(name=k[:90], ms=ms, count=c) for k, ms, c in rows[:12]],
@@ -5024,6 +5106,12 @@ def silo_round_work(cfg, shapes, S, B, T):
                 weights_floor_gb=(1 + 2 * S) * P * 2 / 1e9)
 
 
+def silo_full_init(cfg):
+    """``SILO_FULL``'s params, drawn on the card from its seed."""
+    gen = torch.Generator(device=DEV).manual_seed(SILO_FULL["seed"])
+    return llm.init_params(gen, cfg, device=DEV)
+
+
 def phase_silo_round_full():
     """The cross-silo round at phi3-mini's published widths
     (``SILO_FULL``: the depth cut to 2 layers, bf16, 4 silos x 4 x 1024
@@ -5045,12 +5133,8 @@ def phase_silo_round_full():
               for k, v in _paths(launch_steps.params_struct(cfg))}
     work = silo_round_work(cfg, shapes, c["silos"], c["batch"], c["seq"])
 
-    def init(cfg):
-        gen = torch.Generator(device=DEV).manual_seed(c["seed"])
-        return llm.init_params(gen, cfg, device=DEV)
-
     def make():
-        return silo_engine(DEV, cell=c, init=init)
+        return silo_engine(DEV, cell=c, init=silo_full_init)
 
     torch.cuda.empty_cache()
     eng = make()
@@ -5098,7 +5182,7 @@ def phase_silo_round_full():
     torch.cuda.empty_cache()
     prof = profiled("silo_round_full", make(), lambda e: e.run(), R)
     torch.cuda.empty_cache()
-    levers = silo_levers(c, init)
+    levers = silo_levers(c, silo_full_init)
     want = {k: v * R for k, v in SILO_ROUND_LAUNCHES.items()}
     got = {k: launches[k] for k in want}
     steady = statistics.median(round_ms[1:])
@@ -5206,40 +5290,71 @@ def token_sum_route(fn):
         ops.token_sum = inner
 
 
-def phase_llm_token_sum_routes(rounds=5):
-    """What the fixed-order token sums cost: the yi-9b and deepseek-v3
-    --arch cells (``LLM_ARGV``, 5 rounds) on each of ``TOKEN_SUM_ROUTES``
-    in turns after an untimed run (kernel, tree, torch_sum, torch_sum,
-    tree, kernel, kernel, tree, torch_sum), the median later round of
-    each run and the median of each route's three; every route must pick
-    the same winners. The rule PERF.md states: the tree of elementwise
-    adds is the route unless it costs more than 10 % of the torch_sum
-    round; then the kernel."""
+def same_history(h, h0):
+    """Two runs' winners, training losses, held-out losses and
+    priorities, bit for bit."""
+    return (h.winners == h0.winners and h.train_loss == h0.train_loss
+            and h.accuracy == h0.accuracy
+            and len(h.priorities) == len(h0.priorities)
+            and all(np.array_equal(np.asarray(a), np.asarray(b))
+                    for a, b in zip(h.priorities, h0.priorities)))
+
+
+def route_cells(rounds):
+    """``llm_token_sum_routes``'s cells: tag -> a function that builds a
+    fresh engine and runs it, returning (history, per-round seconds):
+    the six --arch cells (``LLM_ARGV``, ``rounds`` rounds, stamped by
+    ``run_main_path``) and ``silo_round_full``'s (``SILO_FULL``, remat
+    on as published, stamped by ``stamped_run``)."""
+    def arch(tag):
+        args = launch_train.make_parser().parse_args(
+            ["--arch", LLM_CELLS[tag], "--rounds", str(rounds), *LLM_ARGV,
+             *LLM_CELL_ARGV.get(tag, ())])
+        hist, _, _, _, round_s, _ = run_main_path(
+            None, rounds, engine=launch_train.build_llm_engine(args))
+        return hist, round_s
+
+    def silo():
+        hist, _, round_ms, _, _, _ = stamped_run(
+            silo_engine(DEV, cell=SILO_FULL, init=silo_full_init))
+        return hist, [ms / 1e3 for ms in round_ms]
+    cells = {tag: functools.partial(arch, tag) for tag in LLM_CELLS}
+    cells["silo_round_full"] = silo
+    return cells
+
+
+def phase_llm_token_sum_routes(rounds=3):
+    """What the fixed-order token sums cost end to end: each of
+    ``route_cells`` on each of ``TOKEN_SUM_ROUTES`` in turns (kernel,
+    tree, torch_sum, torch_sum, tree, kernel), a fresh engine a run
+    (``rounds`` rounds an --arch run, ``SILO_FULL``'s a silo run): the
+    median later round of each run and the median of each route's two.
+    Every route must pick the same winners, and the kernel route's
+    training losses, held-out losses and priorities must be the tree
+    route's bits."""
     rows = {}
-    order = ("warm-up", "kernel", "tree", "torch_sum", "torch_sum", "tree",
-             "kernel", "kernel", "tree", "torch_sum")
-    for tag in ("yi9b", "deepseek"):
-        argv = ["--arch", LLM_CELLS[tag], "--rounds", str(rounds),
-                *LLM_ARGV, *LLM_CELL_ARGV.get(tag, ())]
-        args = launch_train.make_parser().parse_args(argv)
-        steady, winners = {k: [] for k in TOKEN_SUM_ROUTES}, None
+    order = ("kernel", "tree", "torch_sum", "torch_sum", "tree", "kernel")
+    for tag, run in route_cells(rounds).items():
+        steady, first = {k: [] for k in TOKEN_SUM_ROUTES}, {}
         for route in order:
-            with token_sum_route(TOKEN_SUM_ROUTES.get(route)):
-                eng = launch_train.build_llm_engine(args)
-                hist, _, _, _, round_s, _ = run_main_path(None, rounds,
-                                                          engine=eng)
-            if route in steady:
-                steady[route].append(statistics.median(round_s[1:]))
-            winners = winners or hist.winners
-            if hist.winners != winners:
+            torch.cuda.empty_cache()
+            with token_sum_route(TOKEN_SUM_ROUTES[route]):
+                hist, round_s = run()
+            steady[route].append(statistics.median(round_s[1:]))
+            first.setdefault(route, hist)
+            if hist.winners != first["kernel"].winners:
                 raise AssertionError(f"llm_token_sum_routes {tag}: {route} "
                                      "picked other winners")
-            del eng
+        if not same_history(first["kernel"], first["tree"]):
+            raise AssertionError(f"llm_token_sum_routes {tag}: the kernel "
+                                 "route's losses or priorities are not the "
+                                 "tree route's bits")
         base = statistics.median(steady["torch_sum"])
         rows[tag] = dict(
             median_later_round_s=steady,
             cost_vs_torch_sum={k: statistics.median(v) / base - 1.0
-                               for k, v in steady.items()})
+                               for k, v in steady.items()},
+            kernel_bits_equal_tree=True)
         torch.cuda.empty_cache()
     emit("llm_token_sum_routes", rounds=rounds, cells=rows,
          order=", ".join(order))
@@ -5748,29 +5863,42 @@ def recording_token_sums(label):
 
 def phase_token_sum_shapes():
     """``token_sum`` at every shape the ``--arch`` rounds and
-    ``silo_round_full`` launched it with (``TOKEN_SUM_SEEN``): the
-    kernel's and ``torch.sum(dim=1)``'s time from a CUDA graph and the
-    byte bound (the input read once, the output written once), each
-    shape with its calls in the phases that made it."""
+    ``silo_round_full`` launched it with (``TOKEN_SUM_SEEN``), which must
+    be ``TOKEN_SUM_CENSUS`` exactly: ``time_token_sums``, each shape with
+    its calls in the phases that made it."""
     shapes = Counter()
     where = {}
     for label, seen in TOKEN_SUM_SEEN.items():
         for shape, calls in seen.items():
             shapes[shape] += calls
             where.setdefault(shape, []).append(label)
-    rows = []
-    for i, shape in enumerate(sorted(shapes)):
-        R, N, C = shape
-        nxt = rotating(lambda k: randn(7000 + 10 * i + k, shape,
-                                       torch.float32), 4)
-        nbytes = 4 * R * C * (N + 1)
-        rows.append(dict(
-            shape=list(shape), calls=shapes[shape], phases=where[shape],
-            graph_ms=graph_ms(lambda: ops.token_sum(nxt())),
-            torch_sum_graph_ms=graph_ms(lambda: torch.sum(nxt(), dim=1)),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes))
-        torch.cuda.empty_cache()
-    emit("token_sum_shapes", rows=rows)
+    if set(shapes) != set(TOKEN_SUM_CENSUS):
+        raise AssertionError(
+            "token_sum_shapes: the paths launched "
+            f"{sorted(set(shapes) - set(TOKEN_SUM_CENSUS))} beyond "
+            "TOKEN_SUM_CENSUS and never "
+            f"{sorted(set(TOKEN_SUM_CENSUS) - set(shapes))} of it")
+    emit("token_sum_shapes", rows=with_plans(
+        time_token_sums(sorted(shapes), shapes, where)))
+
+
+def phase_token_sum_only():
+    """``--token-sum-only``: ``token_sum`` built alone, held against its
+    plain version (``check_token_sum``), then ``TOKEN_SUM_CENSUS`` timed
+    (``time_token_sums``)."""
+    t0 = time.perf_counter()
+    built = kbuild.build_all(verbose=True, stems=("token_sum",))
+    kbuild.library("token_sum")
+    emit("build", seconds=time.perf_counter() - t0,
+         nvcc=kbuild.find_nvcc(), flags=" ".join(kbuild.NVCC_FLAGS),
+         libraries=sorted(os.path.basename(str(p)) for p in built.values()))
+    err, bits = check_token_sum()
+    emit("token_sum_agree", max_abs_err=err, bit_equal_to_plain=bits,
+         rows_alone_equal_stack=True,
+         shapes=[list(t) for t in TOKEN_SUM_SHAPES],
+         edge_shapes=[list(t) for t in TOKEN_SUM_EDGES])
+    emit("token_sum_census",
+         rows=with_plans(time_token_sums(sorted(TOKEN_SUM_CENSUS))))
 
 
 def _paths(tree, prefix=()):
@@ -5793,6 +5921,13 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
+    if "--token-sum-only" in sys.argv[1:]:
+        phase_token_sum_only()
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "token_sum_only": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     t0 = time.perf_counter()
     built = kbuild.build_all(verbose=True)
     for stem in built:
@@ -5858,6 +5993,7 @@ def main():
                    "contention: bit-equal, all six outputs and dtypes; "
                    "token_sum: bit-equal, each row alone = the stack",
          token_sum_shapes=[list(t) for t in TOKEN_SUM_SHAPES],
+         token_sum_edge_shapes=[list(t) for t in TOKEN_SUM_EDGES],
          merge_contracts="bitwise: zero weight masks inf/NaN rows, "
                          "all-zero weights return glob, pad width, "
                          "S=U ids vs S=K positions; server_opt kinds 0 "

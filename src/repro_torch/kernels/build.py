@@ -3,9 +3,10 @@ with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` launchers (raw
 pointers, sizes, the stream; return value ``cudaGetLastError()``) and
-includes no PyTorch header, so a build takes seconds. At first use every
-source is compiled for ``sm_90a`` — one ``nvcc`` process per source, all
-started together — into ``build/repro_torch_kernels/`` at the
+includes no PyTorch header, so a build takes seconds. ``build_all``
+compiles the sources for ``sm_90a`` — one ``nvcc`` process per source, all
+started together; a library's first use compiles its own source alone —
+into ``build/repro_torch_kernels/`` at the
 repository root, one shared library per source, named by a hash of the
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source rebuilds and an unchanged one is reused. Nothing is fetched and
@@ -20,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
@@ -69,7 +70,8 @@ SIGNATURES = {
                                     _I, _P),
     },
     "token_sum": {
-        "repro_token_sum": (_P, _P, _I, _LL, _I, _P),
+        "repro_token_sum": (_P, _P, _P, _LL, _P, _LL, _I, _LL, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P),
     },
 }
 
@@ -100,11 +102,12 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(verbose: bool = False) -> Dict[str, Path]:
-    """Compile every source whose library is missing (in parallel) and
-    return ``{stem: path of the .so}``. With ``verbose`` the resource
-    usage ``ptxas`` reports is printed."""
-    targets = {stem: _target(CSRC / f"{stem}.cu") for stem in SIGNATURES}
+def build_all(verbose: bool = False,
+              stems: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
+    """Compile every source of ``stems`` whose library is missing (in
+    parallel) and return ``{stem: path of the .so}``. With ``verbose``
+    the resource usage ``ptxas`` reports is printed."""
+    targets = {stem: _target(CSRC / f"{stem}.cu") for stem in stems}
     todo = {stem: out for stem, out in targets.items() if not out.is_file()}
     if not todo:
         return targets
@@ -137,10 +140,10 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
 
 def library(stem: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<stem>.cu`` with ``argtypes``
-    set (built, with its siblings, on first use)."""
+    set (built on first use)."""
     lib = _LIBS.get(stem)
     if lib is None:
-        path = build_all()[stem]
+        path = build_all(stems=(stem,))[stem]
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in SIGNATURES[stem].items():
             f = getattr(lib, fn)
@@ -179,3 +182,37 @@ def check_launch(rc: int, name: str) -> None:
     """Raise if a launcher reported a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+
+
+#: (device index, stream handle) -> (tickets int32, partials f32): the
+#: workspace of the kernels whose last block folds the partials in the
+#: launch (``delta_norm``, ``token_sum``). Their fold takes an integer
+#: ticket and leaves it at zero, so the tickets are zeroed once, when
+#: allocated; a stream has its own pair because launches on one stream
+#: never overlap.
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+#: buffers a larger one replaced: kept, so a launch captured in a CUDA
+#: graph still finds the memory (and the zero tickets) it was captured
+#: with; a buffer at least doubles, so these hold less than the live one
+_RETIRED: List[torch.Tensor] = []
+
+
+def scratch(device, stream: int, tickets: int, partials: int):
+    """The (tickets, partials) workspace of ``stream`` on ``device``, at
+    least ``tickets`` int32 (zero) and ``partials`` f32."""
+    key = (device.index, stream)
+    tk, pt = _SCRATCH.get(key, (None, None))
+    if tk is None or tk.numel() < tickets:
+        if tk is not None:
+            _RETIRED.append(tk)
+        tk = torch.zeros(max(tickets, 1024, 2 * (0 if tk is None
+                                                 else tk.numel())),
+                         dtype=torch.int32, device=device)
+    if pt is None or pt.numel() < partials:
+        if pt is not None:
+            _RETIRED.append(pt)
+        pt = torch.empty(max(partials, 1024, 2 * (0 if pt is None
+                                                  else pt.numel())),
+                         dtype=torch.float32, device=device)
+    _SCRATCH[key] = (tk, pt)
+    return tk, pt

@@ -10,19 +10,12 @@ copy; the reference's two-operand call is the one-leaf, ``U = 1`` case.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Sequence
 
 import torch
 
 from repro_torch.kernels.build import (check_launch, dtype_code,
-                                       launch_stream, library)
-
-#: (device index, stream handle) -> (tickets int32, partials f32). The
-#: kernel's fold takes an integer ticket a row and leaves it at zero, so
-#: the tickets are zeroed once, when allocated; a stream has its own pair
-#: because launches on one stream never overlap. A buffer only grows: a
-#: launch captured in a CUDA graph keeps the pointers it was captured with.
-_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+                                       launch_stream, library, scratch)
 
 
 def max_leaves() -> int:
@@ -52,18 +45,6 @@ def check_leaves(stacks: Sequence[torch.Tensor],
                              f"{g.device}; the list is on {dev})")
 
 
-def _scratch(device, stream: int, tickets: int, partials: int):
-    key = (device.index, stream)
-    tk, pt = _SCRATCH.get(key, (None, None))
-    if tk is None or tk.numel() < tickets:
-        tk = torch.zeros(max(tickets, 1024), dtype=torch.int32, device=device)
-    if pt is None or pt.numel() < partials:
-        pt = torch.empty(max(partials, 1024), dtype=torch.float32,
-                         device=device)
-    _SCRATCH[key] = (tk, pt)
-    return tk, pt
-
-
 def delta_norm_leaves_cuda(stacks: Sequence[torch.Tensor],
                            globs: Sequence[torch.Tensor]):
     """ONE launch: ``stacks[l]`` (U, ...) contiguous CUDA f32/bf16 against
@@ -89,7 +70,7 @@ def delta_norm_leaves_cuda(stacks: Sequence[torch.Tensor],
     lib = library("delta_norm")
     need = 0
     while True:
-        tk, pt = _scratch(dev, stream, L * (U + 1), need)
+        tk, pt = scratch(dev, stream, L * (U + 1), need)
         rc = lib.repro_delta_norm_leaves(
             *args, pt.data_ptr(), pt.numel(), tk.data_ptr(), tk.numel(),
             dtype_code(dt), stream)
