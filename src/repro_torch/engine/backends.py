@@ -157,6 +157,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.client import Client, batch_epoch, sgd_epoch_scan
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.priority import (model_priority, priority_product,
@@ -311,8 +312,9 @@ class SweepTrainResult:
         arrays). Read before anything else is queued (a later copy would
         wait for it)."""
         if self.host is None:
-            both = torch.stack((self.priorities, self.losses.float()))
-            self.host = tuple(both.cpu().numpy().astype(np.float64))
+            both = torch.stack((self.priorities, self.losses.float())).cpu()
+            trace.synced(self.priorities.device)
+            self.host = tuple(both.numpy().astype(np.float64))
         return self.host
 
 
@@ -725,19 +727,21 @@ class HostBackend(Backend):
         if self._xstack is not None or self._xsplit is not None:
             return
         self._nb = max(1, self.clients[0].num_examples // self._batch_size)
-        if not (self._split_fused or self._split_sparse):
-            self._xstack = tree_map(
+        with trace.span("setup.xstack"):
+            if not (self._split_fused or self._split_sparse):
+                self._xstack = tree_map(
+                    lambda *xs: torch.from_numpy(
+                        np.stack([np.asarray(x) for x in xs])).to(
+                            self.device),
+                    *[c.data for c in self.clients])
+                return
+            bounds = _bounds(self.num_users, len(self._devs))
+            self._xsplit = _Split([tree_map(
                 lambda *xs: torch.from_numpy(
-                    np.stack([np.asarray(x) for x in xs])).to(self.device),
-                *[c.data for c in self.clients])
-            return
-        bounds = _bounds(self.num_users, len(self._devs))
-        self._xsplit = _Split([tree_map(
-            lambda *xs: torch.from_numpy(
-                np.stack([np.asarray(x) for x in xs])).to(dev),
-            *[c.data for c in self.clients[lo:hi]])
-            for (lo, hi), dev in zip(bounds, self._devs)],
-            bounds, self._devs)
+                    np.stack([np.asarray(x) for x in xs])).to(dev),
+                *[c.data for c in self.clients[lo:hi]])
+                for (lo, hi), dev in zip(bounds, self._devs)],
+                bounds, self._devs)
 
     def _bcast(self, state, rows: Optional[int] = None):
         """A fresh contiguous (rows, ...) stack of the global (``rows``
@@ -1541,15 +1545,18 @@ class HostBackend(Backend):
         tensor a chunk (its lanes, or its users of every lane), gathered
         onto its device."""
         E, U = st.num_lanes, self.num_users
-        big = self._draw_perms(st.rngs)
+        with trace.span("draw.perms", host_only=True):
+            big = self._draw_perms(st.rngs)
         out = []
-        for (lo, hi), dev in self._plan(U if st.split == 1 else E,
-                                        st.split is not None):
-            if st.split == 1:
-                rows, b = np.tile(np.arange(lo, hi), E), big[:, lo:hi]
-            else:
-                rows, b = np.tile(np.arange(U), hi - lo), big[lo:hi]
-            out.append(self._gather_rows(rows, b.reshape(len(rows), -1), dev))
+        with trace.span("draw.gather"):
+            for (lo, hi), dev in self._plan(U if st.split == 1 else E,
+                                            st.split is not None):
+                if st.split == 1:
+                    rows, b = np.tile(np.arange(lo, hi), E), big[:, lo:hi]
+                else:
+                    rows, b = np.tile(np.arange(U), hi - lo), big[lo:hi]
+                out.append(self._gather_rows(rows, b.reshape(len(rows), -1),
+                                             dev))
         return out[0] if len(out) == 1 else out
 
     def sweep_train(self, st: SweepState, batched,
@@ -1774,7 +1781,8 @@ class HostBackend(Backend):
             if st.prio_cache is None:
                 st.prio_cache = np.ones((E, U), np.float64)
             return st.prio_cache.copy(), None
-        st.pending = big = self._draw_perms(st.rngs)
+        with trace.span("draw.perms", host_only=True):
+            st.pending = big = self._draw_perms(st.rngs)
         if not need_priority:
             return np.ones((E, U)), None
         C = max(1, min(self._sparse_chunk, U))
@@ -1788,8 +1796,10 @@ class HostBackend(Backend):
             loss_c = self._train_lanes(
                 st, stack, self._gather_lane_rows(rows, big[:, lo:hi]), hc)
             p = self._sweep_priorities(stack, st.glob)
-            both = torch.stack((p, loss_c.float())).cpu().numpy()
-            prios[:, lo:hi], losses[:, lo:hi] = both.astype(np.float64)
+            both = torch.stack((p, loss_c.float())).cpu()
+            trace.synced(p.device)
+            prios[:, lo:hi], losses[:, lo:hi] = both.numpy().astype(
+                np.float64)
         return prios, losses
 
     def sweep_sparse_train(self, st: SweepState,

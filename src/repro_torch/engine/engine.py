@@ -60,6 +60,7 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.channel.model import ChannelModel, MergeContext
 from repro_torch.checkpoint.fl_state import (generator_state,
                                              load_fl_checkpoint,
@@ -669,6 +670,7 @@ class FLEngine:
             lane.load_state(lst)
         return payload["round"] + 1
 
+    @trace.recorded
     def _run_lanes(self, lanes, *, init_state, overlap, verbose,
                    labels=None, checkpoint_dir=None, checkpoint_every=0):
         """The sweep round loop: one training pass for all lanes, one
@@ -686,6 +688,12 @@ class FLEngine:
         With ``overlap`` off the pre-draw moves after the contention;
         every per-lane rng stream is consumed in the same order either
         way, so the two schedules give the same bits.
+
+        Iteration t is round t of the recorder (``repro_torch.trace``):
+        its spans ``draw``, ``read``, ``select``, ``uploads``, ``merge``,
+        ``train``, ``book``, ``eval`` (and ``checkpoint``) hold every
+        statement of the iteration; the set-up and round 0's draw and
+        train are the prologue.
         """
         backend, U, E = self.backend, self.num_users, len(lanes)
         rounds = lanes[0].spec.rounds
@@ -696,80 +704,98 @@ class FLEngine:
         fp = run_fingerprint([l.spec for l in lanes], U)
         seeds = [l.spec.seed for l in lanes]
         objs = [l.spec.objective for l in lanes]
+        host_select = all(l.spec.contention_backend == "numpy"
+                          for l in lanes)
         t0 = time.perf_counter()
         start, st = 0, None
-        if checkpoint_dir is not None:
-            payload = load_fl_checkpoint(checkpoint_dir)
-            if payload is not None:
-                start = self._load_sweep_payload(payload, fp, lanes,
-                                                 counters)
-                st = backend.sweep_restore(
-                    payload["glob"], payload["client_streams"], seeds,
-                    objectives=objs,
-                    objective_state=payload.get("objective"))
-        if st is None:
-            st = backend.sweep_init(init_state, seeds, objectives=objs)
-        tr = backend.sweep_train(st, backend.sweep_batches(st), need_prio)
+        with trace.span("setup.init"):
+            if checkpoint_dir is not None:
+                payload = load_fl_checkpoint(checkpoint_dir)
+                if payload is not None:
+                    start = self._load_sweep_payload(payload, fp, lanes,
+                                                     counters)
+                    st = backend.sweep_restore(
+                        payload["glob"], payload["client_streams"], seeds,
+                        objectives=objs,
+                        objective_state=payload.get("objective"))
+            if st is None:
+                st = backend.sweep_init(init_state, seeds, objectives=objs)
+        with trace.span("draw"):
+            batched = backend.sweep_batches(st)
+        with trace.span("train"):
+            tr = backend.sweep_train(st, batched, need_prio)
+            del batched                # held no longer than the call
         for t in range(start, rounds):
-            last = t + 1 >= rounds
-            want_ckpt = (checkpoint_dir is not None
-                         and checkpoint_every > 0
-                         and (t + 1) % checkpoint_every == 0 and not last)
-            # the client-stream snapshot must precede ANY round-t+1
-            # batch draw (overlapped or not): a resumed run re-draws
-            # round t+1 from exactly this position
-            stream_snap = (backend.sweep_stream_states(st) if want_ckpt
-                           else None)
-            next_batched = None
-            if overlap and not last:
-                # host: round t+1's epoch permutations, drawn while the
-                # queued round-t train call runs on the card
-                next_batched = backend.sweep_batches(st)
-            prios64, losses64 = tr.read()                  # the sync
-            winners_all, sels = self._select_lanes(
-                lanes, counters, prios64, t)
-            # channel gate + fault pipeline: merge weights are computed
-            # over the post-fault merge candidates; counters and
-            # histories keep seeing the attempts
-            ups = [_uploads(lane.channel, lane.faults, winners_all[e],
-                            lambda u, e=e: backend.sweep_extract(tr, e, u),
-                            backend.num_examples)
-                   for e, lane in enumerate(lanes)]
-            rfs = [up[2] for up in ups]
-            stales = [up[3] for up in ups]
-            merged_all = [[int(u) for u in up[4]] for up in ups]
-            # user ids ARE the row indices into the (E, U, ...) stack
-            # (for attempts too)
-            k_pad = backend._k_pad(max(len(m) for m in merged_all))
-            nq = self._dispatch_sweep_merge(
-                lanes, st, tr, merged_all, rfs, stales, lead_faults,
-                k_pad, t, attempts=(winners_all, winners_all))
-            next_tr = None
+            trace.begin_round(t)
+            with trace.span("draw"):
+                last = t + 1 >= rounds
+                want_ckpt = (checkpoint_dir is not None
+                             and checkpoint_every > 0
+                             and (t + 1) % checkpoint_every == 0
+                             and not last)
+                # the client-stream snapshot must precede ANY round-t+1
+                # batch draw (overlapped or not): a resumed run re-draws
+                # round t+1 from exactly this position
+                stream_snap = (backend.sweep_stream_states(st)
+                               if want_ckpt else None)
+                next_batched = None
+                if overlap and not last:
+                    # host: round t+1's epoch permutations, drawn while
+                    # the queued round-t train call runs on the card
+                    next_batched = backend.sweep_batches(st)
+            with trace.span("read"):
+                prios64, losses64 = tr.read()              # the sync
+            with trace.span("select", host_only=host_select):
+                winners_all, sels = self._select_lanes(
+                    lanes, counters, prios64, t)
+            with trace.span("uploads", host_only=lead_faults is None):
+                # channel gate + fault pipeline: merge weights are
+                # computed over the post-fault merge candidates; counters
+                # and histories keep seeing the attempts
+                ups = [_uploads(lane.channel, lane.faults, winners_all[e],
+                                lambda u, e=e: backend.sweep_extract(
+                                    tr, e, u),
+                                backend.num_examples)
+                       for e, lane in enumerate(lanes)]
+                rfs = [up[2] for up in ups]
+                stales = [up[3] for up in ups]
+                merged_all = [[int(u) for u in up[4]] for up in ups]
+                # user ids ARE the row indices into the (E, U, ...) stack
+                # (for attempts too)
+                k_pad = backend._k_pad(max(len(m) for m in merged_all))
+            with trace.span("merge"):
+                nq = self._dispatch_sweep_merge(
+                    lanes, st, tr, merged_all, rfs, stales, lead_faults,
+                    k_pad, t, attempts=(winners_all, winners_all))
             if not last:
                 if next_batched is None:
-                    next_batched = backend.sweep_batches(st)
-                next_tr = backend.sweep_train(st, next_batched, need_prio)
+                    with trace.span("draw"):
+                        next_batched = backend.sweep_batches(st)
+                with trace.span("train"):
+                    tr = backend.sweep_train(st, next_batched, need_prio)
             # deferred bookkeeping: overlaps the queued train call
-            counters.update(winners_all)
-            for e, (lane, (delivered, failures, rf, stale_in, _)) in \
-                    enumerate(zip(lanes, ups)):
-                h = lane.history
-                if nq is not None:
-                    h.quarantined_updates += int(nq[e])
-                _record_round(h, lane.spec, lane.channel, sels[e],
-                              winners_all[e], delivered, failures, rf,
-                              stale_in)
-                if (lane.strategy.uses_priority
-                        and not lane.strategy.trains_before_selection):
-                    h.priorities.append(prios64[e].tolist())
-                h.train_loss.append(float(np.mean(losses64[e])))
-            self._eval_lanes(lanes, st, t, labels, verbose)
+            with trace.span("book", host_only=True):
+                counters.update(winners_all)
+                for e, (lane, (delivered, failures, rf, stale_in, _)) in \
+                        enumerate(zip(lanes, ups)):
+                    h = lane.history
+                    if nq is not None:
+                        h.quarantined_updates += int(nq[e])
+                    _record_round(h, lane.spec, lane.channel, sels[e],
+                                  winners_all[e], delivered, failures, rf,
+                                  stale_in)
+                    if (lane.strategy.uses_priority
+                            and not lane.strategy.trains_before_selection):
+                        h.priorities.append(prios64[e].tolist())
+                    h.train_loss.append(float(np.mean(losses64[e])))
+            with trace.span("eval"):
+                self._eval_lanes(lanes, st, t, labels, verbose)
             if want_ckpt:
-                save_fl_checkpoint(
-                    checkpoint_dir,
-                    self._sweep_payload(fp, t, st, stream_snap,
-                                        counters, lanes))
-            tr = next_tr
+                with trace.span("checkpoint"):
+                    save_fl_checkpoint(
+                        checkpoint_dir,
+                        self._sweep_payload(fp, t, st, stream_snap,
+                                            counters, lanes))
         result = SweepResult(
             histories=[l.history for l in lanes],
             specs=[l.spec for l in lanes], labels=labels,
@@ -794,6 +820,7 @@ class FLEngine:
                           + (f" loss {h.train_loss[-1]:.4f}"
                              if h.train_loss else ""))
 
+    @trace.recorded
     def _run_lanes_sparse(self, lanes, *, init_state, verbose, labels=None,
                           checkpoint_dir=None):
         """The winner-sparse sweep loop: per round, every lane's Eq. 2
@@ -802,7 +829,8 @@ class FLEngine:
         the winners, then the merge by delivery position. Synchronous —
         no overlap: a round's winner draws depend on its contention. A
         prepass round records the whole cohort's losses, a stale round
-        its winners' (none without winners)."""
+        its winners' (none without winners). The recorder's spans are
+        the dense loop's, with ``prepass`` for the priorities."""
         if checkpoint_dir is not None:
             raise NotImplementedError(
                 "sparse sweeps don't checkpoint; use round_mode='fused' "
@@ -813,51 +841,65 @@ class FLEngine:
         lead_faults = lanes[0].spec.faults       # sweep-shared field
         counters = SweepFairnessCounter(
             E, U, np.array([l.spec.counter_threshold for l in lanes]))
+        host_select = all(l.spec.contention_backend == "numpy"
+                          for l in lanes)
         t0 = time.perf_counter()
-        st = backend.sweep_sparse_init(
-            init_state, [l.spec.seed for l in lanes],
-            objectives=[l.spec.objective for l in lanes])
+        with trace.span("setup.init"):
+            st = backend.sweep_sparse_init(
+                init_state, [l.spec.seed for l in lanes],
+                objectives=[l.spec.objective for l in lanes])
         for t in range(rounds):
-            prios64, pre_losses = backend.sweep_sparse_priorities(
-                st, need_prio)
-            winners_all, sels = self._select_lanes(
-                lanes, counters, prios64, t)
-            tr = backend.sweep_sparse_train(st, winners_all)
-            # a straggler's row is its delivery position
-            ups = [_uploads(lane.channel, lane.faults, winners_all[e],
-                            lambda u, e=e: backend.sweep_extract(
-                                tr, e, winners_all[e].index(u)),
-                            backend.num_examples)
-                   for e, lane in enumerate(lanes)]
-            merged_all = [[int(u) for u in up[4]] for up in ups]
-            # rows are compact positions in the (E, K_max, ...) stack; a
-            # lane's attempts ARE its trained rows, in order
-            pos_all = [[winners_all[e].index(u) for u in merged_all[e]]
-                       for e in range(E)]
-            att_rows = [list(range(len(ws))) for ws in winners_all]
-            losses64 = (pre_losses if pre_losses is not None
-                        else tr.read()[1])
-            nq = self._dispatch_sweep_merge(
-                lanes, st, tr, merged_all, [up[2] for up in ups],
-                [up[3] for up in ups], lead_faults, tr.priorities.shape[1],
-                t, attempts=(winners_all, att_rows), pos_all=pos_all)
-            counters.update(winners_all)
-            for e, (lane, (delivered, failures, rf, stale_in, _)) in \
-                    enumerate(zip(lanes, ups)):
-                h = lane.history
-                if nq is not None:
-                    h.quarantined_updates += int(nq[e])
-                _record_round(h, lane.spec, lane.channel, sels[e],
-                              winners_all[e], delivered, failures, rf,
-                              stale_in)
-                if (lane.strategy.uses_priority
-                        and not lane.strategy.trains_before_selection):
-                    h.priorities.append(prios64[e].tolist())
-                loss_row = (losses64[e] if pre_losses is not None
-                            else losses64[e, :len(winners_all[e])])
-                if np.size(loss_row):
-                    h.train_loss.append(float(np.mean(loss_row)))
-            self._eval_lanes(lanes, st, t, labels, verbose)
+            trace.begin_round(t)
+            with trace.span("prepass"):
+                prios64, pre_losses = backend.sweep_sparse_priorities(
+                    st, need_prio)
+            with trace.span("select", host_only=host_select):
+                winners_all, sels = self._select_lanes(
+                    lanes, counters, prios64, t)
+            with trace.span("train"):
+                tr = backend.sweep_sparse_train(st, winners_all)
+            with trace.span("uploads", host_only=lead_faults is None):
+                # a straggler's row is its delivery position
+                ups = [_uploads(lane.channel, lane.faults, winners_all[e],
+                                lambda u, e=e: backend.sweep_extract(
+                                    tr, e, winners_all[e].index(u)),
+                                backend.num_examples)
+                       for e, lane in enumerate(lanes)]
+                merged_all = [[int(u) for u in up[4]] for up in ups]
+                # rows are compact positions in the (E, K_max, ...) stack;
+                # a lane's attempts ARE its trained rows, in order
+                pos_all = [[winners_all[e].index(u) for u in merged_all[e]]
+                           for e in range(E)]
+                att_rows = [list(range(len(ws))) for ws in winners_all]
+                losses64 = pre_losses
+            if losses64 is None:
+                with trace.span("read"):
+                    losses64 = tr.read()[1]
+            with trace.span("merge"):
+                nq = self._dispatch_sweep_merge(
+                    lanes, st, tr, merged_all, [up[2] for up in ups],
+                    [up[3] for up in ups], lead_faults,
+                    tr.priorities.shape[1], t,
+                    attempts=(winners_all, att_rows), pos_all=pos_all)
+            with trace.span("book", host_only=True):
+                counters.update(winners_all)
+                for e, (lane, (delivered, failures, rf, stale_in, _)) in \
+                        enumerate(zip(lanes, ups)):
+                    h = lane.history
+                    if nq is not None:
+                        h.quarantined_updates += int(nq[e])
+                    _record_round(h, lane.spec, lane.channel, sels[e],
+                                  winners_all[e], delivered, failures, rf,
+                                  stale_in)
+                    if (lane.strategy.uses_priority
+                            and not lane.strategy.trains_before_selection):
+                        h.priorities.append(prios64[e].tolist())
+                    loss_row = (losses64[e] if pre_losses is not None
+                                else losses64[e, :len(winners_all[e])])
+                    if np.size(loss_row):
+                        h.train_loss.append(float(np.mean(loss_row)))
+            with trace.span("eval"):
+                self._eval_lanes(lanes, st, t, labels, verbose)
         result = SweepResult(
             histories=[l.history for l in lanes],
             specs=[l.spec for l in lanes], labels=labels,

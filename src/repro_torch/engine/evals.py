@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.device import resolve_device
 
 
@@ -27,6 +28,10 @@ def make_accuracy_eval(apply_fn, x_test, y_test, batch: int = 256,
             for i in range(0, len(y_dev), batch):
                 logits = apply_fn(params, x_dev[i:i + batch])
                 correct += (logits.argmax(-1) == y_dev[i:i + batch]).sum()
-        return int(correct) / len(y_dev)
+        trace.idle()
+        with trace.span("eval.wait"):
+            n = int(correct)
+            trace.synced(dev)
+        return n / len(y_dev)
 
     return eval_fn

@@ -25,6 +25,8 @@ from typing import Dict, Iterable, List, Tuple
 
 import torch
 
+from repro_torch import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: repository root = .../src/repro_torch/kernels -> three levels up
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -143,8 +145,9 @@ def library(stem: str) -> ctypes.CDLL:
     set (built on first use)."""
     lib = _LIBS.get(stem)
     if lib is None:
-        path = build_all(stems=(stem,))[stem]
-        lib = ctypes.CDLL(str(path))
+        with trace.span("setup.kernels", host_only=True):
+            path = build_all(stems=(stem,))[stem]
+            lib = ctypes.CDLL(str(path))
         for fn, argtypes in SIGNATURES[stem].items():
             f = getattr(lib, fn)
             f.argtypes = list(argtypes)
