@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch / CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--profile | --mesh-only | --token-sum-only]
+    python3 chip_smoke.py [--profile | --mesh-only | --token-sum-only |
+                           --conv-pool-only]
 
 Needs one NVIDIA GPU with the CUDA toolkit's ``nvcc``; fails at once
 without CUDA (there is no CPU path here). It
 
   1. names the card (``nvidia-smi`` name and power limit) and the
      toolchain;
-  2. builds the eleven hand-written ``sm_90a`` kernels (six sources)
+  2. builds the thirteen hand-written ``sm_90a`` kernels (seven sources)
      from ``src/repro_torch/kernels/csrc/``;
   3. holds every kernel against its plain PyTorch version on the card —
      f32 and bf16, ragged sizes and every leaf shape the driven paths
@@ -210,6 +211,15 @@ plain version (``check_token_sum``) and times every shape of
 ``{"ok": true, "token_sum_only": true, ...}``: a few minutes, for work
 on that kernel. ``tools/ab_main_path_torch.py --cells token_sum``
 compares two trees'.
+
+``--conv-pool-only`` builds the kernels and runs the CNN first block's
+phase alone (``phase_conv_pool``: ``conv_pool`` / ``conv_pool_grad``
+against their plain version at ``CONV_POOL_SHAPES``, a user's bits
+alone = in a stack = on every card, their times beside the bound and the
+parent's chain, one CNN local step's leaves again, as a sweep lane and as
+a split chunk, one fused CNN round's launches, the CNN's sweep lanes and
+cohort splits, over every card too, with the same winners), then ends
+with ``{"ok": true, "conv_pool_only": true, ...}``.
 
 ``--profile`` adds ``torch.profiler`` passes over a few rounds of each
 path through ``FLEngine.run`` after a warm-up run, the MLP cell's
@@ -1906,6 +1916,392 @@ def bench_grad_copy(U=10, batch=32):
                 step_bound_ms=sum(r["bound_ms"] for r in rows))
 
 
+# ------------------------------------------------ the CNN's first block
+#: (label, stack rows — None: an unstacked call —, B, H, W, C) into 128
+#: channels: the cell's local step, one user (the per-client trainer), the
+#: evaluation's batches of 256 and its last of 232, the CIFAR variant
+CONV_POOL_SHAPES = (("cell_U10", 10, 32, 28, 28, 1),
+                    ("U1", 1, 32, 28, 28, 1),
+                    ("eval_B256", None, 256, 28, 28, 1),
+                    ("eval_B232", None, 232, 28, 28, 1),
+                    ("cifar_U10", 10, 32, 32, 32, 3))
+CONV_POOL_O = 128
+#: the evaluation's first-block launches a call: the paper cell's test
+#: examples in ``make_accuracy_eval``'s batches of 256
+CNN_EVAL_BATCHES = -(-launch_train.make_parser().parse_args([]).n_test
+                     // 256)
+
+
+def conv_pool_inputs(R, B, H, W, C, seed):
+    """The block's operands on the card (weights and bias at the scale
+    of ``init_cnn``'s conv1 after some training), and a cotangent of its
+    output."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lead = () if R is None else (R,)
+    O = CONV_POOL_O
+    x = torch.randn(lead + (B, H, W, C), generator=g, device=DEV)
+    w = 0.05 * torch.randn(lead + (5, 5, C, O), generator=g, device=DEV)
+    b = 0.05 * torch.randn(lead + (O,), generator=g, device=DEV)
+    cot = (B,) + lead + (O, H // 2, W // 2)
+    return x, w, b, torch.randn(cot, generator=g, device=DEV)
+
+
+def conv_pool_work(R, B, H, W, C):
+    """(forward FLOP, bytes, backward FLOP, bytes). The forward: every
+    tap of every conv output (2 * 25 * C a conv output), x, w and b read
+    once, the pooled output (f32) and its codes (1 byte) written once.
+    The backward: the winner's 25 * C taps a pooled output and one add
+    into db; the cotangent, the codes and x read once, dw and db written
+    once."""
+    R, O, P = R or 1, CONV_POOL_O, (H // 2) * (W // 2)
+    x_bytes, w_bytes, outs = 4 * R * B * H * W * C, 4 * R * (25 * C + 1) \
+        * O, R * B * O * P
+    return (2 * R * B * O * H * W * 25 * C, x_bytes + w_bytes + 5 * outs,
+            (2 * 25 * C + 1) * outs, 5 * outs + x_bytes + w_bytes)
+
+
+def _stacked(t, axis, R):
+    return t if R is not None else t.unsqueeze(axis)
+
+
+def _pre_pool(x, w, b):
+    """One user's relu(conv + b) (B, O, H, W), the plain chain's."""
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),
+                                   w.permute(3, 2, 0, 1), padding=2)
+    return torch.relu(y + b.reshape(1, -1, 1, 1))
+
+
+def check_conv_pool(label, R, B, H, W, C, seed):
+    """The kernel pair against the plain version on the card. Forward:
+    f32 rtol 1e-5, atol 1e-6; where a winner code differs from the plain
+    max-pool's, the plain activation at the kernel's winner must be the
+    plain maximum within that bar (a near-tie), and "none" only where the
+    plain maximum is within 1e-6 of 0. Backward, on the kernel's own
+    codes: each dw / db sum within 1e-5 of its absolute sum of the exact
+    (float64) sum over the same winners (rule 4's f32 rtol on the sum's
+    condition); the plain version's own f32 backward, on its own codes,
+    read on the same yardstick."""
+    x, w, b, gz = conv_pool_inputs(R, B, H, W, C, seed)
+    out, codes = ops.conv_pool(x, w, b)
+    p_out, p_codes = ref.conv_pool_ref(x, w, b)
+    torch.cuda.synchronize()
+    fwd_err = float((out - p_out).abs().max())
+    if not torch.allclose(out, p_out, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"conv_pool {label}: forward off by {fwd_err}")
+    differ = codes != p_codes
+    if differ.any():
+        y = (_pre_pool(x, w, b) if R is None else torch.func.vmap(
+            _pre_pool, out_dims=1)(x, w, b))
+        H2, W2 = H // 2, W // 2
+        win = y[..., :2 * H2, :2 * W2].unflatten(-2, (H2, 2)).unflatten(
+            -1, (W2, 2)).transpose(-3, -2).flatten(-2)
+        at = win.gather(-1, codes.clamp(max=3).long().unsqueeze(-1))[..., 0]
+        at = torch.where(codes == 4, torch.zeros_like(at), at)
+        bad = differ & ((at - p_out).abs() > 1e-6 + 1e-5 * p_out.abs())
+        if bad.any():
+            raise AssertionError(f"conv_pool {label}: {int(bad.sum())} "
+                                 "winners differ beyond a near-tie")
+    dw, db = ops.conv_pool_grad(gz, x, w, b, codes)
+    xs, gs = _stacked(x, 0, R), _stacked(gz, 1, R)
+
+    def rel(dw, db, cs):
+        e_dw, e_db = ref.conv_pool_grad_codes_ref(gs.double(), xs, cs)
+        s_dw, s_db = ref.conv_pool_grad_codes_ref(gs.abs().double(),
+                                                  xs.abs(), cs)
+        return max(float(((_stacked(dw, 0, R).double() - e_dw).abs()
+                          / s_dw.clamp_min(1e-300)).max()),
+                   float(((_stacked(db, 0, R).double() - e_db).abs()
+                          / s_db.clamp_min(1e-300)).max()))
+    grad_rel = rel(dw, db, _stacked(codes, 1, R))
+    p_dw, p_db = ref.conv_pool_grad_ref(gz, x, w, b)
+    plain_rel = rel(p_dw, p_db, _stacked(p_codes, 1, R))
+    if grad_rel > 1e-5 or not (dw.is_contiguous() and db.is_contiguous()):
+        raise AssertionError(f"conv_pool_grad {label}: {grad_rel} of the "
+                             "absolute sum")
+    return dict(forward_max_abs_err=fwd_err,
+                codes_differ=int(differ.sum()), codes=int(codes.numel()),
+                codes_none=int((codes == 4).sum()),
+                grad_max_rel_to_abs_sum=grad_rel,
+                plain_grad_max_rel_to_abs_sum=plain_rel,
+                grad_vs_plain_max_abs=max(float((dw - p_dw).abs().max()),
+                                          float((db - p_db).abs().max())))
+
+
+def conv_pool_row_bits(seed, E=3):
+    """A user's forward, codes, dw and db: the same bits alone, in the
+    cohort of U and in a sweep's E x U stack, at the cell's shape (the
+    first of ``CONV_POOL_SHAPES``); and the cohort's bits on every other
+    visible card equal to ``cuda:0``'s (each card needs its own
+    shared-memory opt-in). Returns the cards read."""
+    _, U, B, H, W, C = CONV_POOL_SHAPES[0]
+    x, w, b, gz = conv_pool_inputs(E * U, B, H, W, C, seed)
+
+    def run(rows, dev=DEV):
+        xs, ws, bs, gs = (t.to(dev) for t in (x[rows], w[rows], b[rows],
+                                              gz[:, rows]))
+        with torch.cuda.device(xs.device):
+            o, c = ops.conv_pool(xs, ws, bs)
+            dw, db = ops.conv_pool_grad(gs, xs, ws, bs, c)
+        return [t.to(DEV) for t in (o.transpose(0, 1), c.transpose(0, 1),
+                                    dw, db)]
+    full, cohort = run(slice(0, E * U)), run(slice(0, U))
+    for r in (0, U - 1):
+        alone = run(slice(r, r + 1))
+        if not all(torch.equal(a[0], f[r]) and torch.equal(a[0], c[r])
+                   for a, f, c in zip(alone, full, cohort)):
+            raise AssertionError("conv_pool: a user's bits follow the rows "
+                                 "beside it")
+    cards = torch.cuda.device_count()
+    for i in range(1, cards):
+        there = run(slice(0, U), torch.device("cuda", i))
+        if not all(torch.equal(a, c) for a, c in zip(there, cohort)):
+            raise AssertionError(f"conv_pool: cuda:{i} gives other bits "
+                                 "than cuda:0")
+    return cards
+
+
+def _parent_block(x, w, b):
+    return torch.nn.functional.max_pool2d(_pre_pool(x, w, b), 2)
+
+
+def bench_conv_pool(R, B, H, W, C, reps=50):
+    """The kernel pair eager and from a CUDA graph, the plain version
+    (forward with its codes; the vjp with its recomputed forward), and
+    the parent's chain as a local step ran it (``library_ms``: the block
+    under vmap with autograd's graph, then autograd's backward for w and
+    b; an unstacked call under no_grad, as the evaluation runs it),
+    against the bound (``conv_pool_work``), in ms a call."""
+    x, w, b, gz = conv_pool_inputs(R, B, H, W, C, seed=7)
+    out, codes = ops.conv_pool(x, w, b)
+    f_flop, f_bytes, b_flop, b_bytes = conv_pool_work(R, B, H, W, C)
+    stacked = R is not None
+    wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+    chain = (torch.func.vmap(_parent_block, out_dims=1) if stacked
+             else _parent_block)
+
+    def parent_fwd():
+        if stacked:
+            return chain(x, wr, br)
+        with torch.no_grad():
+            return chain(x, w, b)
+
+    def row(kernel, plain, parent, nbytes, flop):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flop / F32_FLOPS_PER_S * 1e3
+        return dict(ms=time_ms(kernel, reps), graph_ms=graph_ms(kernel),
+                    plain_ms=time_ms(plain, max(reps // 5, 3), samples=3,
+                                     warmup=1),
+                    library_ms=time_ms(parent, reps),
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    bytes=nbytes, ops=flop)
+    out = dict(forward=row(lambda: ops.conv_pool(x, w, b),
+                           lambda: ref.conv_pool_ref(x, w, b), parent_fwd,
+                           f_bytes, f_flop))
+    if stacked:
+        p_out = chain(x, wr, br)
+        out["backward"] = row(
+            lambda: ops.conv_pool_grad(gz, x, w, b, codes),
+            lambda: ref.conv_pool_grad_ref(gz, x, w, b),
+            lambda: torch.autograd.grad(p_out, (wr, br), gz,
+                                        retain_graph=True),
+            b_bytes, b_flop)
+    return out
+
+
+def cnn_contracts(rounds, *extra):
+    """The paper CNN's rule-4 runs on the card, ``rounds`` rounds each:
+    a 3-seed sweep against its lanes' sequential runs, the cohort split
+    2-way on one card against no mesh, and, with more than one card
+    visible, a sweep of one seed a card split over every card
+    (``cohort_mesh()``, a lane a card) against the same sweep unsplit
+    (``route_gap`` each). Returns (the gaps by run, the launches by
+    run, the local steps of a run)."""
+    base = paper_engine("cnn", rounds, *extra)
+    cohort = cohort_of(base)
+    steps = max(1, base.backend.num_examples(0) // base.spec.batch_size) \
+        * base.spec.local_epochs * rounds
+    gaps, launches, runs = {}, {}, {}
+
+    def run(key, eng, call):
+        res, _, launches[key], _, _ = timed(eng, call)
+        return res
+
+    def lanes_of(res):
+        return [(res[e], tree_leaves(res.lane_params(e)))
+                for e in range(len(res))]
+    sweep = SweepSpec.grid(base.spec, seed=[0, 1, 2])
+    lanes = lanes_of(run("sweep", cell_engine(base, sweep.specs[0]),
+                         lambda e: e.run_sweep(sweep)))
+    for e, spec in enumerate(sweep.specs):
+        gaps[f"sweep_lane{e}"] = route_gap(lanes[e], run(
+            "sequential", cell_engine(base, spec), lambda e: kept(e.run(), e)))
+    del base, lanes
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        over = SweepSpec.grid(cohort["spec"], seed=list(range(n_cards)))
+        for key, mesh in (("cards_sweep_none", None),
+                          (f"cards_sweep_{n_cards}cards", cohort_mesh())):
+            runs[key] = lanes_of(run(key, mesh_engine(cohort, "fused", mesh),
+                                     lambda e: e.run_sweep(over)))
+        for e, (a, b) in enumerate(zip(
+                runs["cards_sweep_none"],
+                runs[f"cards_sweep_{n_cards}cards"])):
+            gaps[f"{n_cards}cards_lane{e}"] = route_gap(b, a)
+    torch.cuda.empty_cache()
+    for key, mesh in (("mesh_none", None),
+                      ("mesh_2way", cohort_mesh([DEV] * 2))):
+        runs[key] = run(key, mesh_engine(cohort, "fused", mesh),
+                        lambda e: kept(e.run(), e))
+    gaps["mesh_2way"] = route_gap(runs["mesh_2way"], runs["mesh_none"])
+    lost = [k for k, g in gaps.items() if not g["winners_equal"]]
+    if lost:
+        raise AssertionError(f"cnn contracts: the winners differ in {lost}: "
+                             f"{gaps}")
+    return gaps, launches, steps
+
+
+#: a conv1 gradient's largest gap, relative to the leaf's largest
+#: magnitude, between one local step and the same step again, as a
+#: sweep's lane 0 or as a cohort split's first chunk (``cnn_step_bits``):
+#: about 11 times the largest of 15 readings of the ATen chain this
+#: kernel pair replaced (1.83e-7, a few ulps; H100 80GB HBM3)
+CNN_CONV1_STEP_GAP = 2e-6
+
+
+def cnn_step_bits(lanes=3, chunk=5):
+    """One local step of the paper cell's cohort (``cohort_step``), leaf
+    by leaf, against the same step at U rows: again, as lane 0 of
+    ``lanes`` x U rows (a sweep's first step) and as the first ``chunk``
+    rows (a cohort split's first chunk). conv2's grouped input gradient
+    (cuDNN) is not repeatable on the card and feeds conv1's gradients
+    alone, so every other leaf and the losses keep their bits. Returns
+    by reading whether the losses are equal and each leaf's largest gap
+    relative to its largest magnitude."""
+    grad_fn, stack, batch = cohort_step(paper_engine("cnn", 1))
+    g, loss = grad_fn(stack, batch)
+    U = loss.shape[0]
+    runs = dict(
+        again=(U, (stack, batch)),
+        sweep_lane0=(U, [tree_map(lambda x: x.repeat(
+            (lanes,) + (1,) * (x.dim() - 1)), t) for t in (stack, batch)]),
+        chunk=(chunk, [tree_map(lambda x: x[:chunk].contiguous(), t)
+                       for t in (stack, batch)]))
+    out = {}
+    for key, (m, args) in runs.items():
+        gk, lk = grad_fn(*args)
+        gaps = {f"{mod}/{k}": float(
+            (v[:m] - g[mod][k][:m]).abs().max()
+            / g[mod][k][:m].abs().max().clamp_min(1e-30))
+            for mod in g for k, v in gk[mod].items()}
+        out[key] = dict(losses_equal=torch.equal(lk[:m], loss[:m]),
+                        leaf_gaps=gaps)
+    return out
+
+
+def conv2_dgrad_bits(U=10, E=3, B=32):
+    """conv2's grouped input gradient alone, as ``vmap(grad)`` runs it
+    (cuDNN, f32, TF32 off): the same call twice, and U groups against
+    the first U of E x U groups, bit for bit."""
+    g = torch.Generator(device=DEV).manual_seed(11)
+    x = torch.randn(B, E * U * 128, 14, 14, generator=g, device=DEV)
+    w = 0.02 * torch.randn(E * U * 256, 128, 5, 5, generator=g, device=DEV)
+    gy = torch.randn(B, E * U * 256, 14, 14, generator=g, device=DEV)
+
+    def dgrad(G):
+        xx = x[:, :G * 128].clone().requires_grad_()
+        y = torch.nn.functional.conv2d(xx, w[:G * 256], padding=2, groups=G)
+        return torch.autograd.grad(y, xx, gy[:, :G * 256])[0]
+    one = dgrad(U)
+    return dict(repeatable=torch.equal(one, dgrad(U)),
+                groups_u_equal_in_e_x_u=torch.equal(
+                    one, dgrad(E * U)[:, :U * 128]))
+
+
+def phase_conv_pool(rounds=2, *extra):
+    """The CNN's first block (``ops.conv_pool`` / ``ops.conv_pool_grad``).
+    Each shape of ``CONV_POOL_SHAPES`` against the plain version
+    (``check_conv_pool``); a user's bits alone = in a cohort = in a
+    sweep's stack = on every card (``conv_pool_row_bits``); the pair
+    timed beside its bound and the parent's chain (``bench_conv_pool``).
+    Then the paper CNN: one local step, where every leaf but conv1's and
+    the losses keep their bits again, as a sweep's lane and as a split's
+    chunk, and conv1's gradients keep within ``CNN_CONV1_STEP_GAP``
+    (``cnn_step_bits``: conv2's cuDNN input gradient, which feeds them,
+    is not repeatable on the card, ``conv2_dgrad_bits``; ROADMAP Queue
+    C); one fused round's launches, 18 + 18 training and
+    ``CNN_EVAL_BATCHES`` evaluation ones, and none on the MLP's round
+    (``check_main_path`` predicts every kernel's); and the rule-4 runs
+    (``cnn_contracts``) with the same winners in every lane and split
+    and their launches predicted, their gaps reported."""
+    agree = {label: check_conv_pool(label, R, B, H, W, C, seed=100 + i)
+             for i, (label, R, B, H, W, C) in enumerate(CONV_POOL_SHAPES)}
+    cards = conv_pool_row_bits(seed=200)
+    emit("conv_pool_agree", shapes={s[0]: list(s[1:]) for s in
+                                    CONV_POOL_SHAPES},
+         out_channels=CONV_POOL_O, agree=agree,
+         user_bits_alone_equal_cohort_and_sweep_stack=True,
+         cards_bit_equal=cards,
+         tolerance="forward f32 rtol 1e-5 atol 1e-6, differing winners "
+                   "only at near-ties; each gradient sum within 1e-5 of "
+                   "its absolute sum of the float64 sum on the kernel's "
+                   "winners")
+    times = {s[0]: bench_conv_pool(*s[1:]) for s in CONV_POOL_SHAPES}
+    emit("conv_pool_times", times=times, unit="ms a call")
+    torch.cuda.empty_cache()
+    step = cnn_step_bits()
+    conv1 = max(v for r in step.values() for k, v in r["leaf_gaps"].items()
+                if k.startswith("conv1/"))
+    emit("cnn_step_bits", readings=step, conv1_max_gap=conv1,
+         conv1_bound=CNN_CONV1_STEP_GAP, conv2_dgrad=conv2_dgrad_bits())
+    for key, r in step.items():
+        moved = [k for k, v in r["leaf_gaps"].items()
+                 if v != 0.0 and not k.startswith("conv1/")]
+        if not r["losses_equal"] or moved:
+            raise AssertionError(f"cnn step {key}: the losses or {moved} "
+                                 f"lost their bits: {r}")
+    if not conv1 <= CNN_CONV1_STEP_GAP:
+        raise AssertionError(f"cnn step: conv1's gradients {conv1} apart, "
+                             f"over {CNN_CONV1_STEP_GAP}")
+    per_round = {}
+    for model in ("cnn", "mlp"):
+        hist, engine, _, l, round_s, _ = run_main_path(model, 1, *extra)
+        check_main_path(f"conv_pool_round_{model}", hist, engine, l, 1,
+                        False, eval_batches=CNN_EVAL_BATCHES
+                        if model == "cnn" else 0)
+        per_round[model] = {k: l[k] for k in ("fused_sgd", "conv_pool",
+                                              "conv_pool_grad")}
+        del engine
+    gaps, l_runs, steps = cnn_contracts(rounds, *extra)
+    conv = ("conv_pool", "conv_pool_grad")
+    evals = CNN_EVAL_BATCHES * rounds
+    got = dict(round_cnn=per_round["cnn"], round_mlp=per_round["mlp"],
+               **{k: {c: v[c] for c in conv} for k, v in l_runs.items()})
+    want = dict(round_cnn={"fused_sgd": steps // rounds,
+                           "conv_pool": steps // rounds + CNN_EVAL_BATCHES,
+                           "conv_pool_grad": steps // rounds},
+                round_mlp={"fused_sgd": per_round["mlp"]["fused_sgd"],
+                           "conv_pool": 0, "conv_pool_grad": 0})
+    n = torch.cuda.device_count()
+    runs = dict(sweep=(3, 1), sequential=(1, 1), mesh_none=(1, 1),
+                mesh_2way=(1, 2), cards_sweep_none=(n, 1),
+                **{f"cards_sweep_{n}cards": (n, n)})    # (lanes, chunks)
+    for key in l_runs:
+        lanes, chunks = runs[key]
+        want[key] = {"conv_pool": chunks * steps + lanes * evals,
+                     "conv_pool_grad": chunks * steps}
+    emit("conv_pool_engine", rounds=rounds, launches=got,
+         launches_predicted=want, gaps=gaps,
+         bitwise={k: g["bitwise"] for k, g in gaps.items()},
+         note="winners enforced, the rest reported: conv2's grouped "
+              "input gradient (cuDNN) is not repeatable, so conv1's "
+              "gradients differ run to run on the card whatever conv1 "
+              "runs on, and every leaf after a step")
+    if got != want:
+        raise AssertionError(f"conv_pool: launches {got}, predicted {want}")
+    return agree, times
+
+
 # -------------------------------------------------------------- main path
 def paper_args(*extra):
     return launch_train.make_parser().parse_args(["--device", "cuda", *extra])
@@ -2184,9 +2580,14 @@ def training_launches(engine, hist):
 
 
 def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
-                    events=0, attempts=0, merges=None, token_sums=0):
+                    events=0, attempts=0, merges=None, token_sums=0,
+                    eval_batches=0):
     """``token_sums``: the ``token_sum`` launches of an LLM run (its local
     steps' and evaluations' sums over tokens; none elsewhere).
+    ``eval_batches``: the batches of one evaluation of the paper CNN,
+    each one ``conv_pool`` launch; its local steps (a stack's, or a
+    user's on the ragged path) take one ``conv_pool`` and one
+    ``conv_pool_grad`` launch each, and no other model takes either.
     ``events`` / ``attempts``: the contention loop's events and pool
     attempts in the run (0 on the numpy backend); each attempt launches
     the persistent loop kernel once, and the three per-event passes
@@ -2229,7 +2630,12 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
             "robust_combine": leaves * groups,
             "server_opt": (-(-leaves // kso.max_leaves()) * kinds["objective"]
                            if server else 0),
-            "token_sum": token_sums}
+            "token_sum": token_sums,
+            "conv_pool": 0, "conv_pool_grad": 0}
+    if "conv1" in engine.global_params:
+        steps = sgd // -(-leaves // kfused.max_leaves())
+        want.update(conv_pool=steps + eval_batches * len(hist.accuracy),
+                    conv_pool_grad=steps)
     if engine.spec.contention_backend == "device" and events < rounds:
         raise AssertionError(f"{name}: {events} contention events in "
                              f"{rounds} rounds")
@@ -2270,7 +2676,8 @@ def check_main_path(name, hist, engine, launches, rounds, check_accuracy,
 def phase_main_path(model, rounds, check_accuracy):
     hist, engine, dt, launches, round_s, _ = run_main_path(model, rounds)
     leaves, _, merged = check_main_path(
-        f"main_path_{model}", hist, engine, launches, rounds, check_accuracy)
+        f"main_path_{model}", hist, engine, launches, rounds, check_accuracy,
+        eval_batches=CNN_EVAL_BATCHES if model == "cnn" else 0)
     steps = engine.backend._nb * engine.spec.local_epochs
     if launches["fused_sgd"] != steps * rounds:
         raise AssertionError(f"main_path_{model}: {launches['fused_sgd']} "
@@ -2281,7 +2688,10 @@ def phase_main_path(model, rounds, check_accuracy):
          rounds_per_s=1.0 / steady, launches=launches,
          launches_per_round={"fused_sgd": steps,
                              "delta_norm": launches["delta_norm"] / rounds,
-                             "gather_combine": leaves},
+                             "gather_combine": leaves,
+                             "conv_pool": launches["conv_pool"] / rounds,
+                             "conv_pool_grad":
+                             launches["conv_pool_grad"] / rounds},
          merged_rounds=merged, collisions=hist.collisions,
          accuracy_first=hist.accuracy[0], accuracy_best=max(hist.accuracy),
          accuracy_last=hist.accuracy[-1], loss_first=hist.train_loss[0],
@@ -5704,8 +6114,10 @@ def phase_mesh_paths():
     after another: the split is a correctness witness here, not a speed
     path. With more than one card visible, the 1000-user cases and the
     Fig. 3 sweep also run split over every card (``cohort_mesh()``, chunk
-    i on ``cuda:i``) where the card count divides their stacks. Returns
-    the launches of the 2-way Fig. 3 sweep."""
+    i on ``cuda:i``) where the card count divides their stacks; the CNN's
+    split over every card, which is not bit-equal on the card, is
+    ``phase_conv_pool``'s (``cnn_contracts``). Returns the launches of
+    the 2-way Fig. 3 sweep."""
     one, two, four = (cohort_mesh([DEV]), cohort_mesh([DEV] * 2),
                       cohort_mesh([DEV] * 4))
     n_cards = torch.cuda.device_count()
@@ -5935,6 +6347,13 @@ def main():
     emit("build", seconds=time.perf_counter() - t0,
          nvcc=kbuild.find_nvcc(), flags=" ".join(kbuild.NVCC_FLAGS),
          libraries=sorted(os.path.basename(str(p)) for p in built.values()))
+    if "--conv-pool-only" in sys.argv[1:]:
+        phase_conv_pool()
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "conv_pool_only": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     if "--mesh-only" in sys.argv[1:]:
         phase_mesh_paths()
         print(smi, flush=True)
@@ -6058,6 +6477,8 @@ def main():
     engine, l_cnn = phase_main_path("cnn", rounds=3, check_accuracy=False)
     phase_server_path(engine, "cnn")
     del engine
+    torch.cuda.empty_cache()
+    phase_conv_pool()
     torch.cuda.empty_cache()
     phase_reference_small()
     phase_pins_tool()

@@ -75,6 +75,13 @@ SIGNATURES = {
         "repro_token_sum": (_P, _P, _P, _LL, _P, _LL, _I, _LL, _I, _I, _I,
                             _I, _I, _I, _I, _I, _P),
     },
+    "conv_pool": {
+        "repro_conv_pool": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL,
+                            _I, _I, _P),
+        "repro_conv_pool_grad": (_P, _P, _P, _P, _P, _P, _LL, _P, _LL, _I,
+                                 _I, _I, _I, _I, _I, _LL, _I, _I, _I, _I,
+                                 _I, _I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -25,12 +25,18 @@ over-the-air merge, from alphas or from weights formed once a merge),
 step, every leaf in one launch; ``server_opt_combine`` is its one-leaf
 case), ``contention_loop`` (a whole CSMA contention attempt, the
 persistent event-loop kernel) and ``contention_event`` (the three
-per-event CSMA passes), and ``token_sum`` (the LLM local step's sums
+per-event CSMA passes), ``token_sum`` (the LLM local step's sums
 over a user's tokens in one fixed tree; ``models/layers.py::token_sum``
-wraps it for autograd and ``vmap``).
+wraps it for autograd and ``vmap``), and ``conv_pool`` /
+``conv_pool_grad`` (the paper CNN's first block, conv1, bias, ReLU and
+the 2x2 max-pool, over a stacked cohort, and its weight and bias
+gradients; ``models/paper_models.py::conv_pool`` wraps the pair for
+autograd and ``vmap``).
 
-No op of the reference's kernels is differentiated, so none has a
-backward kernel; ``token_sum``'s backward is a broadcast.
+No op of the reference's kernels is differentiated, so none of those
+has a backward kernel, and ``token_sum``'s backward is a broadcast; the
+port's own first CNN block is the one op with a backward kernel,
+``conv_pool_grad``.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.aircomp import aircomp_cuda
+from repro_torch.kernels.conv_pool import conv_pool_cuda, conv_pool_grad_cuda
 from repro_torch.kernels.contention import (_contend_device,
                                             contention_expiry_cuda,
                                             contention_loop_cuda,
@@ -62,7 +69,8 @@ LAUNCHES: Dict[str, int] = {"fused_sgd": 0, "delta_norm": 0,
                             "contention_transition": 0,
                             "contention_loop": 0,
                             "aircomp_combine": 0, "robust_combine": 0,
-                            "server_opt": 0, "token_sum": 0}
+                            "server_opt": 0, "token_sum": 0,
+                            "conv_pool": 0, "conv_pool_grad": 0}
 
 
 def reset_launches() -> None:
@@ -121,6 +129,45 @@ def token_sum(x):
     out = token_sum_cuda(x.contiguous())
     LAUNCHES["token_sum"] += 1
     return out
+
+
+def conv_pool(x, w, b):
+    """The paper CNN's first block, ``maxpool2x2(relu(conv5x5_same(x, w)
+    + b))``: ``x`` (B, H, W, C) NHWC, ``w`` (5, 5, C, O) HWIO, ``b`` (O,)
+    -> ``(out, codes)`` (B, O, H/2, W/2), or a stack of each — ``x`` (R,
+    B, H, W, C), ``w`` (R, 5, 5, C, O), ``b`` (R, O) -> (B, R, O, H/2,
+    W/2). ``codes`` (uint8) name each pooled output's winner in its 2x2
+    window (dy * 2 + dx, the first maximum in row-major order), 4 where
+    the maximum is <= 0. f32. On a CUDA tensor ONE launch; on a CPU
+    tensor the plain version (``F.conv2d``, the bias, ``F.relu``,
+    ``F.max_pool2d``)."""
+    if not x.is_cuda:
+        return ref.conv_pool_ref(x, w, b)
+    one = x.dim() == 4
+    if one:
+        x, w, b = x.unsqueeze(0), w.unsqueeze(0), b.unsqueeze(0)
+    out, codes = conv_pool_cuda(x, w, b)
+    if out.numel():  # R or B == 0 launches nothing
+        LAUNCHES["conv_pool"] += 1
+    return (out[:, 0], codes[:, 0]) if one else (out, codes)
+
+
+def conv_pool_grad(g, x, w, b, codes):
+    """``conv_pool``'s weight and bias gradients for a cotangent ``g`` of
+    its output -> ``(dw, db)`` in ``w``'s and ``b``'s shapes (no gradient
+    for the data ``x``). On a CUDA tensor ONE launch from ``codes`` (``w``
+    and ``b`` are not read), each user's sums in a fixed order that
+    follows (B, H, W, C) alone; on a CPU tensor the plain version, the
+    vjp of ``conv_pool``'s (``codes`` not read)."""
+    if not g.is_cuda:
+        return ref.conv_pool_grad_ref(g, x, w, b)
+    one = x.dim() == 4
+    if one:
+        g, x, codes = g.unsqueeze(1), x.unsqueeze(0), codes.unsqueeze(1)
+    dw, db = conv_pool_grad_cuda(g, x, codes)
+    if g.numel():  # R or B == 0 launches nothing
+        LAUNCHES["conv_pool_grad"] += 1
+    return (dw[0], db[0]) if one else (dw, db)
 
 
 def delta_norm(w_local, w_global):

@@ -8,6 +8,7 @@ calls them when the tensors are on a CUDA device.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def delta_norm_ref(w_local, w_global):
@@ -258,3 +259,73 @@ def contention_event_ref(counters, live, doublings, windows, rand,
     return (step, nexp, winner) + contention_transition_ref(
         counters, live, doublings, windows, rand, step, nexp,
         max_doublings)
+
+
+def _first_block(x, w, b):
+    """One user's ``maxpool2x2(relu(conv(x, w) + b))``, as the paper
+    CNN's ``apply_cnn`` computed its first block before it had a kernel:
+    x (B, H, W, C) NHWC, w (K, K, C, O) HWIO, b (O,) -> the pooled (B, O,
+    H/2, W/2) and its winner codes (uint8: the window position dy * 2 +
+    dx of max_pool2d's index, 4 where the maximum is <= 0)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 padding=w.shape[0] // 2)
+    y = F.relu(y + b.reshape(1, -1, 1, 1))
+    out, idx = F.max_pool2d(y, 2, return_indices=True)
+    W = y.shape[-1]
+    code = (idx // W % 2) * 2 + idx % W % 2
+    return out, torch.where(out <= 0, 4, code).to(torch.uint8)
+
+
+def conv_pool_ref(x, w, b):
+    """The plain CNN first block: ``x`` (B, H, W, C), ``w`` (K, K, C, O),
+    ``b`` (O,) -> ``(out, codes)`` (B, O, H/2, W/2), the ops the paper
+    CNN ran before (``F.conv2d``, the bias, ``F.relu``,
+    ``F.max_pool2d``). A stack — ``x`` (R, B, H, W, C), ``w`` (R, K, K,
+    C, O), ``b`` (R, O) — runs them under ``torch.func.vmap`` over R, the
+    grouped convolution the paper CNN's ``vmap``ped local step ran, with
+    the outputs (B, R, O, H/2, W/2)."""
+    if x.dim() == 4:
+        return _first_block(x, w, b)
+    return torch.func.vmap(_first_block, out_dims=(1, 1))(x, w, b)
+
+
+def _first_block_vjp(g, x, w, b):
+    return torch.func.vjp(lambda w, b: _first_block(x, w, b)[0], w, b)[1](g)
+
+
+def conv_pool_grad_ref(g, x, w, b):
+    """The vjp of ``conv_pool_ref``'s pooled output for its cotangent
+    ``g`` -> ``(dw, db)`` (no gradient for the data ``x``): autograd's
+    backward of the same ops, the first block recomputed. Stacked
+    operands (``g`` (B, R, O, H/2, W/2)) under ``vmap`` over R."""
+    if x.dim() == 4:
+        return _first_block_vjp(g, x, w, b)
+    return torch.func.vmap(_first_block_vjp, in_dims=(1, 0, 0, 0))(
+        g, x, w, b)
+
+
+def conv_pool_grad_codes_ref(g, x, codes, k: int = 5):
+    """The backward kernel's own formulation, in ``g``'s dtype: ``dw[r,
+    kh, kw, c, o]`` the sum over (b, i, j) of ``g[b, r, o, i, j]`` times
+    the padded input at the winner ``(2i + dy, 2j + dx)`` shifted by
+    ``(kh, kw)``, ``db[r, o]`` the sum of the cotangents whose code is not
+    4. Stacked operands: ``g``, ``codes`` (B, R, O, H/2, W/2), ``x`` (R,
+    B, H, W, C). The chip check runs it in float64 on the kernel's own
+    codes."""
+    B, R, O, H2, W2 = g.shape
+    C = x.shape[-1]
+    live = codes != 4
+    gz = torch.where(live, g, torch.zeros_like(g))
+    code = torch.where(live, codes, torch.zeros_like(codes)).long()
+    xp = F.pad(x.to(g.dtype).permute(0, 1, 4, 2, 3), (k // 2,) * 4)
+    h = 2 * torch.arange(H2, device=g.device)[:, None] + code // 2
+    w = 2 * torch.arange(W2, device=g.device) + code % 2
+    dw = g.new_zeros((R, k, k, C, O))
+    rb = (torch.arange(R, device=g.device)[None, :, None, None, None],
+          torch.arange(B, device=g.device)[:, None, None, None, None])
+    for kh in range(k):
+        for kw in range(k):
+            # (B, R, O, H2, W2, C): the input under each winner's tap
+            at = xp[rb[0], rb[1], :, h + kh, w + kw]
+            dw[:, kh, kw] = torch.einsum("brohw,brohwc->rco", gz, at)
+    return dw, gz.sum(dim=(0, 3, 4))

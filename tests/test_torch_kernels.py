@@ -352,13 +352,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tops.server_opt_leaves([x[0], x[1]], [x[1], x[2]], [x[2], x[3]],
                            [x[3].abs(), x[0].abs()], [2, 0.9, 0.99, 0.1, 1e-3])
     assert torch.equal(tops.token_sum(x[None]), tref.token_sum_ref(x[None]))
+    img, w, b = x[:, :9].reshape(1, 3, 3, 4), x[:, :25].reshape(5, 5, 4, 1) \
+        .expand(5, 5, 4, 8), x[0, :8]
+    out, codes = tops.conv_pool(img, w, b)
+    tops.conv_pool_grad(out, img, w, b, codes)
     assert tops.LAUNCHES == {"fused_sgd": 0, "delta_norm": 0,
                              "gather_combine": 0, "fedavg_combine": 0,
                              "contention_min": 0, "contention_expiry": 0,
                              "contention_transition": 0,
                              "contention_loop": 0,
                              "aircomp_combine": 0, "robust_combine": 0,
-                             "server_opt": 0, "token_sum": 0}
+                             "server_opt": 0, "token_sum": 0,
+                             "conv_pool": 0, "conv_pool_grad": 0}
 
 
 def test_plain_versions_agree_with_wrappers_on_cpu():

@@ -189,9 +189,10 @@ def test_port_mirrors_the_reference_layout():
     """Every python module of the port sits at the path of its
     counterpart, apart from the files that have none (``token_sum.py``
     binds the LLM step's fixed-order sum, which the reference leaves to
-    XLA; ``trace.py`` records the port's round loops)."""
+    XLA; ``conv_pool.py`` the paper CNN's first block, which it leaves to
+    XLA too; ``trace.py`` records the port's round loops)."""
     own = {"device.py", "tree.py", "convert.py", "trace.py",
-           "kernels/build.py", "kernels/token_sum.py"}
+           "kernels/build.py", "kernels/token_sum.py", "kernels/conv_pool.py"}
     for f in (SRC / "repro_torch").rglob("*.py"):
         rel = f.relative_to(SRC / "repro_torch").as_posix()
         if rel in own or rel.endswith("__init__.py"):
