@@ -4,6 +4,8 @@ result line."""
 from __future__ import annotations
 
 import gc
+import math
+import resource
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
@@ -16,7 +18,7 @@ from .trace import top
 from ..reference import judge
 from ..reference.fl import Reference, RoundRecord
 from ..reference.ops import Ops
-from ..work import models as work_models
+from ..work import peaks
 
 
 @dataclass
@@ -28,7 +30,20 @@ class Reading:
 
     @property
     def params(self) -> int:
-        return work_models.param_count(self.cell.config)
+        """Parameters of the model: the reference module's shapes."""
+        return sum(math.prod(s) for s in
+                   self.cell.model.shapes(self.cell.config).values())
+
+    @property
+    def param_bytes(self) -> int:
+        """Bytes of one parameter in the configuration's ``param_dtype``."""
+        return peaks.ITEM_BYTES[self.cell.param_dtype]
+
+    @property
+    def peak_flops(self) -> float:
+        """The card's peak in the configuration's compute dtype."""
+        return peaks.peak_flops(self.cell.dtype,
+                                bool(self.cell.config.get("tf32")))
 
     @property
     def users(self) -> int:
@@ -40,8 +55,7 @@ class Reading:
 
     @property
     def round_flops(self) -> dict:
-        return work_models.round_flops(
-            self.cell.config, {**self.cell.traffic, **self.cell.spec})
+        return self.cell.kind.round_flops(self.cell)
 
     def kernel(self, part: str):
         """(seconds, launches) of the profiled phase's device operations
@@ -65,8 +79,7 @@ class Reading:
 def reference_records(cell, inputs, seed: int, device, select_by=None,
                       ops: Optional[Ops] = None, batch_frac: float = 1.0
                       ) -> List[RoundRecord]:
-    ref = Reference(cell.model, cell.spec, inputs.x, inputs.y,
-                    inputs.init_host, seed, device, ops=ops,
+    ref = Reference(cell, inputs, seed, device, ops=ops,
                     batch_frac=batch_frac)
     out = ref.run(cell.workload["checked_rounds"], select_by=select_by)
     del ref
@@ -83,11 +96,11 @@ def check(cell, inputs, seed: int, device, records: List[RoundRecord]):
     limits = cell.workload["limits"]
     ref = reference_records(cell, inputs, seed, device,
                             select_by=[r.prio for r in records])
-    values = judge.numbers(records, ref, inputs.init_host)
+    values = judge.numbers(records, ref)
     ok, checks = judge.verdict(values, limits)
     failed = 0 if ok else sum(
-        not judge.verdict(judge.numbers(records[:r + 1], ref[:r + 1],
-                                        inputs.init_host), limits)[0]
+        not judge.verdict(judge.numbers(records[:r + 1], ref[:r + 1]),
+                          limits)[0]
         for r in range(len(records)))
     return ok, checks, failed
 
@@ -114,7 +127,16 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         v = mod.read(reading)
         if v is not None:
             metrics[m] = {"value": float(v), "unit": mod.UNIT}
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    s = time.perf_counter()
     ok, checks, failed = check(cell, inputs, seed, dev, records)
+    reference = {"seconds": time.perf_counter() - s,
+                 "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                if cuda else None),
+                 "host_peak_rss_bytes": 1024 * resource.getrusage(
+                     resource.RUSAGE_SELF).ru_maxrss}
     device_info = {
         "platform": "gpu" if dev.type == "cuda" else dev.type,
         "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -130,5 +152,6 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         out["breakdown"] = {"device_ops": top(timing.profile["ops"]),
                             "idle_gaps": top(timing.profile["gaps"])}
     out["setup_stamps"] = timing.stamps
+    out["reference"] = reference
     out["checks"] = checks
     return out

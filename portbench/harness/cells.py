@@ -2,7 +2,10 @@
 
 A cell is ``workloads/<name>.json``; it names its configuration,
 ``configs/<config>.json``, whose plain reference model is the module its
-``reference`` key names beside it; a metric is ``metrics/<name>.py``.
+``reference`` key names (a path from the configuration's directory), and
+whose kind, ``config.get("kind", "classification")``, is the module
+``kinds/<kind>.py`` (the inputs, the program's pieces, how the reference
+takes a batch, the work counts); a metric is ``metrics/<name>.py``.
 ``BENCHMARK.json`` at the checkout's root says which metrics a cell
 reports. Adding a cell, a configuration or a metric adds files; no file
 here changes.
@@ -14,7 +17,7 @@ import json
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -31,12 +34,14 @@ def load_module(path: Path) -> ModuleType:
 
 @dataclass
 class Cell:
-    """One workload: its file's dict, its configuration's dict and the
-    configuration's plain reference model module."""
+    """One workload: its file's dict, its configuration's dict, the
+    configuration's plain reference model module and its kind's
+    module."""
     name: str
     workload: dict
     config: dict
     model: ModuleType
+    kind: ModuleType
 
     @property
     def spec(self) -> dict:
@@ -46,16 +51,36 @@ class Cell:
     def traffic(self) -> dict:
         return self.workload["traffic"]
 
+    @property
+    def dtype(self) -> str:
+        """The configuration's compute dtype."""
+        return self.config.get("dtype", "float32")
 
-def load_cell(name: str) -> Cell:
-    path = BENCH / "workloads" / f"{name}.json"
+    @property
+    def param_dtype(self) -> str:
+        """The dtype the program holds the parameters in."""
+        return self.config.get("param_dtype", self.dtype)
+
+
+def load_kind(config: dict) -> ModuleType:
+    return load_module(BENCH / "kinds"
+                       / f"{config.get('kind', 'classification')}.py")
+
+
+def load_cell(name: str, root: Optional[Path] = None) -> Cell:
+    """The cell ``name`` of the benchmark, or of another directory
+    ``root`` that holds ``workloads/`` and ``configs/`` laid out alike."""
+    root = BENCH if root is None else Path(root)
+    path = root / "workloads" / f"{name}.json"
     if not path.is_file():
         raise SystemExit(f"portbench: no workload {name!r} ({path})")
     workload = json.loads(path.read_text())
-    cfg_dir = BENCH / "configs"
+    cfg_dir = root / "configs"
     config = json.loads((cfg_dir / f"{workload['config']}.json").read_text())
-    return Cell(name, workload, config,
-                load_module(cfg_dir / config["reference"]))
+    model = load_module(cfg_dir / config["reference"])
+    kind = load_kind(config)
+    kind.check(config, model)
+    return Cell(name, workload, config, model, kind)
 
 
 def benchmark() -> dict:

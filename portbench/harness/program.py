@@ -2,11 +2,12 @@
 ``engine.build_host_engine(spec, init, loss_fn, user_data, eval_fn)``
 then ``FLEngine.run()`` (on a fused cell the E = 1 sweep loop).
 
-One ``run()`` call holds the whole run. Its evaluation callback, which
-the engine calls once a round, is wrapped: after the program's own
-accuracy evaluation (1000 test examples, every round) and a
-``synchronize``, the round counts, and the wrapper moves the run through
-its phases:
+The cell's kind (``kinds/<kind>.py::program``) gives the program's
+pieces: the loss, the users' data and the evaluation. One ``run()`` call
+holds the whole run. Its evaluation callback, which the engine calls
+once a round, is wrapped: after the program's own evaluation (every
+round) and a ``synchronize``, the round counts, and the wrapper moves
+the run through its phases:
 
 * warm-up: the first ``warmup_rounds`` rounds, set-up; the first
   ``checked_rounds`` of them are captured for the reference;
@@ -27,17 +28,26 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
 from . import trace as trace_mod
-from ..reference.fl import RoundRecord, change_norms
+from ..reference.fl import RoundRecord, change_norms, leaf_norms
 
 #: seconds of each traced phase (profiled, then synchronised spans)
 PHASE_S = 2.0
 #: rounds the engine is given: the window closes the run long before
 ROUNDS = 10 ** 9
+
+
+class Pieces(NamedTuple):
+    """The program's pieces that a cell's kind gives
+    ``build_host_engine``: the loss, the users' data and the
+    evaluation."""
+    loss: Callable
+    users: list
+    evaluate: Callable
 
 
 class WindowClosed(Exception):
@@ -110,22 +120,15 @@ class Run:
 
     # ------------------------------------------------------------ build
     def build(self):
-        from repro_torch.engine import (ExperimentSpec, build_host_engine,
-                                        make_accuracy_eval)
-        from repro_torch.launch.train import classification_loss
-        from repro_torch.models.paper_models import get_paper_model
+        from repro_torch.engine import ExperimentSpec, build_host_engine
 
-        cfg, inp = self.cell.config, self.inputs
-        _, apply_fn = get_paper_model(cfg["model"], cfg["dataset"])
-        accuracy = make_accuracy_eval(apply_fn, inp.x_test, inp.y_test,
-                                      device=self.device)
-        self._accuracy = accuracy
+        prog = self.cell.kind.program(self.cell, self.inputs, self.device)
+        self._evaluate = prog.evaluate
         spec = ExperimentSpec(rounds=ROUNDS, seed=self.seed,
                               **self.cell.spec)
-        users = [{"x": inp.x[u], "y": inp.y[u]} for u in range(len(inp.x))]
         self.engine = build_host_engine(
-            spec, nested(dict(inp.init)), classification_loss(apply_fn),
-            users, self._eval, device=self.device)
+            spec, nested(dict(self.inputs.init)), prog.loss, prog.users,
+            self._eval, device=self.device)
         self.backend = self.engine.backend
         if self.patch is not None:
             self.patch(self.engine)
@@ -222,9 +225,9 @@ class Run:
         if self._phase == "profile":
             with torch.profiler.record_function(
                     trace_mod.SPAN_PREFIX + "eval"):
-                acc = self._accuracy(params)
+                acc = self._evaluate(params)
         else:
-            acc = self._accuracy(params)
+            acc = self._evaluate(params)
         self._sync()
         now = time.perf_counter()
         r, self._round = self._round, self._round + 1
@@ -234,10 +237,8 @@ class Run:
             p = self._pending.pop(r)
             self.records.append(RoundRecord(
                 loss=p["loss"], first_loss=p["first"], prio=p["prio"],
-                winners=p["winners"],
-                local=p["local"],
-                glob={k: v.detach().cpu().numpy()
-                      for k, v in flatten(params).items()}))
+                winners=p["winners"], local=p["local"],
+                change=leaf_norms(flatten(params), self.inputs.init_host)))
         self._advance(now)
         return acc
 
@@ -296,7 +297,7 @@ class Run:
         if self._prof is not None:
             self.timing.profile = trace_mod.reduce(self._prof)
             self._prof = None
-        self.engine = self.backend = self._accuracy = None
+        self.engine = self.backend = self._evaluate = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         return self.timing

@@ -1,109 +1,50 @@
-"""The one generator of the benchmark's inputs: data, test set and
-initial weights, all from ``--seed`` on one ``torch.Generator`` of the
-device, drawn in a fixed order.
-
-Data: class-conditional images shaped as the configuration's input
-(Fashion-MNIST's 28 x 28 x 1 for the paper's models). Each class has a
-smooth template (four random 2-D cosines a channel, scaled to [0, 1]);
-an example is its class's template plus ``noise`` N(0, 1), scaled by
-U(0.7, 1.3), shifted by U(-0.15, 0.15), clipped to [0, 1]. The users'
-labels are the non-IID split of McMahan et al. that the paper uses: a
-balanced label vector sorted by class, cut into ``shards_per_user *
-users`` shards, dealt out by a random permutation. Test labels are
-uniform. Users are made a block at a time on the device and copied into
-one host array, which the program takes as its users' host data.
+"""The one entry to the benchmark's inputs: data, test set and initial
+weights, all from ``--seed`` on one ``torch.Generator`` of the device,
+drawn in a fixed order: the cell's kind makes the users' data and the
+test set (``kinds/<kind>.py::make_data``, from the workload's
+``traffic`` block), then the configuration's reference module draws the
+initial weights in f32 (``init``). The program gets them cast to the
+configuration's ``param_dtype``; the host copy, which the reference and
+the records start from, holds those cast values in f32, so both sides
+start from equal inputs. The users' data goes to the program as host
+arrays.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
 import torch
 
-#: users made on the device at a time (bounds the generator's memory)
-BLOCK_USERS = 256
-
 
 @dataclass
 class Inputs:
     """What a run hands the program and the reference: the users' data
-    (U, n, ...) float32 and (U, n) int32, the test set, and the initial
-    global (leaf name -> device tensor, and its host copy)."""
-    x: np.ndarray
-    y: np.ndarray
-    x_test: np.ndarray
-    y_test: np.ndarray
+    (arrays with a leading users axis, by key: ``x`` / ``y`` images and
+    labels, or ``tokens``), the test set by key, and the initial global
+    (leaf name -> device tensor in the program's ``param_dtype``, and its
+    host copy in f32)."""
+    users: Dict[str, np.ndarray]
+    test: Dict[str, np.ndarray]
     init: Dict[str, torch.Tensor]
     init_host: Dict[str, np.ndarray]
 
-
-def _templates(gen, classes, shape, device):
-    h, w, c = shape
-    yy = torch.arange(h, device=device, dtype=torch.float64)[:, None]
-    xx = torch.arange(w, device=device, dtype=torch.float64)[None, :]
-    draws = torch.rand((classes, c, 4, 5), generator=gen, device=device,
-                       dtype=torch.float64)
-    freq = 0.5 + 2.5 * draws[..., :2]
-    phase = 2 * math.pi * draws[..., 2:4]
-    amp = 0.3 + 0.7 * draws[..., 4]
-    img = (amp[..., None, None]
-           * torch.cos(2 * math.pi * freq[..., 0, None, None] * yy / h
-                       + phase[..., 0, None, None])
-           * torch.cos(2 * math.pi * freq[..., 1, None, None] * xx / w
-                       + phase[..., 1, None, None])).sum(dim=2)
-    lo = img.amin(dim=(2, 3), keepdim=True)
-    hi = img.amax(dim=(2, 3), keepdim=True)
-    img = (img - lo) / torch.clamp(hi - lo, min=1e-9)
-    return img.permute(0, 2, 3, 1).to(torch.float32)       # (classes, h, w, c)
-
-
-def _examples(gen, templates, labels, noise):
-    x = templates[labels]
-    x = x + noise * torch.randn(x.shape, generator=gen, device=x.device)
-    lead = labels.shape + (1,) * (x.dim() - labels.dim())
-    x = x * (0.7 + 0.6 * torch.rand(lead, generator=gen, device=x.device))
-    x = x + (0.3 * torch.rand(lead, generator=gen, device=x.device) - 0.15)
-    return torch.clamp(x, 0.0, 1.0)
+    @property
+    def num_users(self) -> int:
+        return len(next(iter(self.users.values())))
 
 
 def make_inputs(cell, seed: int, device) -> Inputs:
     """The cell's inputs for ``seed``: the same seed gives the same
     inputs on the same device."""
-    cfg, tr = cell.config, cell.traffic
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    U, n = tr["users"], tr["examples_per_user"]
-    shards = tr["shards_per_user"]
-    if n % shards:
-        raise ValueError("examples_per_user must divide into its shards")
-    classes, shape = cfg["classes"], tuple(cfg["input_shape"])
-    templates = _templates(gen, classes, shape, dev)
-    total = U * n
-    ordered = (torch.arange(total, device=dev) * classes) // total
-    deal = torch.randperm(U * shards, generator=gen, device=dev)
-    size = n // shards
-    flat = cfg["model"] == "mlp"
-    feat = (math.prod(shape),) if flat else shape
-    x = np.empty((U, n) + feat, np.float32)
-    y = np.empty((U, n), np.int32)
-    for lo in range(0, U, BLOCK_USERS):
-        hi = min(U, lo + BLOCK_USERS)
-        starts = deal[lo * shards:hi * shards].view(hi - lo, shards) * size
-        idx = (starts[..., None]
-               + torch.arange(size, device=dev)).reshape(hi - lo, n)
-        labels = ordered[idx]
-        xb = _examples(gen, templates, labels, tr["noise"])
-        torch.from_numpy(x[lo:hi]).copy_(xb.reshape((hi - lo, n) + feat))
-        torch.from_numpy(y[lo:hi]).copy_(labels.to(torch.int32))
-        del xb
-    T = tr["test_examples"]
-    y_test = torch.randint(0, classes, (T,), generator=gen, device=dev)
-    x_test = _examples(gen, templates, y_test, tr["noise"])
-    init = cell.model.init(cfg, gen, dev)
-    return Inputs(x=x, y=y,
-                  x_test=x_test.reshape((T,) + feat).cpu().numpy(),
-                  y_test=y_test.to(torch.int32).cpu().numpy(),
-                  init=init,
-                  init_host={k: v.cpu().numpy() for k, v in init.items()})
+    users, test = cell.kind.make_data(cell, gen, dev)
+    init32 = cell.model.init(cell.config, gen, dev)
+    dtype = getattr(torch, cell.param_dtype)
+    init, host = {}, {}
+    for k in list(init32):
+        init[k] = init32.pop(k).to(dtype)
+        host[k] = init[k].float().cpu().numpy()
+    return Inputs(users=users, test=test, init=init, init_host=host)

@@ -1,6 +1,7 @@
 """``delta_norm_kernel``'s share of its roofline: each launch (one a
-round, every leaf of the users' stack against the global) bounded by its
-bytes at the HBM peak, over its measured time."""
+round, every leaf of the users' stack against the global, ``param_bytes``
+an element) bounded by its bytes at the HBM peak, over its measured
+time."""
 from portbench.work.kernels import delta_norm_bytes
 from portbench.work.peaks import HBM_BW
 
@@ -13,5 +14,6 @@ def read(r):
     if k is None or k[0] <= 0:
         return None
     secs, launches = k
-    bound = launches * delta_norm_bytes(r.users, r.params, r.leaves) / HBM_BW
+    bound = launches * delta_norm_bytes(r.users, r.params, r.leaves,
+                                        r.param_bytes) / HBM_BW
     return 100.0 * bound / secs

@@ -21,6 +21,9 @@ Over the checked rounds (records of ``fl.RoundRecord``'s form):
 * ``change3_gap``: the global's change after the three checked rounds,
   the same way.
 
+Both change gaps read each record's ``change``: the norms of the merged
+global's change from the initial global, summed leaf by leaf in f64.
+
 A leaf the reference moves by under a thousandth of its median leaf's
 change is left out of a change gap (its change is round-off).
 """
@@ -59,16 +62,9 @@ def _rel(got, want) -> float:
     return float(np.nan_to_num(gap, nan=np.inf).max())
 
 
-def _change(glob, start) -> np.ndarray:
-    return np.array([np.linalg.norm(glob[k].astype(np.float64)
-                                    - start[k].astype(np.float64))
-                     for k in sorted(start)])
-
-
-def numbers(prog: List, ref: List, start: Dict[str, np.ndarray]
-            ) -> Dict[str, float]:
-    """``prog`` / ``ref``: the checked rounds' records; ``start``: the
-    initial global both began from."""
+def numbers(prog: List, ref: List) -> Dict[str, float]:
+    """``prog`` / ``ref``: the checked rounds' records, both begun from
+    the same initial global."""
     n = len(ref)
     out = {
         "first_loss_gap": _rel(prog[0].first_loss, ref[0].first_loss),
@@ -78,10 +74,8 @@ def numbers(prog: List, ref: List, start: Dict[str, np.ndarray]
         "prio_gap": max(_rel(p.prio, r.prio) for p, r in zip(prog, ref)),
         "winners_mismatch": float(sum(
             list(p.winners) != list(r.winners) for p, r in zip(prog, ref))),
-        "step1_gap": norm_gap(_change(prog[0].glob, start),
-                              _change(ref[0].glob, start)),
-        "change3_gap": norm_gap(_change(prog[n - 1].glob, start),
-                                _change(ref[n - 1].glob, start)),
+        "step1_gap": norm_gap(prog[0].change, ref[0].change),
+        "change3_gap": norm_gap(prog[n - 1].change, ref[n - 1].change),
     }
     return out
 

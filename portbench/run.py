@@ -76,6 +76,9 @@ def main(argv=None) -> int:
     stamps = result.pop("setup_stamps")
     print("setup: " + ", ".join(f"{k} {v:.3f} s" for k, v in stamps.items()),
           file=sys.stderr)
+    print("reference: " + ", ".join(f"{k} {v!r}" for k, v in
+                                    result.pop("reference").items()),
+          file=sys.stderr)
     if args.trace:
         print(f"card: {power_limit()}", file=sys.stderr)
     for name, c in result["checks"].items():

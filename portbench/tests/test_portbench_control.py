@@ -1,24 +1,32 @@
 """The control comes out not correct: the reference put in the program's
-place with its products in TF32 (the precision below the configuration's
-f32 with TF32 off), judged as a run of the program is, at a size a test
-run holds (the card's readings at the cells' own sizes are in PERF.md)."""
+place with its products' operands rounded to the precision below the
+configuration's (TF32 for f32 with TF32 off), judged as a run of the
+program is, at a size a test run holds (the card's readings at the
+cells' own sizes are in PERF.md)."""
 import pytest
 
 import tiny
 from portbench.harness import bench, traffic
-from portbench.reference.ops import Ops
+from portbench.reference import ops
 
 SEED = 2 ** 31 + 12345
 
 
-@pytest.mark.parametrize("name", ["cnn-paper-u10", "paper-mlp"])
+def _small(name):
+    if name == "paper-mlp":
+        return tiny.mlp_cell(users=8, k=3)
+    if name == "lm-tiny":
+        return tiny.lm_cell()
+    return tiny.cell(name, users=8, k=3)
+
+
+@pytest.mark.parametrize("name", ["cnn-paper-u10", "paper-mlp", "lm-tiny"])
 def test_the_tf32_control_is_not_correct(name):
-    c = (tiny.mlp_cell(users=8, k=3) if name == "paper-mlp"
-         else tiny.cell(name, users=8, k=3))
+    c = _small(name)
     with tiny.one_thread():
         inputs = traffic.make_inputs(c, SEED, "cpu")
         control = bench.reference_records(c, inputs, SEED, "cpu",
-                                          ops=Ops(tf32=True))
+                                          ops=ops.control(c.config))
         ok, checks, failed = bench.check(c, inputs, SEED, "cpu", control)
     assert not ok and failed >= 1, checks
 

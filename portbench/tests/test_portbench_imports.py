@@ -28,17 +28,20 @@ def _loaded(code: str) -> set:
 
 
 def test_the_harness_loads_no_jax_side_module():
-    """A whole (small, CPU) run of each cell, as ``run.py`` makes it."""
+    """A whole (small, CPU) run of each cell, as ``run.py`` makes it, and
+    the ``lm`` kind's program built for its test cell."""
     mods = _loaded(
         f"sys.path.insert(0, {str(BENCH / 'tests')!r})\n"
         "import tiny\n"
         "import portbench.run, portbench.calibrate\n"
-        "from portbench.harness import cells\n"
+        "from portbench.harness import cells, traffic\n"
         "cells.metric_readers([p.stem for p in "
         "(cells.BENCH / 'metrics').glob('*.py')])\n"
         "for w in sorted((cells.BENCH / 'workloads').glob('*.json')):\n"
         "    assert 'checks' in tiny.run(tiny.cell(w.stem), seconds=0.2)\n"
-        "assert 'checks' in tiny.run(tiny.mlp_cell(), seconds=0.2)")
+        "assert 'checks' in tiny.run(tiny.mlp_cell(), seconds=0.2)\n"
+        "c = tiny.lm_cell()\n"
+        "c.kind.program(c, traffic.make_inputs(c, 1, 'cpu'), 'cpu')")
     assert "repro_torch" in mods and "portbench" in mods
     assert not mods & JAX_SIDE, mods & JAX_SIDE
 
@@ -46,7 +49,7 @@ def test_the_harness_loads_no_jax_side_module():
 def test_the_reference_loads_nothing_of_the_program():
     mods = _loaded(
         "import importlib.util\n"
-        "from portbench.reference import csma, fl, judge, ops, rngs\n"
+        "from portbench.reference import csma, fl, judge, lm, ops, rngs\n"
         "from portbench.harness import cells\n"
         "for p in sorted((cells.BENCH / 'configs').glob('*.py')):\n"
         "    cells.load_module(p)")

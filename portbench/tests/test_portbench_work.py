@@ -1,6 +1,7 @@
 """The frozen arithmetic against hand counts: the paper models' sizes and
 FLOPs (Sec. IV-A2), a round's FLOPs, the kernels' bytes, the peaks."""
 import json
+import math
 
 import pytest
 
@@ -14,19 +15,25 @@ def _cfg(name):
     return json.loads((cells.BENCH / "configs" / f"{name}.json").read_text())
 
 
+def _params(cfg):
+    """The parameters of the configuration's reference module's leaves."""
+    ref = cells.load_module(cells.BENCH / "configs" / cfg["reference"])
+    return sum(math.prod(s) for s in ref.shapes(cfg).values())
+
+
 def test_paper_cnn_counts():
     cfg = _cfg("paper-cnn")
     # conv1 28*28*128*25*1, conv2 14*14*256*25*128, fc 12544*10 MACs
     macs = 28 * 28 * 128 * 25 + 14 * 14 * 256 * 25 * 128 + 7 * 7 * 256 * 10
     assert models.forward_flops(cfg) == 2 * macs == 326_394_880
-    assert models.param_count(cfg) == 948_234 == cfg["params"]
+    assert _params(cfg) == 948_234 == cfg["params"]
     assert cfg["forward_flops_per_example"] == 2 * macs
 
 
 def test_paper_mlp_counts():
     cfg = _cfg("paper-mlp")
     assert models.forward_flops(cfg) == 2 * (784 * 200 + 200 * 10) == 317_600
-    assert models.param_count(cfg) == 159_010 == cfg["params"]
+    assert _params(cfg) == 159_010 == cfg["params"]
     assert cfg["forward_flops_per_example"] == 317_600
 
 
@@ -54,6 +61,13 @@ def test_peaks_are_the_data_sheet_values():
     assert peaks.PEAK_FLOPS_F32 == 67e12
     assert peaks.PEAK_FLOPS_BF16 == 989e12
     assert peaks.HBM_BW == 3.35e12
+    # a configuration's compute dtype picks its peak
+    assert peaks.peak_flops("float32") == 67e12
+    assert peaks.peak_flops("bfloat16") == 989e12
+    with pytest.raises(ValueError):
+        peaks.peak_flops("float32", tf32=True)
+    assert (peaks.ITEM_BYTES["float32"], peaks.ITEM_BYTES["bfloat16"]) \
+        == (4, 2)
 
 
 @pytest.mark.parametrize("name", ["paper-cnn", "paper-mlp"])

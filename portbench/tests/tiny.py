@@ -1,9 +1,12 @@
 """Small CPU versions of the benchmark's cells for the tests: the cells'
 own files with fewer users and examples (and, for the CNN, fewer
-channels), so a run takes seconds on the CPU; and ``mlp_cell``, the
-paper's MLP under device CSMA, the configuration and contention engine
-that no cell runs yet. Importing it puts the checkout's root and ``src``
-on the path, so every test file imports it first."""
+channels), so a run takes seconds on the CPU; ``mlp_cell``, the paper's
+MLP under device CSMA, the configuration and contention engine that no
+cell runs yet; and ``lm_cell``, a cell of kind ``lm`` (yi-9b at the size
+of the program's ``reduced()`` smoke variant) loaded from the files under
+``tests/lm/`` as a cell of the benchmark is. Importing it puts the
+checkout's root and ``src`` on the path, so every test file imports it
+first."""
 import contextlib
 import json
 import sys
@@ -25,7 +28,7 @@ def cell(name, users=6, k=2, examples=64, channels=(8, 16)):
     c.workload["traffic"].update(users=users, examples_per_user=examples,
                                  test_examples=100)
     c.workload["spec"]["k_per_round"] = k
-    if c.config["model"] == "cnn":
+    if c.config.get("model") == "cnn":
         c.config["conv_channels"] = list(channels)
     return c
 
@@ -41,6 +44,11 @@ def mlp_cell(users=6, k=2, examples=64):
     c.workload["config"] = c.config["name"]
     c.workload["spec"]["contention_backend"] = "device"
     return c
+
+
+def lm_cell():
+    """The ``lm-tiny`` cell: 4 users x 8 sequences of 33 tokens, k = 2."""
+    return cells.load_cell("lm-tiny", root=Path(__file__).parent / "lm")
 
 
 @contextlib.contextmanager

@@ -1,6 +1,8 @@
-"""Byte counts of the port's kernels on the paper's round, from shapes:
-each input byte read once, each output byte written once (the least any
-kernel could move). Over ``peaks.HBM_BW`` they give a launch's bound."""
+"""Byte counts of the port's kernels on the FL round, from shapes: each
+input byte read once, each output byte written once (the least any
+kernel could move); ``item`` is the bytes of one parameter in the
+configuration's ``param_dtype``. Over ``peaks.HBM_BW`` they give a
+launch's bound."""
 from __future__ import annotations
 
 

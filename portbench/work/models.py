@@ -28,22 +28,6 @@ def forward_flops(cfg) -> int:
     raise ValueError(f"unknown model kind {kind!r}")
 
 
-def param_count(cfg) -> int:
-    kind = cfg["model"]
-    if kind == "mlp":
-        dims = [cfg["d_input"], *cfg["hidden"], cfg["classes"]]
-        return sum(a * b + b for a, b in zip(dims, dims[1:]))
-    if kind == "cnn":
-        h, w, c = cfg["input_shape"]
-        k, pool = cfg["kernel_size"], cfg["pool"]
-        total = 0
-        for cout in cfg["conv_channels"]:
-            total += k * k * c * cout + cout
-            h, w, c = h // pool, w // pool, cout
-        return total + h * w * c * cfg["classes"] + cfg["classes"]
-    raise ValueError(f"unknown model kind {kind!r}")
-
-
 def round_flops(cfg, cell) -> dict:
     """FLOPs of one FL round of ``cell``: every user's local steps (three
     forward passes an example) and one evaluation of the test set."""
